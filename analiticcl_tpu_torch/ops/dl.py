@@ -1,0 +1,187 @@
+"""Stage B metrics: windowed Damerau-Levenshtein + LCS, prefix and suffix.
+
+Three functions:
+
+* :func:`dl_metrics_windowed_plain` is the plain PyTorch version, a port of
+  the JAX row-vectorized DP (``analiticcl_tpu/ops/dl_jax.py``,
+  ``dl_metrics_windowed``). It returns ``(ld, lcs, prefix, suffix)``.
+* :func:`affix_metrics_aligned` gives prefix and suffix lengths from
+  pre-aligned forward and reversed strings (``dl_jax.affix_metrics_aligned``).
+  They stay torch ops on every device, as they stay XLA ops in the JAX package.
+* :func:`dl_lcs` gives ``(ld, lcs)``: for a CUDA tensor it launches the
+  hand-written kernel ``csrc/dl_lcs.cu``; for a CPU tensor it takes the plain
+  version. Anything else raises.
+
+Inputs are int32 ``[P, L]`` strings, queries padded with ``PAD_A`` and
+candidates with ``PAD_B`` so that padding never matches, and int32 ``[P]``
+lengths.
+
+Exactness contract (shared with the JAX package): where the true unrestricted
+DL is <= ``window`` the value is exact; otherwise it is some value > ``window``.
+The kernel and the plain version may differ above ``window``; a comparison
+clips both at ``window + 1``. The LCS is exact everywhere.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+PAD_A = -1
+PAD_B = -2
+KERNEL_WINDOWS = (3, 6, 12)
+KERNEL_MAX_LEN = 64  # compile-time cap of the kernel's per-thread arrays
+
+
+def _first_mismatch_len(x, y, minlen):
+    L = x.shape[1]
+    big = 2 * L + 8
+    pos = torch.arange(L, dtype=torch.int32, device=x.device)[None, :]
+    mism = (x != y) & (pos < minlen[:, None])
+    first = torch.where(mism, pos, big).amin(dim=1)
+    return torch.where(first == big, minlen, first).to(torch.int32)
+
+
+def affix_metrics_aligned(a, a_len, b, b_len, a_rev, b_rev):
+    """Common prefix and suffix lengths; ``a_rev``/``b_rev`` are the strings
+    reversed and left-aligned, so the suffix is the prefix of the reversed
+    pair."""
+    minlen = torch.minimum(a_len, b_len)
+    return (
+        _first_mismatch_len(a, b, minlen),
+        _first_mismatch_len(a_rev, b_rev, minlen),
+    )
+
+
+def _shift_end(x, lens, pad):
+    """Right-align the first ``lens`` entries of each row at column L."""
+    L = x.shape[1]
+    pos = torch.arange(L, dtype=torch.int32, device=x.device)[None, :]
+    idx = pos - (L - lens[:, None])
+    got = torch.gather(x, 1, idx.clamp(min=0).long())
+    return torch.where(idx >= 0, got, pad)
+
+
+def dl_metrics_windowed_plain(a, a_len, b, b_len, max_len: int, window: int):
+    """Windowed DL + LCS + prefix/suffix as dense torch ops, row by row.
+
+    Follows ``dl_jax.dl_metrics_windowed`` step for step. The ring of the
+    last ``window + 2`` DP rows is one ``[P, window + 2, L + 1]`` tensor in
+    which row ``k`` lives in slot ``k % (window + 2)``; the transposition
+    term, which the JAX version assembles from ``(window + 1)**2`` selects,
+    is one gather at slot ``last % (window + 2)``, column ``db - 1``.
+    """
+    P, L = a.shape
+    assert L == max_len
+    dev = a.device
+    Wp = window + 1
+    nslot = Wp + 1
+    big = 2 * L + 8
+    i32 = torch.int32
+
+    minlen = torch.minimum(a_len, b_len)
+    prefix = _first_mismatch_len(a, b, minlen)
+    a_r = _shift_end(a, a_len, PAD_A)
+    b_r = _shift_end(b, b_len, PAD_B)
+    pos = torch.arange(L, dtype=i32, device=dev)[None, :]
+    in_tail = pos >= (L - minlen)[:, None]
+    last_mismatch = torch.where((a_r != b_r) & in_tail, pos, -1).amax(dim=1)
+    suffix = torch.where(last_mismatch < 0, minlen, L - 1 - last_mismatch)
+
+    cols = torch.arange(1, L + 1, dtype=i32, device=dev)[None, :]
+    jidx = torch.arange(0, L + 1, dtype=i32, device=dev)[None, :]
+    ring = torch.full((P, nslot, L + 1), big, dtype=i32, device=dev)
+    ring[:, 1 % nslot] = jidx  # mat[1] = 0..L
+    ring_flat = ring.view(P, nslot * (L + 1))
+    lastrow_col = torch.zeros((P, L), dtype=i32, device=dev)
+    lcs_prev = torch.zeros((P, L), dtype=i32, device=dev)
+    lcs_best = torch.zeros(P, dtype=i32, device=dev)
+    res = torch.zeros(P, dtype=i32, device=dev)
+    zero_col = torch.zeros((P, 1), dtype=i32, device=dev)
+    b_len_idx = b_len.clamp(min=0).long()[:, None]
+
+    for i1 in range(L):
+        i = i1 + 1  # reading mat[i], writing mat[i+1]
+        match = b == a[:, i1 : i1 + 1]
+        jm = torch.where(match, cols, 0)
+        db = torch.cat([zero_col, torch.cummax(jm, dim=1).values[:, :-1]], 1)
+        last = lastrow_col
+
+        prev_row = ring[:, i % nslot]
+        sub = prev_row[:, 0:L] + torch.where(match, 0, 1)
+        ins = prev_row[:, 1 : L + 1] + 1
+
+        # term = mat[i-d][j-s] + d + s - 1 for d = i - last, s = j - db,
+        # both in [1, Wp]; mat[i-d] sits in slot last % nslot
+        d = i - last
+        s = cols - db
+        gidx = (last % nslot) * (L + 1) + (db - 1).clamp(min=0)
+        v = torch.gather(ring_flat, 1, gidx.long())
+        v = torch.where(db >= 1, v, big)
+        sel = (d >= 1) & (d <= Wp) & (s >= 1) & (s <= Wp)
+        transp = torch.where(sel, v + d + s - 1, 4 * big)
+
+        cand = torch.minimum(torch.minimum(sub, ins), transp)
+        shifted0 = torch.cat([torch.full_like(zero_col, i), cand], 1)
+        new_row = torch.cummin(shifted0 - jidx, dim=1).values + jidx
+
+        res_col = torch.gather(new_row, 1, b_len_idx)[:, 0]
+        res = torch.where(a_len - 1 == i1, res_col, res)
+        lastrow_col = torch.where(match, i, lastrow_col)
+
+        valid = match & (i1 < a_len)[:, None] & (pos < b_len[:, None])
+        lcs_shift = torch.cat([zero_col, lcs_prev[:, :-1]], 1)
+        lcs_prev = torch.where(valid, lcs_shift + 1, 0)
+        lcs_best = torch.maximum(lcs_best, lcs_prev.amax(dim=1))
+
+        ring[:, (i + 1) % nslot] = new_row
+
+    ld = torch.where(a_len == 0, b_len, res)
+    ld = torch.where(b_len == 0, a_len, ld)
+    return ld, lcs_best, prefix, suffix.to(i32)
+
+
+def _check_pairs(a, a_len, b, b_len, max_len):
+    P, L = a.shape
+    if L != max_len or b.shape != (P, L) or a_len.shape != (P,) or b_len.shape != (P,):
+        raise ValueError(
+            f"bad pair shapes a {tuple(a.shape)} b {tuple(b.shape)} "
+            f"a_len {tuple(a_len.shape)} b_len {tuple(b_len.shape)} L {max_len}"
+        )
+    for t in (a, a_len, b, b_len):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != a.device:
+            raise ValueError("dl_lcs takes contiguous int32 tensors on one device")
+
+
+def dl_lcs(a, a_len, b, b_len, max_len: int, window: int):
+    """``(ld, lcs)`` int32 ``[P]``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    _check_pairs(a, a_len, b, b_len, max_len)
+    if a.device.type == "cpu":
+        ld, lcs, _, _ = dl_metrics_windowed_plain(a, a_len, b, b_len, max_len, window)
+        return ld, lcs
+    if a.device.type != "cuda":
+        raise ValueError(f"dl_lcs: unsupported device {a.device}")
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"dl_lcs kernel: window {window} not in {KERNEL_WINDOWS}")
+    if max_len > KERNEL_MAX_LEN:
+        raise ValueError(f"dl_lcs kernel: L={max_len} above the cap {KERNEL_MAX_LEN}")
+    P = a.shape[0]
+    ld = torch.empty(P, dtype=torch.int32, device=a.device)
+    lcs = torch.empty(P, dtype=torch.int32, device=a.device)
+    if P == 0:
+        return ld, lcs
+    lib = _build.load("dl_lcs")
+    with torch.cuda.device(a.device):
+        err = lib.analiticcl_dl_lcs(
+            a.data_ptr(), a_len.data_ptr(), b.data_ptr(), b_len.data_ptr(),
+            ld.data_ptr(), lcs.data_ptr(), P, max_len, window,
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    dl_lcs.launches += 1
+    _build.check(err, "dl_lcs kernel launch")
+    return ld, lcs
+
+
+dl_lcs.launches = 0

@@ -1,0 +1,261 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's query path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line: the card; the build of both CUDA kernels
+from ``analiticcl_tpu_torch/csrc``; the stage-A kernel against its plain
+PyTorch version (bit for bit) and the DL+LCS kernel against its plain
+version (DL clipped at window + 1) at the main path's shapes, with CUDA-event
+times of both; then the main path: ``VariantModel(device="cuda")`` over a
+seeded synthetic lexicon of eng.aspell's size, ``find_variants_stream`` over
+16,384 corrupted queries, and 1,024 ratio-threshold queries that reach the
+W=12 window and the window split, held against the exact host oracle. The
+last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
+
+Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
+card is visible. Imports no JAX. Writes nothing outside the checkout but
+the kernels' build directory ``build/analiticcl_tpu_torch/``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 0
+N_LEXICON = 120_000  # eng.aspell holds 119,773 entries
+BATCH = 4096
+N_QUERIES = 16_384
+N_RATIO = 1024
+N_ORACLE = 1024
+N_ORACLE_RATIO = 256
+TARGET_PAIRS = 1 << 20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    from analiticcl_tpu_torch import (
+        DistanceThreshold, SearchParameters, VariantModel,
+    )
+    from analiticcl_tpu_torch.ops import _build
+    from analiticcl_tpu_torch.ops.dl import (
+        dl_lcs, dl_metrics_windowed_plain,
+    )
+    from analiticcl_tpu_torch.ops.pipeline import (
+        compact_pairs, gather_pairs, query_planes,
+    )
+    from analiticcl_tpu_torch.ops.stage_a import (
+        stage_a_masks, stage_a_masks_plain,
+    )
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, corrupt_queries, populate, synthetic_lexicon,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # ---- 1. the card ----
+    card = gpu_line()
+    nvcc = subprocess.run(
+        [_build.nvcc_path(), "--version"], capture_output=True, text=True,
+        check=True,
+    ).stdout.strip().splitlines()[-1]
+    log(card)
+    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+        f"| nvcc {nvcc} | devices {torch.cuda.device_count()}")
+
+    # ---- 2. the build ----
+    t0 = time.perf_counter()
+    for name in ("stage_a", "dl_lcs"):
+        _build.load(name)
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.2f} s for stage_a.cu + dl_lcs.cu "
+        f"(nvcc per file: {_build.build_seconds})")
+    for name in ("stage_a", "dl_lcs"):
+        for line in _build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+    # the main path's model (its shapes feed phases 3 and 4)
+    t0 = time.perf_counter()
+    words = synthetic_lexicon(SEED, N_LEXICON)
+    model = populate(VariantModel(alphabet=ALPHABET, device="cuda"), words)
+    pipe = model._pipeline()
+    torch.cuda.synchronize()
+    log(f"model: {model.index.size} entries, L={pipe.L}, "
+        f"AT={pipe.index.at} (padded {pipe.index.bins.shape[1]}), "
+        f"Ni_pad={pipe.Ni_pad}, built in {time.perf_counter() - t0:.1f} s")
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+        score_threshold=0.25,
+    )
+    queries = corrupt_queries(words, SEED + 1, N_QUERIES)
+    idx = pipe.index
+    records = []
+
+    # ---- 3. K1 against its plain version, one main-path batch ----
+    st = pipe.prepare(queries[:BATCH], params)
+    (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
+     start_blk, _w, _thr) = st["args"]
+    qbin = query_planes(idx, q_counts)
+    a_args = (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
+              start_blk, st["nb_band"])
+    got = stage_a_masks(*a_args)
+    want = stage_a_masks_plain(*a_args)
+    torch.cuda.synchronize()
+    names = ("packed_q", "exact_q", "counts_t", "nmatch", "nexact")
+    k1_err = 0
+    for n, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise SystemExit(f"stage_a kernel differs from plain in {n}")
+        k1_err = max(k1_err, int((g.long() - w.long()).abs().max()))
+    k1_ms = time_ms(lambda: stage_a_masks(*a_args), 20)
+    k1_plain = time_ms(lambda: stage_a_masks_plain(*a_args), 5)
+    log(f"K1 stage_a: B={BATCH} nb_band={st['nb_band']} "
+        f"(band {st['nb_band'] * 1024} rows of {pipe.Ni_pad}) bit-identical to "
+        f"plain; kernel {k1_ms:.3f} ms, plain {k1_plain:.3f} ms | {card}")
+    records.append({
+        "name": "stage_a", "route": "cuda",
+        "source": "analiticcl_tpu_torch/csrc/stage_a.cu",
+        "replaces": "analiticcl_tpu/ops/stage_a.py:88",
+        "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+    })
+
+    # ---- 4. K2 against its plain version on the main path's pairs ----
+    pq, _pcb, pc = compact_pairs(got[0], start_blk, pipe.Ni_pad)
+    pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
+    reps = -(-TARGET_PAIRS // max(1, pr.a.shape[0]))
+    a, al, b, bl = (x.repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
+                    .contiguous() for x in (pr.a, pr.ql, pr.b, pr.cl))
+    P, L = a.shape
+    k2 = {}
+    for W in (3, 6, 12):
+        ld, lcs = dl_lcs(a, al, b, bl, L, W)
+        ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(a, al, b, bl, L, W)
+        torch.cuda.synchronize()
+        err = max(
+            int((ld.clamp(max=W + 1) - ld_p.clamp(max=W + 1)).abs().max()),
+            int((lcs - lcs_p).abs().max()),
+        )
+        if err:
+            raise SystemExit(f"dl_lcs kernel differs from plain at W={W}")
+        ms = time_ms(lambda: dl_lcs(a, al, b, bl, L, W), 10)
+        plain = time_ms(
+            lambda: dl_metrics_windowed_plain(a, al, b, bl, L, W), 3
+        )
+        k2[W] = (err, ms, plain)
+        log(f"K2 dl_lcs W={W}: P={P} L={L} ({pr.a.shape[0]} distinct "
+            f"main-path pairs) equal to plain (DL clipped at W+1); kernel "
+            f"{ms:.3f} ms, plain {plain:.3f} ms | {card}")
+    records.append({
+        "name": "dl_lcs", "route": "cuda",
+        "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
+        "replaces": "analiticcl_tpu/ops/dl_pallas.py:47",
+        "max_abs_err": max(v[0] for v in k2.values()),
+        "ms": k2[3][1], "plain_ms": k2[3][2],
+    })
+
+    # ---- 5. the main path ----
+    list(model.find_variants_stream(queries[:BATCH], params))  # warm-up
+    stage_a_masks.launches = 0
+    dl_lcs.launches = 0
+    pipe.candidates = pipe.survivors = 0
+    pipe.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = list(model.find_variants_stream(queries, params, BATCH))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"stage_a": stage_a_masks.launches, "dl_lcs": dl_lcs.launches}
+    cand, surv = pipe.candidates, pipe.survivors
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in sorted(
+        pipe.stats.totals.items()))
+
+    params_ratio = SearchParameters(
+        max_anagram_distance=DistanceThreshold.ratio_with_limit(0.5, 6),
+        max_edit_distance=DistanceThreshold.ratio_with_limit(0.5, 12),
+        max_matches=10,
+        score_threshold=0.25,
+    )
+    long_words = [w for w in words if len(w) >= 9]
+    rq = corrupt_queries(long_words, SEED + 2, N_RATIO)
+    ratio_results = list(model.find_variants_stream(rq, params_ratio, BATCH))
+    launches = {"stage_a": stage_a_masks.launches, "dl_lcs": dl_lcs.launches}
+    if len(results) != N_QUERIES or len(ratio_results) != N_RATIO:
+        raise SystemExit("main path returned the wrong number of results")
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel was not launched on the main path: {launches}")
+    rlens = model.enc.normalize_batch_padded(rq, pipe.L)[1]
+    n_w12 = int((rlens >= 14).sum())  # k_ed = len * 0.5 > 6 -> window 12
+    if not 0 < n_w12 < N_RATIO:
+        raise SystemExit(f"ratio queries did not mix windows ({n_w12} at W=12)")
+
+    def tuples(res):
+        return [(model.decoder[r.vocab_id].text, r.dist_score, r.freq_score,
+                 r.via) for r in res]
+
+    t1 = time.perf_counter()
+    bad = [q for q, r in zip(queries[:N_ORACLE], results)
+           if tuples(r) != tuples(model._find_variants_oracle(q, params))]
+    bad += [q for q, r in zip(rq[:N_ORACLE_RATIO], ratio_results)
+            if tuples(r) != tuples(model._find_variants_oracle(q, params_ratio))]
+    if bad:
+        raise SystemExit(f"{len(bad)} queries differ from the oracle: {bad[:5]}")
+    n_found = sum(1 for r in results if r)
+    log(f"main path: {N_QUERIES} queries in batches of {BATCH}: "
+        f"{N_QUERIES / dt:.1f} q/s warm ({dt:.3f} s), "
+        f"{cand / N_QUERIES:.2f} candidates and {surv / N_QUERIES:.2f} "
+        f"survivors per query, {n_found} with a result | {card}")
+    log(f"main path host stages over the {N_QUERIES} queries: {stages}")
+    log(f"ratio thresholds: {N_RATIO} queries, {n_w12} at W=12, window split; "
+        f"oracle parity exact on {N_ORACLE} + {N_ORACLE_RATIO} queries "
+        f"({time.perf_counter() - t1:.1f} s); launches {launches}")
+
+    for r in records:
+        r["launches"] = launches[r["name"]]
+    log(json.dumps({"kernels": records}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
