@@ -1,4 +1,5 @@
-"""analiticcl_tpu_torch: the query path of analiticcl-tpu on PyTorch and CUDA.
+"""analiticcl_tpu_torch: analiticcl-tpu's query, search and learn modes on
+PyTorch and CUDA.
 
 A port of the JAX package ``analiticcl_tpu`` for one NVIDIA H100. It imports
 the JAX-free modules of that package (types, vocabulary, alphabet, anagram
@@ -14,6 +15,7 @@ from analiticcl_tpu.types import (
     SearchParameters,
     StopCriterion,
     VariantReference,
+    VariantReferenceKind,
     VariantResult,
     VocabId,
     Weights,
@@ -41,6 +43,7 @@ __all__ = [
     "UNK",
     "VariantModel",
     "VariantReference",
+    "VariantReferenceKind",
     "VariantResult",
     "VocabId",
     "VocabParams",

@@ -54,6 +54,7 @@ from analiticcl_tpu.utils.profiling import StageTimer
 from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
 from ..device import resolve_device
 from .dl import PAD_A, PAD_B, affix_metrics_aligned, dl_lcs
+from .ranked import RankedResults
 from .stage_a import ROW_BLOCK, _b_tile, stage_a_masks
 
 THRESHOLD_SLACK = 1e-4
@@ -289,19 +290,7 @@ class DevicePipeline:
             lay.bins, lay.cc, lay.validrows, lay.norms2, lay.norm_lens,
             lay.freqs, lay.first_lower, self.device,
         )
-        # rows whose vocab entries carry variant links take the exact object
-        # ranking tail (expansion); the rest take the fast tail
-        decoder = model.decoder
-        dec_flags = np.fromiter(
-            (e.variants is not None for e in decoder), dtype=bool,
-            count=len(decoder),
-        )
-        self._has_variants = dec_flags[model.index.vocab_ids]
-        self._has_var_u8 = (
-            np.ascontiguousarray(self._has_variants, dtype=np.uint8)
-            if self._has_variants.any()
-            else None
-        )
+        self._refresh_variant_flags()
         self.stats = StageTimer()
         # stage-A hits and f32-filter survivors summed over collected batches
         self.candidates = 0
@@ -310,12 +299,49 @@ class DevicePipeline:
         # whenever frequencies refresh (freq_score is part of the results)
         self._oracle_memo: dict = {}
 
-    def refresh_freqs(self, freqs_canonical: np.ndarray) -> None:
-        """Replace the device frequency column (canonical row order in)."""
+    def _refresh_variant_flags(self, linked=None) -> None:
+        """Rows whose vocab entries carry variant links take the exact
+        object ranking tail, which expands them (``expand_variants``,
+        reference lib.rs:1677-1727); the rest take the fast tail.
+
+        With ``linked`` (the vids whose variant lists may have changed),
+        only their rows are updated instead of scanning the decoder."""
+        model = self.model
+        decoder = model.decoder
+        if linked is None:
+            dec_flags = np.fromiter(
+                (e.variants is not None for e in decoder), dtype=bool,
+                count=len(decoder),
+            )
+            self._has_variants = dec_flags[model.index.vocab_ids]
+        else:
+            inv = model.index.vid_to_row()
+            vids = np.fromiter(linked, dtype=np.int64)
+            vids = vids[vids < inv.shape[0]]
+            rows = inv[vids]
+            vids, rows = vids[rows >= 0], rows[rows >= 0]
+            self._has_variants[rows] = np.fromiter(
+                (decoder[v].variants is not None for v in vids.tolist()),
+                dtype=bool, count=len(vids),
+            )
+        self._has_var_u8 = (
+            np.ascontiguousarray(self._has_variants, dtype=np.uint8)
+            if self._has_variants.any()
+            else None
+        )
+
+    def refresh_freqs(self, freqs_canonical: np.ndarray, linked=None) -> None:
+        """Replace the device frequency column (canonical row order in).
+
+        Learn calls this after a merge that added no index entry; the merge
+        may still have given indexed entries variant links, so the variant
+        flags are refreshed too (the JAX pipeline keeps them stale): those
+        of the ``linked`` vids, or all of them when ``linked`` is None."""
         freqs = np.asarray(freqs_canonical[self._canon_of], dtype=np.int64)
         self.index = self.index._replace(
             freqs=torch.from_numpy(freqs).to(self.device)
         )
+        self._refresh_variant_flags(linked)
         self._oracle_memo.clear()
 
     # ------------------------------------------------------------------
@@ -326,16 +352,21 @@ class DevicePipeline:
         return self.collect(self.submit(inputs, params))
 
     def find_variants_stream(
-        self, batches, params: SearchParameters, depth: int = 2
+        self, batches, params: SearchParameters, depth: int = 2,
+        ranked: bool = False,
     ):
         """Yields one result list per input batch, in order, keeping up to
         ``depth`` submitted batches ahead of the one being ranked.
         :func:`query_core` synchronises with the card at its ``nonzero``
         calls, so a submitted batch has run by the time ``submit`` returns:
-        the host tail does not yet overlap device work."""
+        the host tail does not yet overlap device work. With ``ranked``,
+        batches that complete through the native tail yield
+        :class:`RankedResults` instead of eager lists; callers handle both."""
         pending: List = []
         for batch in batches:
-            pending.append(self.submit(batch, params))
+            st = self.submit(batch, params)
+            st["want_ranked"] = ranked
+            pending.append(st)
             if len(pending) > depth:
                 yield self.collect(pending.pop(0))
         while pending:
@@ -598,18 +629,11 @@ class DevicePipeline:
         results = state["results"]
         active = state["active"]
         inputs = state["inputs"]
+        want_ranked = state.get("want_ranked", False)
         if not active:
             return [r if r is not None else [] for r in results]
         if state.get("subs") is not None:
-            for grp, sub in state["subs"]:
-                for i, r in zip(grp, self.collect(sub)):
-                    results[i] = r
-            return [r if r is not None else [] for r in results]
-        if state.get("want_ranked"):
-            raise NotImplementedError(
-                "ranked (array-backed) results come with search mode, which "
-                "is not ported yet"
-            )
+            return self._collect_subs(state, want_ranked)
         params = state["params"]
         B = state["B"]
         q_lens = state["q_lens"]
@@ -652,6 +676,41 @@ class DevicePipeline:
                 )
         if nt is not None:
             (n_out, r_seg, r_vid, r_ds, r_fq, elig_u8, perm, nbounds) = nt
+            if want_ranked and not late_conf:
+                # array-backed result (search mode, strict learn): rows with
+                # expandable variants and pre-resolved inputs become eager
+                # overrides
+                with self.stats.stage("tail_emit"):
+                    sb = np.searchsorted(
+                        r_seg[:n_out], np.arange(nrows + 1)
+                    ).astype(np.int64)
+                    row_of = np.full(len(results), -1, dtype=np.int64)
+                    overrides = {}
+                    floors = max_freq[:B].astype(np.float64)
+                    for row, i in enumerate(active):
+                        if elig_u8[row]:
+                            row_of[i] = row
+                            continue
+                        overrides[i] = model.score_and_rank(
+                            self._native_obj_instances(
+                                row, perm, nbounds, o_c, o_ld, o_lcs, o_pf,
+                                o_sf, o_case, vocab_ids,
+                            ),
+                            inputs[i], int(q_lens[row]), params.max_matches,
+                            params.score_threshold, params.cutoff_threshold,
+                            params.freq_weight,
+                            max_freq_floor=float(floors[row]),
+                        )
+                    for i, r in enumerate(results):
+                        if r is not None:
+                            overrides[i] = r
+                    rr = RankedResults(
+                        len(results), r_vid[:n_out], r_ds[:n_out],
+                        r_fq[:n_out], row_of, sb, overrides,
+                    )
+                tail_cm.__exit__(None, None, None)
+                self._debug_report(nrows, total_match, total_keep, state)
+                return rr
             with self.stats.stage("tail_emit"):
                 elig_row = np.zeros(B, dtype=bool)
                 elig_row[:nrows] = elig_u8.view(bool)
@@ -767,6 +826,41 @@ class DevicePipeline:
         )
         tail_cm.__exit__(None, None, None)
         self._debug_report(nrows, total_match, total_keep, state)
+        return [r if r is not None else [] for r in results]
+
+    def _collect_subs(self, state, want_ranked: bool):
+        """Collect a window-split batch's sub-batches in input order. Ranked
+        sub-results join into one :class:`RankedResults` whose ``row_of``
+        and overrides are remapped to the parent's inputs, so a search unit
+        keeps the array-native consolidation through the split."""
+        results = state["results"]
+        parts = []
+        for grp, sub in state["subs"]:
+            sub["want_ranked"] = want_ranked
+            parts.append((grp, self.collect(sub)))
+        if want_ranked and all(
+            isinstance(p, RankedResults) for _, p in parts
+        ):
+            joined = RankedResults.concat([p for _, p in parts])
+            order = np.fromiter(
+                (i for grp, _ in parts for i in grp), dtype=np.int64,
+                count=joined.n,
+            )
+            row_of = np.full(len(results), -1, dtype=np.int64)
+            row_of[order] = joined.row_of
+            overrides = {
+                int(order[k]): v for k, v in joined.overrides.items()
+            }
+            for i, r in enumerate(results):
+                if r is not None:
+                    overrides[i] = r
+            return RankedResults(
+                len(results), joined.vid, joined.ds, joined.fq, row_of,
+                joined.sbounds, overrides,
+            )
+        for grp, sub_res in parts:
+            for i, r in zip(grp, sub_res):
+                results[i] = r
         return [r if r is not None else [] for r in results]
 
     def _debug_report(self, nrows, total_match, total_keep, state) -> None:

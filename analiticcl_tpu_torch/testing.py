@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from analiticcl_tpu.vocab import VocabParams
+from analiticcl_tpu.vocab import VocabParams, VocabType
 
 # 26 case-folded letters plus punctuation, like the reference's test alphabet
 ALPHABET = [[c, c.upper()] for c in "abcdefghijklmnopqrstuvwxyz"] + [
@@ -110,12 +110,83 @@ def corrupt_queries(words: Sequence[str], seed: int, n: int) -> List[str]:
     return out
 
 
-def populate(model, words: Sequence[str], freqs: Optional[np.ndarray] = None):
-    """Add ``words`` (with ``freqs``, if given) to ``model`` and build it.
-    Works for the JAX package's model and the port's alike."""
+_SEPARATORS = (" ", " ", " ", ", ", ". ", "! ", " - ")
+
+
+def synthetic_text(words: Sequence[str], seed: int, n_lines: int,
+                   bigrams=None) -> List[str]:
+    """``n_lines`` lines of running text, 8-16 tokens each: lexicon words,
+    about a third of them under one or two random edits, joined by spaces
+    and ``, . ! -`` separators.
+
+    With ``bigrams`` (as :func:`synthetic_bigrams` gives them), about a
+    third of the tokens come as space-joined pairs drawn from that list, so
+    a language model over it meets its bigrams in the text."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(n_lines):
+        ntok = int(rng.integers(8, 17))
+        toks = [words[int(k)] for k in rng.integers(len(words), size=ntok)]
+        paired = [False] * ntok  # joined to the token before by a space
+        i = 0
+        while bigrams and i < ntok - 1:
+            if rng.random() < 0.2:
+                toks[i : i + 2] = bigrams[int(rng.integers(len(bigrams)))][0].split(" ")
+                paired[i + 1] = True
+                i += 2
+            else:
+                i += 1
+        parts = []
+        for w in toks:
+            if rng.random() < 0.35:
+                for _ in range(1 + int(rng.random() < 0.3)):
+                    w = _edit(w, rng)
+            parts.append(w)
+        line = parts[0]
+        for w, pair in zip(parts[1:], paired[1:]):
+            sep = _SEPARATORS[int(rng.integers(len(_SEPARATORS)))]
+            line += (" " if pair else sep) + w
+        lines.append(line + (".", "!", "")[int(rng.integers(3))])
+    return lines
+
+
+def lm_bigram_hits(model, outs) -> int:
+    """How many adjacent selected matches in the search results ``outs``
+    form a bigram of ``model``'s language model."""
+    hits = 0
+    for out in outs:
+        vids = [m.solution() and m.solution().vocab_id for m in out]
+        hits += sum((a, b) in model.ngrams for a, b in zip(vids, vids[1:])
+                    if a is not None and b is not None)
+    return hits
+
+
+def synthetic_bigrams(words: Sequence[str], seed: int, n: int):
+    """``n`` distinct word bigrams ``"a b"`` over ``words`` with Zipf-like
+    integer frequencies: the entries of a bigram language model."""
+    rng = np.random.default_rng(seed)
+    seen = set()
+    out = []
+    while len(out) < n:
+        a, b = rng.integers(len(words), size=2)
+        bigram = f"{words[int(a)]} {words[int(b)]}"
+        if bigram not in seen:
+            seen.add(bigram)
+            out.append((bigram, int(1 + 1000 // (1 + len(out) % 97))))
+    return out
+
+
+def populate(model, words: Sequence[str], freqs: Optional[np.ndarray] = None,
+             bigrams=None):
+    """Add ``words`` (with ``freqs``, if given) and the LM ``bigrams`` (as
+    :func:`synthetic_bigrams` gives them, if given) to ``model`` and build
+    it. Works for the JAX package's model and the port's alike."""
     vp = VocabParams()
     for i, w in enumerate(words):
         model.add_to_vocabulary(w, None if freqs is None else int(freqs[i]), vp)
+    lm = VocabParams(vocab_type=VocabType.LM)
+    for text, freq in bigrams or ():
+        model.add_to_vocabulary(text, freq, lm)
     model.have_freq = freqs is not None
     model.build()
     return model

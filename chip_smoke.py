@@ -10,8 +10,15 @@ version (DL clipped at window + 1) at the main path's shapes, with CUDA-event
 times of both; then the main path: ``VariantModel(device="cuda")`` over a
 seeded synthetic lexicon of eng.aspell's size, ``find_variants_stream`` over
 16,384 corrupted queries, and 1,024 ratio-threshold queries that reach the
-W=12 window and the window split, held against the exact host oracle. The
-last two lines are the kernels' JSON record and ``{"ok": true, ...}``.
+W=12 window and the window split, held against the exact host oracle. Then
+search mode over 4,096 lines of running text (``find_all_matches_stream``,
+bigram segments), the same with a seeded bigram language model whose
+bigrams the text holds, and learn mode (strict over 4,096 corrupted words,
+then over 512 lines, five corpora each), each held against the object-path
+consolidation or the host oracle, each holding both kernels against their
+plain versions on its own first lookup batch, and each required to launch
+both kernels. The last two lines are the kernels' JSON record and
+``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
 card is visible. Imports no JAX. Writes nothing outside the checkout but
@@ -34,6 +41,15 @@ N_RATIO = 1024
 N_ORACLE = 1024
 N_ORACLE_RATIO = 256
 TARGET_PAIRS = 1 << 20
+N_LINES = 4096  # search mode: lines of 8-16 tokens
+N_LINES_ORACLE = 32
+N_BIGRAMS = 100_000  # entries of the bigram language model
+N_LEARN_STRICT = 4096
+N_LEARN_LINES = 512
+N_LEARN_CALLS = 5  # learn calls per mode, each on its own corpus
+N_LEARN_CHECK = 256
+STAGES = ("search_prepare", "host_prep", "device", "device_get", "host_tail",
+          "search_consolidate", "host_oracle_fallback")
 
 
 def log(msg: str) -> None:
@@ -65,6 +81,255 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def launch_counts() -> dict:
+    from analiticcl_tpu_torch.ops.dl import dl_lcs
+    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+
+    return {"stage_a": stage_a_masks.launches, "dl_lcs": dl_lcs.launches}
+
+
+def reset_counts() -> None:
+    from analiticcl_tpu_torch.ops.dl import dl_lcs
+    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+
+    stage_a_masks.launches = 0
+    dl_lcs.launches = 0
+
+
+def require_launches(phase: str) -> dict:
+    """The launch counts since the last reset; fails unless both kernels
+    were launched."""
+    counts = launch_counts()
+    if min(counts.values()) <= 0:
+        raise SystemExit(f"{phase}: a kernel was not launched: {counts}")
+    return counts
+
+
+def stage_line(stats) -> str:
+    """The StageTimer totals of the search and learn phases, with the count
+    of over-long segments that took the host oracle."""
+    parts = [f"{k} {stats.totals.get(k, 0.0) * 1e3:.1f} ms" for k in STAGES]
+    parts.append(
+        f"host_oracle_fallback count {stats.counts.get('host_oracle_fallback', 0)}"
+    )
+    return ", ".join(parts)
+
+
+def match_signature(outs):
+    return [
+        [
+            (m.text, m.offset.begin, m.offset.end, m.selected, m.n,
+             None if m.variants is None else [
+                 (r.vocab_id, r.dist_score, r.freq_score, r.via)
+                 for r in m.variants
+             ])
+            for m in out
+        ]
+        for out in outs
+    ]
+
+
+def hold_kernels(name: str, pipe, lookups, params) -> None:
+    """Prepare ``lookups`` as one device batch, as the path does, and hold
+    the stage-A kernel (bit for bit) and the DL+LCS kernel (DL clipped at
+    the batch's window + 1, LCS exact) against their plain versions on it.
+    Its launches count, so call it before the path's counts are reset."""
+    import torch
+
+    from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_metrics_windowed_plain
+    from analiticcl_tpu_torch.ops.pipeline import (
+        compact_pairs, gather_pairs, query_planes,
+    )
+    from analiticcl_tpu_torch.ops.stage_a import (
+        stage_a_masks, stage_a_masks_plain,
+    )
+
+    t0 = time.perf_counter()
+    st = pipe.prepare(lookups, params)
+    if "args" not in st:
+        raise SystemExit(f"{name}: the kernel check batch did not form one "
+                         "device batch")
+    (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
+     start_blk, _w, _thr) = st["args"]
+    idx = pipe.index
+    a_args = (idx.bins, idx.cc, idx.validrows, query_planes(idx, q_counts),
+              q_cc, k_ana, k_len, start_blk, st["nb_band"])
+    got = stage_a_masks(*a_args)
+    want = stage_a_masks_plain(*a_args)
+    torch.cuda.synchronize()
+    for n, g, w in zip(("packed_q", "exact_q", "counts_t", "nmatch",
+                        "nexact"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise SystemExit(f"{name}: stage_a kernel differs from plain in {n}")
+    pq, _pcb, pc = compact_pairs(got[0], start_blk, pipe.Ni_pad)
+    pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
+    W = st["window"]
+    ld, lcs = dl_lcs(pr.a, pr.ql, pr.b, pr.cl, pipe.L, W)
+    ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(
+        pr.a, pr.ql, pr.b, pr.cl, pipe.L, W
+    )
+    torch.cuda.synchronize()
+    if not (torch.equal(ld.clamp(max=W + 1), ld_p.clamp(max=W + 1))
+            and torch.equal(lcs, lcs_p)):
+        raise SystemExit(f"{name}: dl_lcs kernel differs from plain at W={W}")
+    pipe._oracle_memo.clear()  # the timed run meets over-long segments anew
+    log(f"{name} kernels: K1 bit-identical to plain on B={q_lens.shape[0]} "
+        f"({len(st['active'])} device lookups of {len(lookups)}, band "
+        f"{st['nb_band'] * 1024} rows); K2 equal to plain at W={W} on "
+        f"{pr.a.shape[0]} pairs ({time.perf_counter() - t0:.2f} s)")
+
+
+def search_phase(name: str, model, texts, params, card: str) -> dict:
+    """Search ``texts`` through the device path; hold the array-native
+    consolidation against the object path and the first lines against a
+    host-only search with the oracle's lookups, and both kernels against
+    their plain versions on the path's first lookup batch."""
+    import torch
+
+    from analiticcl_tpu_torch.models import search_fast
+    from analiticcl_tpu_torch.models.variant_model import SEARCH_BATCH
+    from analiticcl_tpu_torch.testing import lm_bigram_hits
+
+    pipe = model._pipeline()
+    list(model.find_all_matches_stream(texts[:64], params))  # warm-up
+    lookups = search_fast.prepare_unit(texts, params.max_ngram).all_texts
+    hold_kernels(name, pipe, lookups[:SEARCH_BATCH], params)
+    reset_counts()
+    pipe.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(model.find_all_matches_stream(texts, params))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = require_launches(name)
+    stages = stage_line(pipe.stats)
+    if len(got) != len(texts):
+        raise SystemExit(f"{name}: {len(got)} results for {len(texts)} lines")
+    sig = match_signature(got)
+    t1 = time.perf_counter()
+    model.fast_consolidate = False
+    try:
+        obj = match_signature(model.find_all_matches_stream(texts, params))
+    finally:
+        model.fast_consolidate = True
+    t_obj = time.perf_counter() - t1
+    if obj != sig:
+        bad = sum(a != b for a, b in zip(obj, sig))
+        raise SystemExit(f"{name}: {bad} lines differ from the object path")
+    t1 = time.perf_counter()
+    head = texts[:N_LINES_ORACLE]
+    preps, uniq, head_lookups = model._fam_prepare(head, params)
+    found = [model._find_variants_oracle(q, params) for q in head_lookups]
+    host = match_signature(model._fam_consolidate(preps, uniq, found, params))
+    t_host = time.perf_counter() - t1
+    if host != sig[:N_LINES_ORACLE]:
+        bad = sum(a != b for a, b in zip(host, sig))
+        raise SystemExit(f"{name}: {bad} lines differ from the host search")
+    n_tok = sum(len(t.split()) for t in texts)
+    n_sel = sum(m[3] is not None for out in sig for m in out)
+    lm = ""
+    if model.have_lm:
+        hits = lm_bigram_hits(model, got)
+        if hits == 0:
+            raise SystemExit(f"{name}: the decode selected no LM bigram")
+        lm = f", {hits} adjacent selections are LM bigrams"
+    log(f"{name}: {len(texts)} lines, {n_tok} tokens in {dt:.3f} s: "
+        f"{n_tok / dt:.1f} tokens/s, {len(texts) / dt:.1f} lines/s; "
+        f"{len(lookups)} distinct segments, {n_sel} matches selected{lm}; "
+        f"launches {launches} | {card}")
+    log(f"{name} stages: {stages}")
+    log(f"{name} checks: equal to the object path on {len(texts)} lines "
+        f"({t_obj:.1f} s), to the oracle-lookup host search on "
+        f"{len(head)} lines ({len(head_lookups)} lookups, {t_host:.1f} s)")
+    return launches
+
+
+def learn_phase(model, words, card: str) -> dict:
+    """Strict learn over corrupted words, then learn over running text, each
+    over several corpora and each refreshing the index frequencies in
+    place; then lookups whose candidates gained variant links must equal
+    the oracle."""
+    import torch
+
+    from analiticcl_tpu_torch import (
+        DistanceThreshold, SearchParameters, VariantReferenceKind,
+    )
+    from analiticcl_tpu_torch.models import search_fast
+    from analiticcl_tpu_torch.models.variant_model import (
+        LEARN_BATCH, SEARCH_BATCH,
+    )
+    from analiticcl_tpu_torch.testing import corrupt_queries, synthetic_text
+
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+        score_threshold=0.25,
+        max_ngram=2,
+    )
+    pipe = model._pipeline()
+    corpora = [corrupt_queries(words, SEED + 10 + k, N_LEARN_STRICT)
+               for k in range(N_LEARN_CALLS)]
+    texts = [synthetic_text(words, SEED + 20 + k, N_LEARN_LINES)
+             for k in range(N_LEARN_CALLS)]
+    hold_kernels("learn strict", pipe, corpora[0][:LEARN_BATCH], params)
+    hold_kernels("learn search", pipe, search_fast.prepare_unit(
+        texts[0], params.max_ngram).all_texts[:SEARCH_BATCH], params)
+    reset_counts()
+    pipe.stats.clear()
+    for mode, sets, unit in (("strict", corpora, "words"),
+                             ("search", texts, "lines")):
+        times = []
+        for k, data in enumerate(sets):
+            t0 = time.perf_counter()
+            n = model.learn_variants(data, params, strict=mode == "strict")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if model.learn_profile["build_mode"] != "freq_refresh":
+                raise SystemExit(f"learn {mode}: {model.learn_profile}")
+            if model._device is not pipe:
+                raise SystemExit(f"learn {mode}: the pipeline was rebuilt")
+            log(f"learn {mode} call {k}: {len(data)} {unit} in "
+                f"{times[-1]:.3f} s, {n} variants; learn_profile "
+                f"{model.learn_profile}")
+        dt = statistics.median(times)
+        log(f"learn {mode}: median of {len(sets)} calls of {len(sets[0])} "
+            f"{unit}: {dt:.3f} s, {len(sets[0]) / dt:.1f} {unit}/s | {card}")
+    launches = require_launches("learn")
+    stages = stage_line(pipe.stats)
+
+    # indexed entries that gained links: VARIANT_OF links (expanded in the
+    # results) first, then REFERENCE_FOR links (ranked by the object tail)
+    VAR_OF = VariantReferenceKind.VARIANT_OF
+    var_of, ref_for = [], []
+    for v in model.index.vocab_ids.tolist():
+        links = model.decoder[v].variants
+        if links:
+            kinds = var_of if any(r.kind is VAR_OF for r in links) else ref_for
+            kinds.append(model.decoder[v].text)
+    linked = var_of + ref_for
+    half = N_LEARN_CHECK // 2
+    if len(var_of) < 16 or len(linked) < half:
+        raise SystemExit(f"learn: only {len(var_of)} + {len(ref_for)} "
+                         "indexed entries gained links")
+    queries = linked[:half] + corrupt_queries(linked[:half], SEED + 7, half)
+    got = model.find_variants_batch(queries, params)
+    want = [model._find_variants_oracle(q, params) for q in queries]
+    if got != want:
+        bad = [q for q, a, b in zip(queries, got, want) if a != b]
+        raise SystemExit(f"learn: {len(bad)} queries differ from the oracle "
+                         f"after the frequency refresh: {bad[:5]}")
+    n_via = sum(r.via is not None for res in got for r in res)
+    if n_via == 0:
+        raise SystemExit("learn: no result came via a variant link")
+    log(f"learn stages: {stages}")
+    log(f"learn check: {len(var_of)} indexed entries gained VARIANT_OF links "
+        f"and {len(ref_for)} only REFERENCE_FOR links; {len(queries)} queries "
+        f"over them equal the oracle after the in-place refresh, {n_via} "
+        f"results via a variant link; launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -84,7 +349,8 @@ def main() -> int:
         stage_a_masks, stage_a_masks_plain,
     )
     from analiticcl_tpu_torch.testing import (
-        ALPHABET, corrupt_queries, populate, synthetic_lexicon,
+        ALPHABET, corrupt_queries, populate, synthetic_bigrams,
+        synthetic_lexicon, synthetic_text,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -247,8 +513,33 @@ def main() -> int:
         f"oracle parity exact on {N_ORACLE} + {N_ORACLE_RATIO} queries "
         f"({time.perf_counter() - t1:.1f} s); launches {launches}")
 
+    # ---- 6-8. search, search with a language model, learn ----
+    by_path = {"query": launches}
+    search_params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+        score_threshold=0.25,
+        max_ngram=2,
+        lm_weight=1.0,
+    )
+    bigrams = synthetic_bigrams(words, SEED + 4, N_BIGRAMS)
+    texts = synthetic_text(words, SEED + 3, N_LINES, bigrams)
+    by_path["search"] = search_phase("search", model, texts, search_params,
+                                     card)
+    t0 = time.perf_counter()
+    lm_model = populate(VariantModel(alphabet=ALPHABET, device="cuda"), words,
+                        bigrams=bigrams)
+    log(f"LM model: {len(lm_model.ngrams)} n-grams, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    by_path["lm_search"] = search_phase("LM search", lm_model, texts,
+                                        search_params, card)
+    del lm_model
+    by_path["learn"] = learn_phase(model, words, card)
+
     for r in records:
         r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,24 +133,62 @@ def test_cpu_run_launches_no_kernel(words, queries):
     assert (stage_a_masks.launches, dl_lcs.launches) == before
 
 
+def test_use_mesh_is_not_ported(words):
+    port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words[:100])
+    with pytest.raises(NotImplementedError, match="ROADMAP P10"):
+        port.use_mesh()
+    assert port._device is None
+
+
 def test_port_never_imports_jax():
+    """Query, search (with and without an LM, batch and stream) and learn
+    (strict and not), each on a fresh model, load no JAX module."""
     script = textwrap.dedent(
         """
         import sys
         import torch
         torch.set_num_threads(1)
         import analiticcl_tpu_torch as at
-        from analiticcl_tpu_torch.testing import ALPHABET, populate, synthetic_lexicon
+        from analiticcl_tpu_torch.ops.pipeline import DevicePipeline
+        from analiticcl_tpu_torch.testing import (
+            ALPHABET, populate, synthetic_bigrams, synthetic_lexicon,
+            synthetic_text,
+        )
         words = synthetic_lexicon(seed=1, n=300)
-        model = populate(at.VariantModel(alphabet=ALPHABET, device="cpu"), words)
+        texts = synthetic_text(words, 2, 6)
+        bigrams = synthetic_bigrams(words, 3, 50)
+
+        def fresh(lm=False):
+            return populate(at.VariantModel(alphabet=ALPHABET, device="cpu"),
+                            words, bigrams=bigrams if lm else None)
+
         params = at.SearchParameters(
             max_anagram_distance=at.DistanceThreshold.absolute(3),
             max_edit_distance=at.DistanceThreshold.absolute(2),
         )
+        model = fresh()
         res = model.find_variants_batch([words[0][:-1] + "x"], params)
         res += list(model.find_variants_stream([words[1]], params))
-        assert model._device is not None, "the device path was not taken"
         assert res[1], res
+        models = [model]
+        model = fresh()
+        assert model.find_all_matches(texts[0], params)
+        models.append(model)
+        model = fresh(lm=True)
+        assert model.have_lm
+        assert model.find_all_matches(texts[1], params)
+        models.append(model)
+        model = fresh(lm=True)
+        assert len(list(model.find_all_matches_stream(texts, params))) == 6
+        models.append(model)
+        for strict in (True, False):
+            model = fresh()
+            assert model.learn_variants(texts if not strict else
+                                        [w + "e" for w in words[:40]],
+                                        params, strict=strict) > 0
+            models.append(model)
+        for m in models:
+            assert isinstance(m._device, DevicePipeline), m._device
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
         """
