@@ -1,15 +1,17 @@
 """analiticcl_tpu_torch: analiticcl-tpu's query, search and learn modes on
 PyTorch and CUDA.
 
-A port of the JAX package ``analiticcl_tpu`` for one NVIDIA H100. It imports
-the JAX-free modules of that package (types, vocabulary, alphabet, anagram
-algebra, the host oracle, the native C++ ranking tail) and replaces its device
-path: the stage-A retrieval and the windowed DL+LCS DP run in hand-written
-CUDA kernels (``csrc/``), with plain PyTorch versions beside them for CPU
-tensors. It never imports JAX.
+A port of the JAX package ``analiticcl_tpu`` for one NVIDIA H100, standing
+alone: it keeps its own copy of that package's host layer (types,
+vocabulary, alphabet, anagram algebra, the host oracle, segmentation and the
+lattice decode, checkpoints, the native C/C++ helpers in ``native/``) and
+replaces its device path: the stage-A retrieval and the windowed DL+LCS DP
+run in hand-written CUDA kernels (``csrc/``), with plain PyTorch versions
+beside them for CPU tensors. It imports neither JAX nor ``analiticcl_tpu``;
+checkpoints keep the JAX package's format and cross in both directions.
 """
 
-from analiticcl_tpu.types import (
+from .types import (
     Distance,
     DistanceThreshold,
     SearchParameters,
@@ -20,7 +22,7 @@ from analiticcl_tpu.types import (
     VocabId,
     Weights,
 )
-from analiticcl_tpu.vocab import (
+from .vocab import (
     BOS,
     EOS,
     UNK,

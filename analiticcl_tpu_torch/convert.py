@@ -9,9 +9,9 @@ side, and int8 norms when the alphabet indices fit.
 
 Two differences, both exact:
 
-* ``bins`` gains zero columns up to a multiple of 16 (``at_pad``): the stage-A
-  kernel reads the planes 16 bytes at a time and takes dot products four
-  bytes at a time. A zero column adds nothing to a dot product. ``at`` keeps
+* ``bins`` gains zero columns up to a multiple of 32 (``at_pad``): the stage-A
+  kernel's int8 tensor-core product takes 32 bytes of depth per k-step. A zero
+  column adds nothing to a dot product. ``at`` keeps
   the true width ``A * T`` so that query planes are built to match.
 * ``freqs`` is int64, not uint32: PyTorch's uint32 support on CUDA does not
   cover the per-query segment max. Frequencies are integers below 2**32, so
@@ -100,7 +100,7 @@ def index_tensors_from_numpy(bins, cc, validrows, norms2, norm_lens, freqs,
     dev = resolve_device(device)
     bins = np.asarray(bins, dtype=np.int8)
     at = bins.shape[1]
-    at_pad = -(-at // 16) * 16
+    at_pad = -(-at // 32) * 32
     if at_pad != at:
         bins = np.pad(bins, ((0, 0), (0, at_pad - at)))
 

@@ -1,36 +1,261 @@
-"""The port's array-native search consolidation.
+"""Array-native search-mode unit pipeline (the fast path of find_all_matches).
 
-``consolidate_unit`` and ``_found_arrays`` are the JAX package's
-(``analiticcl_tpu/models/search_fast.py``) with the port's
-:class:`~..ops.ranked.RankedResults` in place of the JAX pipeline's, which
-they imported at call time. Everything else of that module (segmentation,
-``FastUnit``, the LM n-best decode and its ``FORCE_NUMPY_LM`` test hook)
-imports no JAX and is used from there: set
-``analiticcl_tpu.models.search_fast.FORCE_NUMPY_LM`` to force the numpy LM
-decoder here too.
+The port's copy of ``analiticcl_tpu/models/search_fast.py``, with the port's
+:class:`~..ops.ranked.RankedResults` in place of the JAX pipeline's.
+
+The object path in variant_model.py mirrors the reference structurally:
+boundary/segment ``Match`` objects, per-hard-batch lattices, an n-best DP
+(lib.rs:1789-2495). That path stays — it handles the LM, context rules,
+debug dumps, and non-ASCII text. This module is the production fast path
+for everything else, and it is *shaped for the machine* rather than for the
+reference: on one host core feeding a TPU, per-object Python work is the
+throughput floor, so segmentation, attachment, redundancy filtering, arc
+construction, the Viterbi DP, and path backtracking all run as flat numpy
+array programs over the whole unit (several texts, all hard batches in
+lockstep). Python objects materialize only for best-path output.
+
+Exact output equivalence with the object path — offsets, tie order,
+variants sharing, the redundancy and internal-boundaries quirks
+(search.rs:103-120, 317-336) — is pinned by tests/test_search.py.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import re
+from bisect import bisect_left, bisect_right
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from analiticcl_tpu.models.search_fast import (  # noqa: F401 (re-exported)
-    FastUnit,
-    _consolidate_lm,
-    prepare_unit,
-)
-from analiticcl_tpu.search import Match, Offset, remap_offsets_to_unicodepoints
-from analiticcl_tpu.types import VariantResult
-from analiticcl_tpu.utils.native import fastemit_build_result_lists
+from ..search import Match, Offset, remap_offsets_to_unicodepoints
 
-from ..ops.ranked import RankedResults
+_ASCII_NONALPHA = re.compile(rb"[^A-Za-z]+")
+
+
+@dataclass
+class FastUnit:
+    """Segmentation product of one stream unit (several texts)."""
+
+    texts: Sequence[str]
+    # per text: boundary offset arrays (python lists for scalar access)
+    bb: List[Optional[List[int]]]
+    be: List[Optional[List[int]]]
+    # per text: UTF-8 bytes for non-ASCII texts (offsets are byte offsets;
+    # ASCII texts slice the str directly), else None
+    raw: List[Optional[bytes]] = field(default_factory=list)
+    # chains (= hard batches), global across the unit
+    chain_text: List[int] = field(default_factory=list)
+    chain_begin: List[int] = field(default_factory=list)
+    chain_end: List[int] = field(default_factory=list)
+    chain_blo: List[int] = field(default_factory=list)
+    chain_bhi: List[int] = field(default_factory=list)
+    # per text: global chain id range [lo, hi)
+    text_chains: List[Tuple[int, int]] = field(default_factory=list)
+    # segments, global across the unit, text-major / batch-major /
+    # order-major: (chain, order, begin, end, q) tuples (python path) ...
+    segments: List[Tuple[int, int, int, int, int]] = field(
+        default_factory=list
+    )
+    # ... or the same five columns as int64 arrays (native path)
+    seg_cols: Optional[Tuple[np.ndarray, ...]] = None
+    # deduplicated lookup texts, first-appearance order
+    all_texts: List[str] = field(default_factory=list)
+
+
+def _prepare_unit_native(
+    texts: Sequence[str], max_ngram: int
+) -> Optional[FastUnit]:
+    """FastUnit via the C++ segmentation core (ananorm_segment); None when
+    the native library is absent (the Python loop below is the oracle —
+    equivalence is pinned by tests/test_search.py)."""
+    from ..utils import native as _native
+
+    res = _native.segment_unit(texts, max_ngram)
+    if res is None:
+        return None
+    (
+        b_off, bb_all, be_all, c_off, c_begin, c_end, c_blo, c_bhi,
+        s_chain, s_order, s_begin, s_end, s_q, u_text, u_begin, u_end,
+    ) = res
+    n_texts = len(texts)
+    unit = FastUnit(
+        texts=texts,
+        bb=[None] * n_texts,
+        be=[None] * n_texts,
+        raw=[None] * n_texts,
+    )
+    for ti in range(n_texts):
+        lo, hi = int(b_off[ti]), int(b_off[ti + 1])
+        unit.bb[ti] = bb_all[lo:hi]
+        unit.be[ti] = be_all[lo:hi]
+        unit.text_chains.append((int(c_off[ti]), int(c_off[ti + 1])))
+    unit.chain_begin = c_begin.tolist()
+    unit.chain_end = c_end.tolist()
+    unit.chain_blo = c_blo.tolist()
+    unit.chain_bhi = c_bhi.tolist()
+    unit.chain_text = np.repeat(
+        np.arange(n_texts), np.diff(c_off.astype(np.int64))
+    ).tolist()
+    unit.seg_cols = tuple(
+        a.astype(np.int64)
+        for a in (s_chain, s_order, s_begin, s_end, s_q)
+    )
+    unit.all_texts = [
+        texts[t][b:e]
+        for t, b, e in zip(u_text.tolist(), u_begin.tolist(), u_end.tolist())
+    ]
+    return unit
+
+
+def _boundaries_unicode(text: str) -> Tuple[List[int], List[int]]:
+    """Boundary runs (byte offsets) for non-ASCII text — the generic
+    unicode-isalpha scan of search._find_boundaries_generic."""
+    bb: List[int] = []
+    be: List[int] = []
+    begin: Optional[int] = None
+    pos = 0
+    for ch in text:
+        if begin is not None:
+            if ch.isalpha():
+                bb.append(begin)
+                be.append(pos)
+                begin = None
+        else:
+            if not ch.isalpha():
+                begin = pos
+        pos += len(ch.encode())
+    if begin is not None:
+        bb.append(begin)
+        be.append(pos)
+    if not bb or be[-1] != pos:
+        bb.append(pos)
+        be.append(pos)
+    return bb, be
+
+
+def prepare_unit(texts: Sequence[str], max_ngram: int) -> Optional[FastUnit]:
+    """Segment a unit of texts into flat arrays (no Match objects).
+
+    Mirrors find_boundaries + classify_boundaries + the hard-batch split +
+    find_match_ngrams (search.rs:190-313, lib.rs:1817-1861) exactly,
+    including the trailing-segment internal-boundaries quirk. All offsets
+    are UTF-8 byte offsets; all-ASCII units take the C++ core, non-ASCII
+    texts the generic unicode boundary scan.
+    """
+    if all(not t or t.isascii() for t in texts):
+        native = _prepare_unit_native(texts, max_ngram)
+        if native is not None:
+            return native
+    unit = FastUnit(
+        texts=texts,
+        bb=[None] * len(texts),
+        be=[None] * len(texts),
+    )
+    uniq: Dict[bytes, int] = {}
+    all_bytes: List[bytes] = []
+    ct, cb, ce, cblo, cbhi = (
+        unit.chain_text, unit.chain_begin, unit.chain_end,
+        unit.chain_blo, unit.chain_bhi,
+    )
+    segments = unit.segments
+
+    unit.raw = [None] * len(texts)
+    for ti, text in enumerate(texts):
+        if not text:
+            unit.text_chains.append((len(ct), len(ct)))
+            continue
+        data = text.encode()
+        if text.isascii():
+            # boundaries: runs of non-alphabetic bytes + trailing empty
+            # (find_boundaries ASCII fast path, fuzz-pinned in tests)
+            bb: List[int] = []
+            be: List[int] = []
+            for m in _ASCII_NONALPHA.finditer(data):
+                bb.append(m.start())
+                be.append(m.end())
+            n = len(data)
+            if not bb or be[-1] != n:
+                bb.append(n)
+                be.append(n)
+        else:
+            bb, be = _boundaries_unicode(text)
+            unit.raw[ti] = data  # byte offsets: slice bytes, then decode
+        unit.bb[ti] = bb
+        unit.be[ti] = be
+        nb = len(bb)
+
+        # hard-batch split (lib.rs:1817-1836): HARD = multi-byte or final
+        chain_lo = len(ct)
+        begin = 0
+        begin_index = 0
+        for i in range(nb):
+            if (be[i] - bb[i] > 1 or i == nb - 1) and bb[i] != begin:
+                ct.append(ti)
+                cb.append(begin)
+                ce.append(bb[i])
+                cblo.append(begin_index)
+                cbhi.append(i + 1)
+                begin = be[i]
+                begin_index = i + 1
+        unit.text_chains.append((chain_lo, len(ct)))
+
+        # segments per batch, order-major within the batch (the attach /
+        # arc creation order of the object path)
+        for cid in range(chain_lo, len(ct)):
+            bbegin, bend = cb[cid], ce[cid]
+            blo, bhi = cblo[cid], cbhi[cid]
+            m_b = bhi - blo
+            for order in range(1, max_ngram + 1):
+                seg_begin = bbegin
+                i = 0
+                while i + order - 1 < m_b:
+                    bnd_begin = bb[blo + i + order - 1]
+                    if bnd_begin > bend:
+                        break
+                    ln = bnd_begin - seg_begin
+                    if ln > 0 and not (ln == 1 and data[seg_begin] == 0x20):
+                        key = data[seg_begin:bnd_begin]
+                        q = uniq.get(key)
+                        if q is None:
+                            q = len(all_bytes)
+                            uniq[key] = q
+                            all_bytes.append(key)
+                        segments.append(
+                            (cid, order, seg_begin, bnd_begin, q)
+                        )
+                    seg_begin = be[blo + i]
+                    i += 1
+                if seg_begin < bend:
+                    ln = bend - seg_begin
+                    if ln > 0 and not (ln == 1 and data[seg_begin] == 0x20):
+                        # internal-boundaries quirk (search.rs:103-120): the
+                        # hit range over the batch slice is contiguous, the
+                        # quirk slice length equals the hit count, and a
+                        # single hit yields an empty slice
+                        lo_i = bisect_right(bb, seg_begin, blo, bhi)
+                        hi_i = bisect_left(be, bend, blo, bhi)
+                        cnt = hi_i - lo_i
+                        if cnt >= 2 and cnt == order:
+                            key = data[seg_begin:bend]
+                            q = uniq.get(key)
+                            if q is None:
+                                q = len(all_bytes)
+                                uniq[key] = q
+                                all_bytes.append(key)
+                            segments.append(
+                                (cid, order, seg_begin, bend, q)
+                            )
+
+    unit.all_texts = [b.decode() for b in all_bytes]
+    return unit
 
 
 def _found_arrays(found, nq: int, fw: float):
     """(score, ds, vid, k_of_q, lo_of_q) flat survivor columns from a
     RankedResults batch, or from plain per-query lists (fallback envs)."""
+    from ..ops.ranked import RankedResults
+
     if isinstance(found, RankedResults):
         ds = found.ds
         fqv = found.fq
@@ -205,10 +430,15 @@ def consolidate_unit(
     # span/cache machinery costs ~3x the object construction) with one bulk
     # numpy->python conversion and direct list slicing
     found_cache: Dict[int, list] = {}
+    from ..ops.ranked import RankedResults
+    from ..types import VariantResult
+
     if isinstance(found, RankedResults):
         row_l = found.row_of.tolist()
         f_over = found.overrides
         nrows_f = len(found.sbounds) - 1
+        from ..utils.native import fastemit_build_result_lists
+
         femit = fastemit_build_result_lists()
         if femit is not None and nrows_f >= 0:
             # ONE C call builds every row's VariantResult list (matches with
@@ -456,6 +686,553 @@ def consolidate_unit(
         out_by_chain[cid] = [make_match(si, None) for si in range(sl, sh)]
 
     results = []
+    for ti, text in enumerate(unit.texts):
+        clo, chi = unit.text_chains[ti]
+        matches: List[Match] = []
+        for cid in range(clo, chi):
+            matches.extend(out_by_chain[cid])
+        if params.unicodeoffsets:
+            matches = remap_offsets_to_unicodepoints(text, matches)
+        results.append(matches)
+    return results
+
+
+# test hook: force the numpy LM decoder even when the native one is present
+FORCE_NUMPY_LM = False
+
+
+def _consolidate_lm_native(
+    unit: FastUnit, params, model, nchain, nstates_c, chain_blo,
+    finals_lists, a_chain, a_src, a_tgt, a_cost, a_vid, a_seg, a_vidx,
+    a_serial, nbest, make_match,
+):
+    """Native n-best + LM decode (ananorm_nbest_lm). Builds the unique-vid /
+    unique-boundary token tables on the host (tiny, cached per model), hands
+    the whole lattice to C++, and materializes only each chain's selected
+    path. Returns out_by_chain (zero-arc chains left empty for _lm_emit), or
+    None when the native library is absent."""
+    from itertools import chain as _it_chain
+
+    from ..search import TRANSITION_SMOOTHING_LOGPROB
+    from ..utils import native as _native
+    from ..vocab import BOS, EOS
+
+    if not _native.available():
+        return None
+    bi_keys, _bc, _uk, _uc, bi_contrib = model._lm_tables()
+
+    n_arcs = len(a_chain)
+    eps_base = n_arcs - int((a_vidx == -2).sum())
+
+    # unique-vid token table (into_ngram results, cached on the model —
+    # invalidated alongside _lm_tables_cache)
+    vt_cache = getattr(model, "_lm_vidtok_cache", None)
+    if vt_cache is None:
+        vt_cache = model._lm_vidtok_cache = {}
+    mvid = a_vid[:eps_base]
+    uvid = np.unique(mvid[mvid > 0])
+    vid_lists: List[Tuple[int, ...]] = []
+    for vid in uvid.tolist():
+        toks = vt_cache.get(vid, False)
+        if toks is False:
+            toks = model.into_ngram(vid, None)
+            vt_cache[vid] = toks
+        vid_lists.append(() if toks is None else toks)
+    arc_vid_idx = np.where(
+        mvid > 0, np.searchsorted(uvid, mvid), -1
+    ).astype(np.int32)
+
+    # unique-boundary tail table (lib.rs:2605-2626): encoded boundary text
+    mchain = a_chain[:eps_base]
+    ti_of_chain = np.asarray(unit.chain_text, np.int64)
+    gb = chain_blo[mchain] + a_tgt[:eps_base] - 1
+    bkey = (ti_of_chain[mchain] << 32) | gb
+    ubkey, binv = np.unique(bkey, return_inverse=True)
+    arc_b_idx = binv.astype(np.int32)
+    encoder_get = model.encoder.get
+    into_ngram = model.into_ngram
+    tail_lists: List[Tuple[int, ...]] = []
+    for key in ubkey.tolist():
+        ti = key >> 32
+        bgl = key & 0xFFFFFFFF
+        bb = unit.bb[ti]
+        be = unit.be[ti]
+        raw = unit.raw[ti]
+        if raw is None:
+            btext = unit.texts[ti][bb[bgl] : be[bgl]]
+        else:
+            btext = raw[bb[bgl] : be[bgl]].decode()
+        btext = btext.strip()
+        if not btext:
+            tail: Tuple[int, ...] = ()
+        else:
+            bvid = encoder_get(btext)
+            if bvid is None:
+                tail = (-1,)
+            else:
+                tk = vt_cache.get(bvid, False)
+                if tk is False:
+                    tk = into_ngram(bvid, None)
+                    vt_cache[bvid] = tk
+                tail = tuple(tk) if tk is not None else ()
+        tail_lists.append(tail)
+
+    def flat_table(lists):
+        lens = np.fromiter((len(g) for g in lists), np.int64, len(lists))
+        off = np.zeros(len(lists) + 1, np.int64)
+        np.cumsum(lens, out=off[1:])
+        flat = np.fromiter(
+            _it_chain.from_iterable(lists), np.int32, int(off[-1])
+        )
+        return flat, off
+
+    vid_tok, vid_tok_off = flat_table(vid_lists)
+    tail_tok, tail_off = flat_table(tail_lists)
+
+    finals_flat = np.fromiter(
+        _it_chain.from_iterable(finals_lists),
+        np.int32,
+        sum(len(f) for f in finals_lists),
+    )
+    finals_off = np.zeros(nchain + 1, np.int64)
+    np.cumsum(
+        np.fromiter((len(f) for f in finals_lists), np.int64, nchain),
+        out=finals_off[1:],
+    )
+
+    order = np.lexsort((a_serial, a_src, a_tgt, a_chain))
+    chain_arc_off = np.searchsorted(
+        a_chain[order], np.arange(nchain + 1)
+    ).astype(np.int64)
+
+    res = _native.nbest_lm_native(
+        (a_chain[order], a_src[order], a_tgt[order], a_cost[order],
+         order.astype(np.int64)),
+        chain_arc_off, arc_vid_idx, arc_b_idx,
+        vid_tok, vid_tok_off, tail_tok, tail_off,
+        nstates_c.astype(np.int32), finals_flat, finals_off,
+        nbest, eps_base, bi_keys, bi_contrib,
+        TRANSITION_SMOOTHING_LOGPROB, BOS, EOS,
+        params.lm_weight, params.variantmodel_weight,
+        params.contextrules_weight,
+    )
+    if res is None:
+        return None
+    out_arcs, out_off = res
+    out_by_chain: List[List[Match]] = [[] for _ in range(nchain)]
+    a_seg_l = a_seg.tolist()
+    a_vidx_l = a_vidx.tolist()
+    oa = out_arcs.tolist()
+    oo = out_off.tolist()
+    for cid in range(nchain):
+        lo, hi = oo[cid], oo[cid + 1]
+        if hi > lo:
+            out_by_chain[cid] = [
+                make_match(
+                    a_seg_l[arc],
+                    a_vidx_l[arc] if a_vidx_l[arc] >= 0 else None,
+                )
+                for arc in oa[lo:hi]
+            ]
+    return out_by_chain
+
+
+def _consolidate_lm(
+    unit: FastUnit, params, model, make_match, s_chain, nchain, nstates_c,
+    chain_blo, chain_end, chain_bhi_arr, narcs,
+    a_chain, a_src, a_tgt, a_cost, a_vid, a_seg, a_vidx, a_serial,
+) -> List[List[Match]]:
+    """Lockstep n-best + LM decode across ALL chains of a unit.
+
+    Equivalent to the object path's most_likely_sequence with an active LM
+    and no context rules (lib.rs:2088-2495): exact n-best paths per chain
+    (ties by (cost, source state, arc creation order, source-hyp index) —
+    the in_arcs enumeration order of _nbest_paths_arrays), ONE vectorized
+    `_lm_score_pairs` call over every hypothesis of every chain, and the
+    reference's weighted log-space selection. Logs go through math.log
+    (np.log's SIMD path differs by ULPs and would flip near-ties); float
+    accumulation orders match the object path op for op, so outputs are
+    bit-identical (pinned by tests/test_search.py).
+    """
+    import math
+    import os
+    import time
+
+    from ..search import remap_offsets_to_unicodepoints
+    from ..vocab import BOS, EOS
+
+    trace = os.environ.get("ANALITICCL_TRACE_LM")
+    t_mark = time.process_time()
+
+    def mark(label):
+        nonlocal t_mark
+        if trace:
+            now = time.process_time()
+            print(f"    [lm] {label}: {(now - t_mark) * 1e3:.1f} ms")
+            t_mark = now
+
+    nbest = max(1, params.max_seq)
+    smax = int(nstates_c.max(initial=1))
+    n_arcs = len(a_chain)
+
+    # final local states per chain: boundaries whose begin or end equals the
+    # chain end (most_likely_sequence's final_states) — shared by both the
+    # native and the numpy decoder
+    finals_lists: List[List[int]] = []
+    for cid in range(nchain):
+        ti = unit.chain_text[cid]
+        bb = unit.bb[ti]
+        be = unit.be[ti]
+        bend = int(chain_end[cid])
+        blo, bhi = int(chain_blo[cid]), int(chain_bhi_arr[cid])
+        fl = [
+            i - blo + 1
+            for i in range(blo, bhi)
+            if bb[i] == bend or be[i] == bend
+        ]
+        finals_lists.append(fl)
+
+    if not FORCE_NUMPY_LM:
+        out_by_chain = _consolidate_lm_native(
+            unit, params, model, nchain, nstates_c, chain_blo, finals_lists,
+            a_chain, a_src, a_tgt, a_cost, a_vid, a_seg, a_vidx, a_serial,
+            nbest, make_match,
+        )
+        if out_by_chain is not None:
+            mark("native decode")
+            return _lm_emit(
+                unit, params, make_match, s_chain, narcs, out_by_chain
+            )
+
+    # ---- lockstep exact n-best DP over states 1..smax-1 ----
+    bytgt = np.argsort(a_tgt, kind="stable")
+    st_tgt = a_tgt[bytgt]
+    starts = np.searchsorted(st_tgt, np.arange(smax + 1))
+    st_chain = a_chain[bytgt]
+    st_src = a_src[bytgt]
+    st_cost = a_cost[bytgt]
+    st_serial = a_serial[bytgt]
+
+    # hypotheses live in ONE flat global pool (rows 0..nchain-1 are every
+    # chain's empty state-0 hypothesis); per state we keep only the chain
+    # column and per-chain offsets. Candidate expansion and backtracking are
+    # then single gathers instead of per-source-state masked passes.
+    cap = nchain * (1 + (smax - 1) * nbest)
+    pool_cost = np.empty(cap)
+    pool_prev = np.empty(cap, np.int64)  # global row of the source hyp
+    pool_arc = np.empty(cap, np.int64)  # arc taken into this hyp's state
+    pool_cost[:nchain] = 0.0
+    pool_prev[:nchain] = -1
+    pool_arc[:nchain] = -1
+    pool_size = nchain
+    pool_base = [0]  # per state: first pool row
+    empty_i = np.zeros(0, np.int64)
+    zero_off = np.zeros(nchain + 1, np.int64)
+    h_chain: List[np.ndarray] = [np.arange(nchain, dtype=np.int64)]
+    h_off: List[np.ndarray] = [np.arange(nchain + 1, dtype=np.int64)]
+
+    serial_span = np.int64(n_arcs + 1)
+    arange_nc1 = np.arange(nchain + 1, dtype=np.int64)
+    for t in range(1, smax):
+        lo, hi = int(starts[t]), int(starts[t + 1])
+        empty = lo == hi
+        if not empty:
+            ch = st_chain[lo:hi]
+            src = st_src[lo:hi]
+            cost = st_cost[lo:hi]
+            serial = st_serial[lo:hi]
+            n_in = hi - lo
+            cnt = np.zeros(n_in, np.int64)
+            gbase = np.zeros(n_in, np.int64)
+            for s in np.unique(src).tolist():
+                m = src == s
+                offs_s = h_off[s]
+                cm = ch[m]
+                cnt[m] = offs_s[cm + 1] - offs_s[cm]
+                gbase[m] = pool_base[s] + offs_s[cm]
+            tot = int(cnt.sum())
+            empty = tot == 0
+        if empty:
+            h_chain.append(empty_i)
+            h_off.append(zero_off)
+            pool_base.append(pool_size)
+            continue
+        rep = np.repeat(np.arange(n_in, dtype=np.int64), cnt)
+        local = (
+            np.arange(tot, dtype=np.int64)
+            - np.repeat(np.cumsum(cnt) - cnt, cnt)
+        )
+        c_gpos = gbase[rep] + local
+        c_chain = ch[rep]
+        c_cost = pool_cost[c_gpos] + cost[rep]
+        # tie key: (src, creation serial); source-hyp index rides on
+        # lexsort stability (expansion emits it ascending within an arc)
+        c_key = src[rep] * serial_span + serial[rep]
+        order = np.lexsort((c_key, c_cost, c_chain))
+        och = c_chain[order]
+        newg = np.ones(tot, bool)
+        newg[1:] = och[1:] != och[:-1]
+        gstart = np.flatnonzero(newg)
+        glen = np.diff(np.append(gstart, tot))
+        rank = np.arange(tot, dtype=np.int64) - np.repeat(gstart, glen)
+        sel = order[rank < nbest]
+        k = len(sel)
+        slot = slice(pool_size, pool_size + k)
+        pool_cost[slot] = c_cost[sel]
+        pool_prev[slot] = c_gpos[sel]
+        pool_arc[slot] = serial[rep[sel]]
+        kch = c_chain[sel]
+        h_chain.append(kch)
+        h_off.append(np.searchsorted(kch, arange_nc1))
+        pool_base.append(pool_size)
+        pool_size += k
+
+    mark("nbest DP")
+    # ---- final-state collection: (cost, state, hidx) order, top nbest ----
+    is_final = np.zeros((nchain, smax + 1), bool)
+    for cid, fl in enumerate(finals_lists):
+        for s in fl:
+            if s <= smax:
+                is_final[cid, s] = True
+    f_chain: List[np.ndarray] = []
+    f_cost: List[np.ndarray] = []
+    f_state: List[np.ndarray] = []
+    f_pos: List[np.ndarray] = []
+    f_hidx: List[np.ndarray] = []
+    for t in range(1, smax):
+        hc = h_chain[t]
+        if not len(hc):
+            continue
+        idx = np.flatnonzero(is_final[hc, t])
+        if not len(idx):
+            continue
+        f_chain.append(hc[idx])
+        f_cost.append(pool_cost[pool_base[t] + idx])
+        f_state.append(np.full(len(idx), t, np.int64))
+        f_pos.append(pool_base[t] + idx)
+        f_hidx.append(idx - h_off[t][hc[idx]])
+
+    out_by_chain: List[List[Match]] = [[] for _ in range(nchain)]
+    n_hyp = 0
+    if f_chain:
+        fc = np.concatenate(f_chain)
+        fcost = np.concatenate(f_cost)
+        fst = np.concatenate(f_state)
+        fpos = np.concatenate(f_pos)
+        fh = np.concatenate(f_hidx)
+        order = np.lexsort((fh, fst, fcost, fc))
+        oc = fc[order]
+        newg = np.ones(len(oc), bool)
+        newg[1:] = oc[1:] != oc[:-1]
+        gstart = np.flatnonzero(newg)
+        glen = np.diff(np.append(gstart, len(oc)))
+        rank = np.arange(len(oc), dtype=np.int64) - np.repeat(gstart, glen)
+        sel = order[rank < nbest]
+        hyp_chain = fc[sel]
+        hyp_cost = fcost[sel]
+        hyp_pos = fpos[sel]  # global pool rows
+        n_hyp = len(sel)
+        hyp_off = np.searchsorted(hyp_chain, arange_nc1)
+
+    mark("finals")
+    if n_hyp:
+        # ---- lockstep backtrack of EVERY kept hypothesis (pool walks) ----
+        cur = hyp_pos.copy()
+        act = np.arange(n_hyp)
+        r_h: List[np.ndarray] = []
+        r_arc: List[np.ndarray] = []
+        r_round: List[np.ndarray] = []
+        rnd = 0
+        while len(act):
+            rows = cur[act]
+            r_h.append(act.copy())
+            r_arc.append(pool_arc[rows])
+            r_round.append(np.full(len(act), rnd, np.int64))
+            nxt = pool_prev[rows]
+            cur[act] = nxt
+            act = act[nxt >= nchain]  # rows < nchain are state-0 roots
+            rnd += 1
+        ph = np.concatenate(r_h)
+        pa = np.concatenate(r_arc)
+        pr = np.concatenate(r_round)
+        real = a_vidx[pa] != -2  # drop epsilon arcs (symbol None)
+        ph, pa, pr = ph[real], pa[real], pr[real]
+        order = np.lexsort((-pr, ph))  # forward order per hypothesis
+        ph = ph[order]
+        pa = pa[order]
+        sym_counts = np.bincount(ph, minlength=n_hyp)
+        sym_bounds = np.zeros(n_hyp + 1, np.int64)
+        np.cumsum(sym_counts, out=sym_bounds[1:])
+
+        mark("backtrack")
+        # ---- per-arc token groups (lm_score expansion, lib.rs:2580-2628):
+        # a symbol's tokens = its vocab entry's ngram decomposition (an OOV
+        # copies the input as one unknown token) + the trailing boundary's
+        # encoded text — constants per arc, cached per vid / boundary
+        uarc = np.unique(pa)
+        vid_tok_cache: Dict[int, Optional[Tuple[int, ...]]] = {}
+        tail_cache: Dict[Tuple[int, int], Optional[Tuple[int, ...]]] = {}
+        groups: List[Tuple[int, ...]] = []
+        chain_text_l = unit.chain_text
+        encoder_get = model.encoder.get
+        into_ngram = model.into_ngram
+        a_vid_l = a_vid[uarc].tolist()
+        a_chain_l = a_chain[uarc].tolist()
+        a_bgl_l = (chain_blo[a_chain[uarc]] + a_tgt[uarc] - 1).tolist()
+        for vid, cid, bgl in zip(a_vid_l, a_chain_l, a_bgl_l):
+            parts: List[int] = []
+            if vid == 0:
+                parts.append(-1)  # OOV token (None in the object path)
+            else:
+                toks = vid_tok_cache.get(vid, False)
+                if toks is False:
+                    toks = into_ngram(vid, None)
+                    vid_tok_cache[vid] = toks
+                if toks is not None:
+                    parts.extend(toks)
+            ti = chain_text_l[cid]
+            key = (ti, bgl)
+            tail = tail_cache.get(key, False)
+            if tail is False:
+                bb = unit.bb[ti]
+                be = unit.be[ti]
+                raw = unit.raw[ti]
+                if raw is None:
+                    btext = unit.texts[ti][bb[bgl] : be[bgl]]
+                else:
+                    btext = raw[bb[bgl] : be[bgl]].decode()
+                btext = btext.strip()
+                if not btext:
+                    tail = None
+                else:
+                    bvid = encoder_get(btext)
+                    if bvid is None:
+                        tail = (-1,)
+                    else:
+                        tk = vid_tok_cache.get(bvid, False)
+                        if tk is False:
+                            tk = into_ngram(bvid, None)
+                            vid_tok_cache[bvid] = tk
+                        tail = tuple(tk) if tk is not None else None
+                tail_cache[key] = tail
+            if tail is not None:
+                parts.extend(tail)
+            groups.append(tuple(parts))
+        groups.append((BOS,))
+        groups.append((EOS,))
+        gid_bos = len(groups) - 2
+        gid_eos = len(groups) - 1
+        from itertools import chain as _it_chain
+
+        table_len = np.fromiter(
+            (len(g) for g in groups), np.int64, len(groups)
+        )
+        table_lo = np.zeros(len(groups) + 1, np.int64)
+        np.cumsum(table_len, out=table_lo[1:])
+        table_flat = np.fromiter(
+            _it_chain.from_iterable(groups), np.int64, int(table_lo[-1])
+        )
+        gid_of_pa = np.searchsorted(uarc, pa)
+
+        mark("token groups")
+        # ---- per-hypothesis token streams + ONE LM scoring pass ----
+        seq_tot = sym_counts + 2
+        seq_starts = np.zeros(n_hyp + 1, np.int64)
+        np.cumsum(seq_tot, out=seq_starts[1:])
+        all_gid = np.full(int(seq_starts[-1]), gid_eos, np.int64)
+        all_gid[seq_starts[:-1]] = gid_bos
+        if len(pa):
+            pos = np.arange(len(pa), dtype=np.int64) + np.repeat(
+                seq_starts[:-1] + 1 - sym_bounds[:-1], sym_counts
+            )
+            all_gid[pos] = gid_of_pa
+        seq_of_sym = np.repeat(np.arange(n_hyp, dtype=np.int64), seq_tot)
+        gl = table_len[all_gid]
+        tot_tok = int(gl.sum())
+        offs = (
+            np.arange(tot_tok, dtype=np.int64)
+            - np.repeat(np.cumsum(gl) - gl, gl)
+        )
+        tokens_flat = table_flat[np.repeat(table_lo[all_gid], gl) + offs]
+        tseq = np.repeat(seq_of_sym, gl)
+        m_pair = tseq[1:] == tseq[:-1]
+        _, perps = model._lm_score_pairs_arrays(
+            tokens_flat[:-1][m_pair],
+            tokens_flat[1:][m_pair],
+            tseq[1:][m_pair],
+            n_hyp,
+        )
+
+        mark("lm scoring")
+        # ---- weighted log-space selection (lib.rs:2383-2425) ----
+        hyp_sizes = np.diff(hyp_off)
+        best_perp = np.full(nchain, 999999.0)
+        np.minimum.at(best_perp, hyp_chain, perps)
+        init_bvc = (nstates_c.astype(np.float64) - 2.0) * 2.0
+        bvc = init_bvc.copy()
+        np.minimum.at(bvc, hyp_chain, hyp_cost)
+        lm_w = params.lm_weight
+        vm_w = params.variantmodel_weight
+        ctx_w = params.contextrules_weight
+        denom = lm_w + vm_w + ctx_w
+        lm_ratio = (best_perp[hyp_chain] / perps).tolist()
+        cost_l = hyp_cost.tolist()
+        bvc_l = bvc[hyp_chain].tolist()
+        neg_inf = float("-inf")
+        scores = np.empty(n_hyp)
+        for i in range(n_hyp):
+            norm_lm = math.log(lm_ratio[i])
+            cost = cost_l[i]
+            if cost <= 0:
+                norm_vs = 0.0
+            elif bvc_l[i] <= 0:
+                norm_vs = neg_inf
+            else:
+                norm_vs = math.log(bvc_l[i] / cost)
+            # ctx term: no rules here, so log(1/1) == 0 — kept in the sum
+            # and denominator exactly as the object path computes it
+            scores[i] = (lm_w * norm_lm + vm_w * norm_vs + ctx_w * 0.0) / denom
+        kidx = (
+            np.arange(n_hyp, dtype=np.int64)
+            - np.repeat(hyp_off[:-1], hyp_sizes)
+        )
+        order = np.lexsort((kidx, -scores, hyp_chain))
+        och = hyp_chain[order]
+        firsts = np.ones(len(order), bool)
+        firsts[1:] = och[1:] != och[:-1]
+        best_rows = order[firsts]
+
+        mark("selection")
+        # ---- emit best-path matches per chain ----
+        a_seg_l = a_seg.tolist()
+        a_vidx_l = a_vidx.tolist()
+        pa_l = pa.tolist()
+        for row, cid in zip(best_rows.tolist(), och[firsts].tolist()):
+            out: List[Match] = []
+            for j in range(int(sym_bounds[row]), int(sym_bounds[row + 1])):
+                arc = pa_l[j]
+                vx = a_vidx_l[arc]
+                out.append(make_match(a_seg_l[arc], vx if vx >= 0 else None))
+            out_by_chain[cid] = out
+
+    return _lm_emit(unit, params, make_match, s_chain, narcs, out_by_chain)
+
+
+def _lm_emit(
+    unit: FastUnit, params, make_match, s_chain, narcs, out_by_chain
+) -> List[List[Match]]:
+    """Shared LM-decode emission: zero-arc chains return the raw match list
+    untouched (the len(sym_vid)==1 early-out of most_likely_sequence), then
+    matches assemble per text with optional unicode offset remapping."""
+    narcs_l = narcs.tolist()
+    for cid in range(len(out_by_chain)):
+        if narcs_l[cid] > 0:
+            continue
+        sl = int(np.searchsorted(s_chain, cid))
+        sh = int(np.searchsorted(s_chain, cid + 1))
+        out_by_chain[cid] = [make_match(si, None) for si in range(sl, sh)]
+
+    results: List[List[Match]] = []
     for ti, text in enumerate(unit.texts):
         clo, chi = unit.text_chains[ti]
         matches: List[Match] = []

@@ -38,8 +38,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from analiticcl_tpu.ops.rank_batch import rank_fast_batch
-from analiticcl_tpu.types import (
+from ..types import (
     Distance,
     MAX_ANAGRAM_DISTANCE,
     MAX_EDIT_DISTANCE,
@@ -47,13 +46,14 @@ from analiticcl_tpu.types import (
     StopCriterion,
     ThresholdKind,
     VariantResult,
+    rank_results,
 )
-from analiticcl_tpu.utils.native import rank_tail_native
-from analiticcl_tpu.utils.profiling import StageTimer
-
+from ..utils.native import fastemit_build_result_lists, rank_tail_native
+from ..utils.profiling import StageTimer
 from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
 from ..device import resolve_device
 from .dl import PAD_A, PAD_B, affix_metrics_aligned, dl_lcs
+from .rank_batch import rank_fast_batch
 from .ranked import RankedResults
 from .stage_a import ROW_BLOCK, _b_tile, stage_a_masks
 
@@ -575,8 +575,6 @@ class DevicePipeline:
         if late_conf and batch_res is not None:
             nc = model._native_confusables()
             if nc is not None:
-                from analiticcl_tpu.types import rank_results
-
                 row_ids = [row for row in range(nrows) if elig_row[row]]
                 inputs_list = [inputs[active[row]] for row in row_ids]
                 texts: List[str] = []
@@ -717,10 +715,6 @@ class DevicePipeline:
                 sbounds_arr = np.searchsorted(
                     r_seg[:n_out], np.arange(nrows + 1)
                 ).astype(np.int64)
-                from analiticcl_tpu.utils.native import (
-                    fastemit_build_result_lists,
-                )
-
                 femit = fastemit_build_result_lists()
                 if femit is not None:
                     batch_res: List[List[VariantResult]] = femit(

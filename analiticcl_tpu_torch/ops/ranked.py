@@ -11,7 +11,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-from analiticcl_tpu.types import VariantResult
+from ..types import VariantResult
 
 
 class RankedResults:

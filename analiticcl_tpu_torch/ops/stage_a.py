@@ -33,7 +33,7 @@ ROW_BLOCK = 1024  # band-start granularity in rows
 B_TILE = 1024  # queries per band tile
 BIG_NI_ROWS = 262_144  # above this many rows the query tile shrinks ...
 BIG_NI_B_TILE = 256  # ... to this, so each tile's charcount band narrows
-KERNEL_QT = 32  # queries per CUDA block (never straddles a band tile)
+KERNEL_QT = 128  # queries per CUDA block (never straddles a band tile)
 
 
 def _b_tile(B: int, Ni: int = 0) -> int:
@@ -122,7 +122,8 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
                   nb_band: int):
     """Banded stage-A outputs: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. The kernel wants ``AT`` (the plane width) a
-    multiple of 16; ``convert.py`` pads the index with zero columns."""
+    multiple of 32, one int8 MMA k-step; ``convert.py`` pads the index with
+    zero columns."""
     B, AT, bt = _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len,
                               start_blk, nb_band)
     dev = bins.device
@@ -131,8 +132,8 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
                                    k_len, start_blk, nb_band)
     if dev.type != "cuda":
         raise ValueError(f"stage_a: unsupported device {dev}")
-    if AT % 16:
-        raise ValueError(f"stage_a kernel: AT={AT} is not a multiple of 16")
+    if AT % 32:
+        raise ValueError(f"stage_a kernel: AT={AT} is not a multiple of 32")
     Nb = nb_band * ROW_BLOCK
     packed_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
     exact_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from analiticcl_tpu.vocab import VocabParams, VocabType
+from .vocab import VocabParams, VocabType
 
 # 26 case-folded letters plus punctuation, like the reference's test alphabet
 ALPHABET = [[c, c.upper()] for c in "abcdefghijklmnopqrstuvwxyz"] + [
@@ -180,7 +180,7 @@ def populate(model, words: Sequence[str], freqs: Optional[np.ndarray] = None,
              bigrams=None):
     """Add ``words`` (with ``freqs``, if given) and the LM ``bigrams`` (as
     :func:`synthetic_bigrams` gives them, if given) to ``model`` and build
-    it. Works for the JAX package's model and the port's alike."""
+    it (the port's model)."""
     vp = VocabParams()
     for i, w in enumerate(words):
         model.add_to_vocabulary(w, None if freqs is None else int(freqs[i]), vp)

@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Phases, each printing one line: the card; the build of both CUDA kernels
-from ``analiticcl_tpu_torch/csrc``; the stage-A kernel against its plain
-PyTorch version (bit for bit) and the DL+LCS kernel against its plain
-version (DL clipped at window + 1) at the main path's shapes, with CUDA-event
-times of both; then the main path: ``VariantModel(device="cuda")`` over a
-seeded synthetic lexicon of eng.aspell's size, ``find_variants_stream`` over
-16,384 corrupted queries, and 1,024 ratio-threshold queries that reach the
-W=12 window and the window split, held against the exact host oracle. Then
+from ``analiticcl_tpu_torch/csrc`` (with ptxas's registers, shared memory
+and spills); the stage-A kernel against its plain PyTorch version (bit for
+bit) on seeded inputs with query tiles of 8, 64, 1,024 and (from 262,144
+index rows) 256, and at the main path's shapes; the DL+LCS kernel against
+its plain version (DL clipped at window + 1) at the main path's shapes;
+CUDA-event times of both beside their bounds. Then the main path:
+``VariantModel(device="cuda")`` over a seeded synthetic lexicon of
+eng.aspell's size, ``find_variants_stream`` over 16,384 corrupted queries,
+and 1,024 ratio-threshold queries that reach the W=12 window and the window
+split, held against the exact host oracle, and one ``torch.profiler`` window
+over a warm 16,384-query pass (device time per kernel, idle share). Then
 search mode over 4,096 lines of running text (``find_all_matches_stream``,
 bigram segments), the same with a seeded bigram language model whose
 bigrams the text holds, and learn mode (strict over 4,096 corrupted words,
@@ -48,6 +52,14 @@ N_LEARN_STRICT = 4096
 N_LEARN_LINES = 512
 N_LEARN_CALLS = 5  # learn calls per mode, each on its own corpus
 N_LEARN_CHECK = 256
+# (B, index rows, band blocks) of the direct K1 checks: query tiles of 8,
+# 64 and 1,024, and 256 from 262,144 index rows up
+K1_DIRECT = ((8, 32_768, 4), (64, 32_768, 8), (8192, 32_768, 8),
+             (4096, 262_144, 16))
+# NVIDIA H100 SXM data sheet, dense, at 700 W
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+FP32_OPS_PER_S = 67e12  # non-tensor 32-bit arithmetic
 STAGES = ("search_prepare", "host_prep", "device", "device_get", "host_tail",
           "search_consolidate", "host_oracle_fallback")
 
@@ -64,8 +76,11 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def time_ms(fn, reps: int, inner: int = 1) -> float:
+    """Median over ``reps`` CUDA-event timings of ``inner`` back-to-back
+    calls of ``fn``, per call, after one warm-up. With ``inner`` > 1 the
+    card has the next launch queued while it runs one, so a kernel that
+    takes longer than its wrapper's host work is timed without that work."""
     import torch
 
     fn()
@@ -74,11 +89,34 @@ def time_ms(fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """The device time per launch of the CUDA kernel whose name contains
+    ``kernel``, from one torch.profiler window over ``reps`` calls of
+    ``fn`` (the kernel alone, without its wrapper's host work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    if len(spans) != reps:
+        raise SystemExit(f"profiler saw {len(spans)} launches of {kernel}, "
+                         f"not {reps}")
+    return sum(tr.end - tr.start for tr in spans) / reps / 1e3
 
 
 def launch_counts() -> dict:
@@ -129,6 +167,162 @@ def match_signature(outs):
     ]
 
 
+def k1_direct_inputs(seed: int, Ni: int, B: int, nb_band: int, A: int = 30,
+                     T: int = 7):
+    """Seeded stage-A inputs on the card: charcount-sorted random count
+    planes (A x T = 210 columns, zero-padded to 224 as the index is), the
+    last rows padding, a few queries exact anagrams of indexed rows, and a
+    random band start per query tile."""
+    import numpy as np
+    import torch
+
+    from analiticcl_tpu_torch.ops.stage_a import ROW_BLOCK, _b_tile
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, T + 1, size=(Ni, A), dtype=np.int8) * (
+        rng.random((Ni, A), dtype=np.float32) < 0.25)
+    cc = counts.sum(1, dtype=np.int32)
+    order = np.argsort(cc, kind="stable")
+    counts, cc = counts[order], cc[order]
+    levels = np.arange(T, dtype=np.int8)[None, None, :]
+    at_pad = -(-A * T // 32) * 32
+    bins = np.zeros((Ni, at_pad), np.int8)
+    bins[:, :A * T] = (counts[:, :, None] > levels).reshape(Ni, A * T)
+    valid = np.arange(Ni) < Ni - 100
+    bins[~valid] = 0
+    cc[~valid] = 1 << 28
+    bt = _b_tile(B, Ni)
+    start = rng.integers(0, Ni // ROW_BLOCK - nb_band + 1,
+                         size=B // bt).astype(np.int32)
+    # most queries are a row of their tile's band with 0-2 counts moved by
+    # one (hits and exact hits), a quarter are random (mostly misses)
+    lo = start.astype(np.int64)[np.arange(B) // bt] * ROW_BLOCK
+    src = np.minimum(lo + rng.integers(0, nb_band * ROW_BLOCK, size=B),
+                     Ni - 101)
+    qc = counts[src].astype(np.int64)
+    for k in range(2):
+        col = rng.integers(0, A, size=B)
+        step = rng.integers(-1, 2, size=B) * (rng.random(B) < 0.5)
+        qc[np.arange(B), col] = np.clip(qc[np.arange(B), col] + step, 0, T)
+    rand = rng.random(B) < 0.25
+    qc[rand] = rng.integers(0, T + 1, size=(int(rand.sum()), A)) * (
+        rng.random((int(rand.sum()), A)) < 0.25)
+    qbin = np.zeros((B, at_pad), np.int8)
+    qbin[:, :A * T] = (qc[:, :, None] > levels).reshape(B, A * T)
+    q_cc = qc.sum(1).astype(np.int32)
+    k_ana = rng.integers(0, 5, size=B).astype(np.int32)
+    k_len = np.minimum(k_ana, rng.integers(0, 4, size=B)).astype(np.int32)
+    k_ana[-3:] = k_len[-3:] = -1  # padding queries
+    return tuple(torch.from_numpy(x).cuda() for x in (
+        bins, cc, valid, qbin, q_cc, k_ana, k_len, start))
+
+
+def hold_k1(*args):
+    """Hold the stage-A kernel against its plain version on ``args`` (the
+    wrapper's arguments), bit for bit; returns (max abs error, bt, exact
+    hits)."""
+    import torch
+
+    from analiticcl_tpu_torch.ops.stage_a import (
+        _b_tile, stage_a_masks, stage_a_masks_plain,
+    )
+
+    got = stage_a_masks(*args)
+    want = stage_a_masks_plain(*args)
+    torch.cuda.synchronize()
+    B = args[3].shape[0]
+    for n, g, w in zip(("packed_q", "exact_q", "counts_t", "nmatch",
+                        "nexact"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise SystemExit(f"stage_a kernel differs from plain in {n} at "
+                             f"B={B}, Ni={args[0].shape[0]}, "
+                             f"nb_band={args[-1]}")
+    if int(want[3].sum()) == 0:
+        raise SystemExit(f"stage_a check at B={B} saw no hits")
+    return 0, _b_tile(B, args[0].shape[0]), int(want[4].sum())
+
+
+def k1_bound_ms(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
+                nb_band):
+    """The least time of stage A on these inputs: the larger of its int8
+    multiply-adds (2 operations each, padded plane width) at the dense int8
+    tensor-core rate and its bytes (the union of the tiles' band rows'
+    planes, charcounts and valid flags, the queries' planes and scalars read
+    once; the bits, counts and totals written once) at the memory rate."""
+    Ni, AT = bins.shape
+    B = qbin.shape[0]
+    Nb = nb_band * 1024
+    blocks = set()
+    for s in start_blk.tolist():
+        blocks.update(range(s, s + nb_band))
+    rows = len(blocks) * 1024
+    nbytes = (rows * (AT + 4 + 1) + B * (AT + 12) + 4 * start_blk.numel()
+              + 2 * B * Nb // 8 + 4 * (Nb // 128) * B + 8 * B)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * B * Nb * AT / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def k2_bound_ms(a_len, b_len, L: int, W: int):
+    """The least time of the DL+LCS kernel on these pairs: the larger of its
+    bytes (both int32 strings, both lengths, both outputs) at the memory rate
+    and its 32-bit integer work (about 10 operations per banded DL cell,
+    a_len * (2W + 3) cells, and 3 per LCS cell, a_len * b_len) at the card's
+    non-tensor 32-bit rate."""
+    P = a_len.shape[0]
+    al = a_len.clamp(max=L).double()
+    ops = float((10 * al * (2 * W + 3) + 3 * al * b_len.clamp(max=L)).sum())
+    t_bytes = P * (8 * L + 16) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def profile_pass(fn) -> str:
+    """One torch.profiler window over ``fn``: device time per kernel (the
+    two CUDA kernels, then the other device ops by time) and the device's
+    idle share of the window's wall time (1 - the union of device intervals
+    over the wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        tr = e.time_range
+        spans.append((tr.start, tr.end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (tr.end - tr.start) / 1e3
+    if not spans:
+        return "profile: the profiler saw no device time (not measured)"
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + cur_e - cur_s) / 1e3  # ms
+    k1 = sum(v for k, v in by_name.items() if "stage_a_kernel" in k)
+    k2 = sum(v for k, v in by_name.items() if "dl_lcs_kernel" in k)
+    rest = sorted(((v, k) for k, v in by_name.items()
+                   if "stage_a_kernel" not in k and "dl_lcs_kernel" not in k),
+                  reverse=True)
+    top = "; ".join(f"{k[:60]} {v:.3f} ms" for v, k in rest[:8])
+    return (f"profile: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms, "
+            f"idle share {1 - busy / (wall * 1e3):.4f}; K1 stage_a "
+            f"{k1:.3f} ms, K2 dl_lcs {k2:.3f} ms, other device ops "
+            f"{sum(v for v, _ in rest):.3f} ms in {len(rest)} kinds: {top}")
+
+
 def hold_kernels(name: str, pipe, lookups, params) -> None:
     """Prepare ``lookups`` as one device batch, as the path does, and hold
     the stage-A kernel (bit for bit) and the DL+LCS kernel (DL clipped at
@@ -140,9 +334,7 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     from analiticcl_tpu_torch.ops.pipeline import (
         compact_pairs, gather_pairs, query_planes,
     )
-    from analiticcl_tpu_torch.ops.stage_a import (
-        stage_a_masks, stage_a_masks_plain,
-    )
+    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
 
     t0 = time.perf_counter()
     st = pipe.prepare(lookups, params)
@@ -154,13 +346,8 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     idx = pipe.index
     a_args = (idx.bins, idx.cc, idx.validrows, query_planes(idx, q_counts),
               q_cc, k_ana, k_len, start_blk, st["nb_band"])
+    hold_k1(*a_args)
     got = stage_a_masks(*a_args)
-    want = stage_a_masks_plain(*a_args)
-    torch.cuda.synchronize()
-    for n, g, w in zip(("packed_q", "exact_q", "counts_t", "nmatch",
-                        "nexact"), got, want):
-        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
-            raise SystemExit(f"{name}: stage_a kernel differs from plain in {n}")
     pq, _pcb, pc = compact_pairs(got[0], start_blk, pipe.Ni_pad)
     pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
     W = st["window"]
@@ -395,32 +582,46 @@ def main() -> int:
     idx = pipe.index
     records = []
 
-    # ---- 3. K1 against its plain version, one main-path batch ----
+    # ---- 3. K1 against its plain version: direct shapes, then one
+    # main-path batch ----
+    for B, ni, nb in K1_DIRECT:
+        k1_err, bt, n_exact = hold_k1(*k1_direct_inputs(SEED + B, ni, B, nb),
+                                      nb)
+        if n_exact == 0:
+            raise SystemExit(f"K1 direct check at B={B} saw no exact hits")
+        log(f"K1 stage_a direct: B={B} bt={bt} Ni={ni} nb_band={nb} "
+            f"bit-identical to plain ({n_exact} exact hits)")
     st = pipe.prepare(queries[:BATCH], params)
     (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
      start_blk, _w, _thr) = st["args"]
     qbin = query_planes(idx, q_counts)
     a_args = (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
               start_blk, st["nb_band"])
+    k1_err, _bt, _ne = hold_k1(*a_args)
     got = stage_a_masks(*a_args)
-    want = stage_a_masks_plain(*a_args)
-    torch.cuda.synchronize()
-    names = ("packed_q", "exact_q", "counts_t", "nmatch", "nexact")
-    k1_err = 0
-    for n, g, w in zip(names, got, want):
-        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
-            raise SystemExit(f"stage_a kernel differs from plain in {n}")
-        k1_err = max(k1_err, int((g.long() - w.long()).abs().max()))
-    k1_ms = time_ms(lambda: stage_a_masks(*a_args), 20)
+    k1_ms = time_ms(lambda: stage_a_masks(*a_args), 10, inner=10)
+    k1_dev = device_ms(lambda: stage_a_masks(*a_args), "stage_a_kernel", 10)
     k1_plain = time_ms(lambda: stage_a_masks_plain(*a_args), 5)
+    k1_bound, k1_by = k1_bound_ms(*a_args)
+    rs = idx.bins.shape[1] + 16  # csrc/stage_a.cu smem_bytes
+    log(f"K1 stage_a: dynamic shared memory "
+        f"{128 * rs + 3 * (64 * rs + 320) + 2 * 4 * 128 * 33} bytes per "
+        f"block of 256 threads at AT {idx.bins.shape[1]}")
     log(f"K1 stage_a: B={BATCH} nb_band={st['nb_band']} "
-        f"(band {st['nb_band'] * 1024} rows of {pipe.Ni_pad}) bit-identical to "
-        f"plain; kernel {k1_ms:.3f} ms, plain {k1_plain:.3f} ms | {card}")
+        f"(band {st['nb_band'] * 1024} rows of {pipe.Ni_pad}, AT "
+        f"{idx.bins.shape[1]}) bit-identical to plain; kernel {k1_ms:.3f} ms "
+        f"(CUDA events, 10 back-to-back calls; profiler device time "
+        f"{k1_dev:.4f} ms), "
+        f"plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}) | {card}")
     records.append({
         "name": "stage_a", "route": "cuda",
         "source": "analiticcl_tpu_torch/csrc/stage_a.cu",
         "replaces": "analiticcl_tpu/ops/stage_a.py:88",
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+        "library_note": "no PyTorch call computes it: torch._int_mm of the "
+                        "same planes writes an int32 product 32x the size "
+                        "of the bits, and no call fuses the tests",
     })
 
     # ---- 4. K2 against its plain version on the main path's pairs ----
@@ -441,20 +642,24 @@ def main() -> int:
         )
         if err:
             raise SystemExit(f"dl_lcs kernel differs from plain at W={W}")
-        ms = time_ms(lambda: dl_lcs(a, al, b, bl, L, W), 10)
+        ms = time_ms(lambda: dl_lcs(a, al, b, bl, L, W), 10, inner=10)
         plain = time_ms(
             lambda: dl_metrics_windowed_plain(a, al, b, bl, L, W), 3
         )
-        k2[W] = (err, ms, plain)
+        bound, by = k2_bound_ms(al, bl, L, W)
+        k2[W] = (err, ms, plain, bound, by)
         log(f"K2 dl_lcs W={W}: P={P} L={L} ({pr.a.shape[0]} distinct "
             f"main-path pairs) equal to plain (DL clipped at W+1); kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms | {card}")
+            f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}) "
+            f"| {card}")
     records.append({
         "name": "dl_lcs", "route": "cuda",
         "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
         "replaces": "analiticcl_tpu/ops/dl_pallas.py:47",
         "max_abs_err": max(v[0] for v in k2.values()),
         "ms": k2[3][1], "plain_ms": k2[3][2],
+        "bound_ms": k2[3][3], "bound_by": k2[3][4], "library_ms": None,
+        "library_note": "no PyTorch call computes banded Damerau-Levenshtein",
     })
 
     # ---- 5. the main path ----
@@ -512,6 +717,9 @@ def main() -> int:
     log(f"ratio thresholds: {N_RATIO} queries, {n_w12} at W=12, window split; "
         f"oracle parity exact on {N_ORACLE} + {N_ORACLE_RATIO} queries "
         f"({time.perf_counter() - t1:.1f} s); launches {launches}")
+    # one profiler window over a warm pass of the same 16,384 queries
+    # (after the path's launch counts were read)
+    log(f"main path {profile_pass(lambda: list(model.find_variants_stream(queries, params, BATCH)))} | {card}")
 
     # ---- 6-8. search, search with a language model, learn ----
     by_path = {"query": launches}

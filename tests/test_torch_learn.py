@@ -7,13 +7,13 @@ import pytest
 import torch
 
 from analiticcl_tpu.models.variant_model import VariantModel as JaxModel
-from analiticcl_tpu.types import (
+from analiticcl_tpu_torch import (
     DistanceThreshold,
     SearchParameters,
+    VariantModel,
     VariantReferenceKind,
+    VocabType,
 )
-from analiticcl_tpu.vocab import VocabType
-from analiticcl_tpu_torch import VariantModel
 from analiticcl_tpu_torch.ops.pipeline import DevicePipeline
 from analiticcl_tpu_torch.testing import (
     ALPHABET,
@@ -23,6 +23,7 @@ from analiticcl_tpu_torch.testing import (
     synthetic_lexicon,
     synthetic_text,
 )
+from test_torch_slice import ref_populate, to_ref
 
 torch.set_num_threads(2)
 
@@ -41,13 +42,14 @@ def words():
 
 
 def snapshot(model):
-    """Every decoder entry: text, frequency, type and variant links."""
+    """Every decoder entry: text, frequency, type and variant links, as
+    plain values (the two packages' link kinds are distinct enums)."""
     return [
         (
             v.text, v.frequency, int(v.vocabtype),
             None
             if v.variants is None
-            else [(r.kind, r.vocab_id, r.score) for r in v.variants],
+            else [(r.kind.name, r.vocab_id, r.score) for r in v.variants],
         )
         for v in model.decoder
     ]
@@ -69,10 +71,10 @@ def test_learn_matches_jax(words, strict):
     else:
         corpus = synthetic_text(words, 22, 24)
     port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words, freqs)
-    ref = populate(JaxModel(alphabet=ALPHABET), words, freqs)
+    ref = ref_populate(JaxModel(alphabet=ALPHABET), words, freqs)
     ref.set_backend("device")
     n_port = port.learn_variants(corpus, PARAMS, strict=strict)
-    n_ref = ref.learn_variants(corpus, PARAMS, strict=strict)
+    n_ref = ref.learn_variants(corpus, to_ref(PARAMS), strict=strict)
     assert n_port == n_ref > len(corpus) // 4
     assert snapshot(port) == snapshot(ref)
     assert (

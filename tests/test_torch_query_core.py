@@ -15,7 +15,12 @@ import torch
 
 import analiticcl_tpu.ops.pipeline as jpl
 from analiticcl_tpu.models.variant_model import VariantModel as JaxModel
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters, StopCriterion
+from analiticcl_tpu_torch import (
+    DistanceThreshold,
+    SearchParameters,
+    StopCriterion,
+    VariantModel,
+)
 from analiticcl_tpu_torch.convert import (
     host_layout,
     index_tensors_from_model,
@@ -30,6 +35,7 @@ from analiticcl_tpu_torch.testing import (
     synthetic_lexicon,
 )
 from test_pipeline import QUERIES
+from test_torch_slice import ref_populate, to_ref
 
 torch.set_num_threads(2)
 
@@ -47,9 +53,13 @@ def words():
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["nofreq", "freq"])
-def jax_model(request, words):
-    freqs = synthetic_frequencies(3, len(words)) if request.param else None
-    return populate(JaxModel(alphabet=ALPHABET), words, freqs)
+def freqs(request, words):
+    return synthetic_frequencies(3, len(words)) if request.param else None
+
+
+@pytest.fixture(scope="module")
+def jax_model(words, freqs):
+    return ref_populate(JaxModel(alphabet=ALPHABET), words, freqs)
 
 
 @pytest.mark.parametrize("stop", ["exhaustive", "stop_at_exact"])
@@ -65,7 +75,7 @@ def test_query_core_matches_jax(jax_model, words, stop):
     # corrupted words and exact lexicon words (the latter have exact anagrams)
     queries = QUERIES + corrupt_queries(words, 11, 200) + words[:56]
     pipe = jpl.DevicePipeline(jax_model)
-    st = pipe.submit(queries, params)
+    st = pipe.submit(queries, to_ref(params))
     assert "args" in st, "the batch must not split by window"
     have_freq = bool(jax_model.have_freq)
     want = _jax_core(
@@ -96,14 +106,16 @@ def test_query_core_matches_jax(jax_model, words, stop):
     np.testing.assert_array_equal(got[7].numpy(), want[7].astype(np.int64))
 
 
-def test_index_layout_matches_jax(jax_model):
-    """The port's own layout of a built model equals the JAX pipeline's."""
+def test_index_layout_matches_jax(jax_model, words, freqs):
+    """The port's own model and layout of the same lexicon equal the JAX
+    pipeline's, and its planes are zero-padded to a multiple of 32."""
     pipe = jpl.DevicePipeline(jax_model)
-    lay = host_layout(jax_model)
-    ours = index_tensors_from_model(jax_model, "cpu")
+    port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words, freqs)
+    lay = host_layout(port)
+    ours = index_tensors_from_model(port, "cpu")
     theirs = index_tensors_from_numpy(*(np.asarray(x) for x in pipe._idx), "cpu")
     assert ours.at == theirs.at == pipe.A * pipe.T
-    assert ours.bins.shape[1] % 16 == 0
+    assert ours.bins.shape[1] % 32 == 0
     assert not ours.bins[:, ours.at:].any()
     for name in ours._fields[:-1]:
         assert torch.equal(getattr(ours, name), getattr(theirs, name)), name

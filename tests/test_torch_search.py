@@ -5,7 +5,8 @@ CPU: ``find_all_matches``/``_batch``/``_stream`` of
 text, offsets, ``selected``, ``n`` and every variant as (vocab_id,
 dist_score, freq_score, via), floats compared exactly. Also the port's
 ``RankedResults`` against the JAX class, and ranked output through the
-window split."""
+window split. Parameters are built from the port's types (``to_port`` of the
+JAX package's test parameters) and carried back by ``to_ref``."""
 
 import dataclasses
 import random
@@ -15,16 +16,19 @@ import pytest
 import torch
 
 import analiticcl_tpu.models.search_fast as jax_search_fast
+import analiticcl_tpu.types as ref_types
+import analiticcl_tpu.vocab as ref_vocab
+import analiticcl_tpu_torch.types as port_types
+import analiticcl_tpu_torch.vocab as port_vocab
 from analiticcl_tpu.models.variant_model import VariantModel as JaxModel
 from analiticcl_tpu.ops.pipeline import RankedResults as JaxRankedResults
-from analiticcl_tpu.types import (
+from analiticcl_tpu_torch import (
     DistanceThreshold,
     SearchParameters,
+    VariantModel,
     VariantResult,
-    Weights,
 )
-from analiticcl_tpu.vocab import VocabParams, VocabType
-from analiticcl_tpu_torch import VariantModel
+from analiticcl_tpu_torch.models import search_fast as port_search_fast
 from analiticcl_tpu_torch.models import variant_model as port_vm
 from analiticcl_tpu_torch.ops.pipeline import DevicePipeline
 from analiticcl_tpu_torch.ops.ranked import RankedResults
@@ -39,6 +43,7 @@ from analiticcl_tpu_torch.testing import (
     synthetic_text,
 )
 from fixtures import get_test_alphabet, get_test_searchparams
+from test_torch_slice import ref_populate, to_port, to_ref
 
 torch.set_num_threads(2)
 
@@ -95,34 +100,43 @@ def _texts(seed, n):
 
 
 def _pair(fill):
-    """The port's model and the JAX package's, filled alike, both on their
-    device backend."""
+    """The port's model and the JAX package's, filled alike (each with its
+    own package's vocabulary types), both on their device backend."""
     alphabet, _ = get_test_alphabet()
     models = []
-    for cls, kw in ((VariantModel, {"device": "cpu"}), (JaxModel, {})):
-        model = cls(alphabet=alphabet, weights=Weights(), **kw)
-        fill(model)
+    for cls, kw, types, vocab in (
+        (VariantModel, {"device": "cpu"}, port_types, port_vocab),
+        (JaxModel, {}, ref_types, ref_vocab),
+    ):
+        model = cls(alphabet=alphabet, weights=types.Weights(), **kw)
+        fill(model, vocab)
         model.build()
         model.set_backend("device")
         models.append(model)
     return models
 
 
-def _fill_words(model):
+def _params(**changes):
+    """The JAX package's test search parameters as the port's type."""
+    return dataclasses.replace(to_port(get_test_searchparams()), **changes)
+
+
+def _fill_words(model, vocab):
     rng = random.Random(23)
     for w in WORDS:
-        model.add_to_vocabulary(w, rng.randrange(1, 50), VocabParams())
+        model.add_to_vocabulary(w, rng.randrange(1, 50), vocab.VocabParams())
 
 
-def _fill_lm(model):
+def _fill_lm(model, vocab):
     """tests/test_search.py's LM model: multi-word entries, a bigram LM and
     punctuation as an LM entry."""
     rng = random.Random(23)
+    vp = vocab.VocabParams
     for w in WORDS:
-        model.add_to_vocabulary(w, rng.randrange(1, 50), VocabParams())
-    model.add_to_vocabulary("wide world", 9, VocabParams())
-    model.add_to_vocabulary("are right", 7, VocabParams())
-    lmp = VocabParams(vocab_type=VocabType.LM)
+        model.add_to_vocabulary(w, rng.randrange(1, 50), vp())
+    model.add_to_vocabulary("wide world", 9, vp())
+    model.add_to_vocabulary("are right", 7, vp())
+    lmp = vp(vocab_type=vocab.VocabType.LM)
     for _ in range(60):
         a, b = rng.choice(WORDS), rng.choice(WORDS)
         model.add_to_vocabulary(f"{a} {b}", rng.randrange(1, 20), lmp)
@@ -147,12 +161,9 @@ def lm_models():
 )
 def test_search_matches_jax(word_models, max_ngram, uoff, fw):
     port, ref = word_models
-    params = dataclasses.replace(
-        get_test_searchparams(), max_ngram=max_ngram, unicodeoffsets=uoff,
-        freq_weight=fw,
-    )
+    params = _params(max_ngram=max_ngram, unicodeoffsets=uoff, freq_weight=fw)
     texts = _texts(7, 24)
-    want = signature(ref.find_all_matches_batch(texts, params))
+    want = signature(ref.find_all_matches_batch(texts, to_ref(params)))
     got = signature(list(port.find_all_matches_stream(texts, params)))
     assert got == want
     assert signature(port.find_all_matches_batch(texts, params)) == want
@@ -175,18 +186,17 @@ def test_search_matches_jax(word_models, max_ngram, uoff, fw):
 def test_lm_search_matches_jax(lm_models, max_seq, fw, uoff, force_numpy):
     port, ref = lm_models
     assert port.have_lm
-    params = dataclasses.replace(
-        get_test_searchparams(), max_ngram=2, lm_weight=1.0, max_seq=max_seq,
-        freq_weight=fw, unicodeoffsets=uoff,
-    )
+    params = _params(max_ngram=2, lm_weight=1.0, max_seq=max_seq,
+                     freq_weight=fw, unicodeoffsets=uoff)
     texts = _texts(23, 30)
-    old = jax_search_fast.FORCE_NUMPY_LM
-    jax_search_fast.FORCE_NUMPY_LM = force_numpy
+    monkeypatch = pytest.MonkeyPatch()
+    monkeypatch.setattr(jax_search_fast, "FORCE_NUMPY_LM", force_numpy)
+    monkeypatch.setattr(port_search_fast, "FORCE_NUMPY_LM", force_numpy)
     try:
-        want = signature(ref.find_all_matches_batch(texts, params))
+        want = signature(ref.find_all_matches_batch(texts, to_ref(params)))
         got = signature(list(port.find_all_matches_stream(texts, params)))
     finally:
-        jax_search_fast.FORCE_NUMPY_LM = old
+        monkeypatch.undo()
     assert got == want
     port.fast_consolidate = False
     try:
@@ -196,19 +206,17 @@ def test_lm_search_matches_jax(lm_models, max_seq, fw, uoff, force_numpy):
 
 
 def test_context_rules_take_the_object_path():
-    def fill(model):
+    def fill(model, vocab):
         for w in ("I", "think", "sink", "you", "are", "right"):
-            model.add_to_vocabulary(w, 2, VocabParams())
+            model.add_to_vocabulary(w, 2, vocab.VocabParams())
         model.add_contextrule("I; think", 1.1, ["testtag", "testtag2"], [])
         model.add_contextrule("are", 0.9, ["testtag"], [])
 
     port, ref = _pair(fill)
-    params = dataclasses.replace(
-        get_test_searchparams(), lm_weight=0.0, max_ngram=1
-    )
+    params = _params(lm_weight=0.0, max_ngram=1)
     texts = ["I tink you are rihgt", "are you right", ""]
     got = port.find_all_matches_batch(texts, params)
-    want = ref.find_all_matches_batch(texts, params)
+    want = ref.find_all_matches_batch(texts, to_ref(params))
     assert signature(got) == signature(want)
     assert [[(m.tag, m.seqnr) for m in o] for o in got] == [
         [(m.tag, m.seqnr) for m in o] for o in want
@@ -228,7 +236,7 @@ def test_synthetic_search_matches_jax(words, monkeypatch, lm, split):
     bigrams = synthetic_bigrams(words, 4, 400) if lm else None
     port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words,
                     freqs, bigrams)
-    ref = populate(JaxModel(alphabet=ALPHABET), words, freqs, bigrams)
+    ref = ref_populate(JaxModel(alphabet=ALPHABET), words, freqs, bigrams)
     ref.set_backend("device")
     params = SearchParameters(
         max_anagram_distance=DistanceThreshold.absolute(3),
@@ -250,7 +258,7 @@ def test_synthetic_search_matches_jax(words, monkeypatch, lm, split):
     )
     outs = list(port.find_all_matches_stream(texts, params))
     got = signature(outs)
-    want = signature(ref.find_all_matches_batch(texts, params))
+    want = signature(ref.find_all_matches_batch(texts, to_ref(params)))
     assert got == want
     assert (len(submits) > 1) == split
     n_sel = sum(m[3] is not None for out in want for m in out)

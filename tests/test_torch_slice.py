@@ -1,20 +1,37 @@
 """The port's query path end to end on the CPU: ``analiticcl_tpu_torch``'s
 VariantModel against the JAX package's device backend and the host oracle,
 with exact result tuples (text, dist_score, freq_score, via); and the port's
-promise never to load JAX."""
+promise to stand alone: it loads neither JAX nor ``analiticcl_tpu``.
 
+The two packages' dataclasses and enums are distinct classes, so parameters
+are built from the port's types and carried to the JAX package's by
+:func:`to_ref` (and back by :func:`to_port`), and a JAX-package model is
+populated by :func:`ref_populate`.
+"""
+
+import ast
+import dataclasses
+import enum
 import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import analiticcl_tpu.types as ref_types
+import analiticcl_tpu.vocab as ref_vocab
 from analiticcl_tpu.models.variant_model import VariantModel as JaxModel
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-from analiticcl_tpu_torch import VariantModel
+import analiticcl_tpu_torch.types as port_types
+import analiticcl_tpu_torch.vocab as port_vocab
+from analiticcl_tpu_torch import (
+    DistanceThreshold,
+    SearchParameters,
+    VariantModel,
+)
 from analiticcl_tpu_torch.device import resolve_device
 from analiticcl_tpu_torch.ops.dl import dl_lcs
 from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
@@ -30,6 +47,55 @@ from test_pipeline import QUERIES
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _ref_class(name):
+    for mod in (ref_types, ref_vocab):
+        if hasattr(mod, name):
+            return getattr(mod, name)
+    raise KeyError(name)
+
+
+def to_ref(x):
+    """The JAX package's counterpart of a port value: enums and dataclasses
+    (SearchParameters, DistanceThreshold, VocabParams, ...) are rebuilt
+    field by field from the same values; other values pass through."""
+    if isinstance(x, enum.Enum):
+        return _ref_class(type(x).__name__)(x.value)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return _ref_class(type(x).__name__)(**{
+            f.name: to_ref(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init
+        })
+    return x
+
+
+def to_port(x):
+    """The port's counterpart of a JAX-package value (the inverse of
+    :func:`to_ref`)."""
+    if isinstance(x, enum.Enum):
+        mod = port_types if hasattr(port_types, type(x).__name__) else port_vocab
+        return getattr(mod, type(x).__name__)(x.value)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        mod = port_types if hasattr(port_types, type(x).__name__) else port_vocab
+        return getattr(mod, type(x).__name__)(**{
+            f.name: to_port(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init
+        })
+    return x
+
+
+def ref_populate(model, words, freqs=None, bigrams=None):
+    """``testing.populate`` for a JAX-package model (its own VocabParams)."""
+    vp = ref_vocab.VocabParams()
+    for i, w in enumerate(words):
+        model.add_to_vocabulary(w, None if freqs is None else int(freqs[i]), vp)
+    lm = ref_vocab.VocabParams(vocab_type=ref_vocab.VocabType.LM)
+    for text, freq in bigrams or ():
+        model.add_to_vocabulary(text, freq, lm)
+    model.have_freq = freqs is not None
+    model.build()
+    return model
 PARAMS = {
     "absolute": SearchParameters(
         max_anagram_distance=DistanceThreshold.absolute(3),
@@ -71,13 +137,13 @@ def test_port_matches_jax_and_oracle(words, queries, kind, with_freq):
     params = PARAMS[kind]
     freqs = synthetic_frequencies(9, len(words)) if with_freq else None
     port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words, freqs)
-    ref = populate(JaxModel(alphabet=ALPHABET), words, freqs)
+    ref = ref_populate(JaxModel(alphabet=ALPHABET), words, freqs)
     ref.set_backend("device")
     got = _tuples(port, port.find_variants_batch(queries, params))
     streamed = _tuples(
         port, list(port.find_variants_stream(queries, params, batch_size=100))
     )
-    want = _tuples(ref, ref.find_variants_batch(queries, params))
+    want = _tuples(ref, ref.find_variants_batch(queries, to_ref(params)))
     oracle = _tuples(port, [port._find_variants_oracle(q, params) for q in queries])
     assert sum(map(len, got)) > len(queries)
     for q, g, s, w, o in zip(queries, got, streamed, want, oracle):
@@ -141,11 +207,14 @@ def test_use_mesh_is_not_ported(words):
 
 
 def test_port_never_imports_jax():
-    """Query, search (with and without an LM, batch and stream) and learn
-    (strict and not), each on a fresh model, load no JAX module."""
+    """Query, search (with and without an LM, batch and stream), learn
+    (strict and not) and a save/load round trip, each on a fresh model, load
+    no JAX module and no module of the JAX package."""
     script = textwrap.dedent(
         """
+        import os
         import sys
+        import tempfile
         import torch
         torch.set_num_threads(1)
         import analiticcl_tpu_torch as at
@@ -189,7 +258,16 @@ def test_port_never_imports_jax():
             models.append(model)
         for m in models:
             assert isinstance(m._device, DevicePipeline), m._device
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "model.npz")
+            model.save(path)
+            back = at.VariantModel.load(path, device="cpu")
+            q = [w + "e" for w in words[:8]]
+            assert back.find_variants_batch(q, params) == \
+                model.find_variants_batch(q, params)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "analiticcl_tpu")
+        assert not ref, ref
         print("ok")
         """
     )
@@ -201,3 +279,34 @@ def test_port_never_imports_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def _imported_modules(path: Path):
+    """Every module an ``import`` or ``from ... import`` in ``path`` names,
+    at any depth (lazy imports inside functions included); relative imports
+    come back with their leading dots."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            yield "." * node.level + (node.module or "")
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No file of the port, and not chip_smoke.py, imports ``analiticcl_tpu``
+    or JAX, and no relative import climbs out of the port's package."""
+    root = Path(REPO)
+    files = sorted((root / "analiticcl_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        depth = len(path.relative_to(root).parts) - 1  # package depth
+        for name in _imported_modules(path):
+            top = name.lstrip(".").split(".")[0]
+            level = len(name) - len(name.lstrip("."))
+            if top in ("analiticcl_tpu", "jax", "jaxlib") or level > depth:
+                bad.append(f"{path.relative_to(root)}: {name}")
+    assert not bad, bad

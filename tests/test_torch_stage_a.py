@@ -3,6 +3,11 @@ package's ``stage_a_masks_xla``, bit for bit, across query tiles and band
 starts; and the port's banded pipeline against the host oracle with a forced
 small query tile (as test_banding.py does for the JAX pipeline)."""
 
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,12 +16,12 @@ import torch
 import analiticcl_tpu.ops.pipeline as jpl
 import analiticcl_tpu.ops.stage_a as jsa
 import analiticcl_tpu_torch.ops.stage_a as tsa
-from analiticcl_tpu.types import DistanceThreshold, SearchParameters
-from analiticcl_tpu_torch import VariantModel
-from analiticcl_tpu_torch.ops.pipeline import DevicePipeline
+from analiticcl_tpu_torch import DistanceThreshold, SearchParameters, VariantModel
+from analiticcl_tpu_torch.ops.pipeline import DevicePipeline, query_planes
 from analiticcl_tpu_torch.testing import populate
 from fixtures import TEST_ALPHABET, get_test_searchparams
 from test_banding import _mixed_model, _tuples
+from test_torch_slice import to_port, to_ref
 
 torch.set_num_threads(2)
 
@@ -95,8 +100,82 @@ def test_kernel_inputs_are_checked():
         tsa.stage_a_masks(*targs, 1)
 
 
-def _port_mixed_model():
-    jm = _mixed_model()
+def _fragment_accumulators(bins, qbin, start, bt, qt, nb_band):
+    """The kernel's int32 accumulators in mma.m16n8k32 fragment order:
+    [B / qt, nb_band, 16 chunks, 8 warps, 32 lanes, 32] (csrc/stage_a.cu,
+    ``fragment_words``: queries are the MMA's rows, band rows its columns);
+    tile queries past ``qt`` are zero."""
+    B = qbin.shape[0]
+    qb, bb, ch, wp, ln, e = np.indices((B // qt, nb_band, 16, 8, 32, 32))
+    mi, ni, reg = e // 16, (e // 4) % 4, e % 4
+    col = (wp // 2) * 32 + 16 * mi + 8 * (reg // 2) + ln // 4
+    band_row = (bb * 1024 + ch * 64 + (wp % 2) * 32 + 8 * ni
+                + 2 * (ln % 4) + reg % 2)
+    q = qb * qt + np.minimum(col, qt - 1)
+    row = start[q // bt] * 1024 + band_row
+    dot = np.einsum("...k,...k->...", bins[row].astype(np.int32),
+                    qbin[q].astype(np.int32))
+    return np.ascontiguousarray(np.where(col < qt, dot, 0), dtype=np.int32)
+
+
+@pytest.fixture(scope="module")
+def host_epilogue(tmp_path_factory):
+    """csrc/stage_a.cu compiled as plain C++ with -DANALITICCL_HOST_TEST."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    so = tmp_path_factory.mktemp("stage_a_host") / "libstage_a_host.so"
+    src = Path(tsa.__file__).resolve().parent.parent / "csrc" / "stage_a.cu"
+    subprocess.run(
+        [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST", "-shared",
+         "-fPIC", "-o", str(so), str(src)],
+        check=True, capture_output=True,
+    )
+    return ctypes.CDLL(str(so))
+
+
+@pytest.mark.parametrize(
+    "b_tile,B,nb_band",
+    [(1024, 64, 2), (8, 8, 2), (32, 128, 1), (256, 512, 1), (1024, 256, 1)],
+)
+def test_kernel_epilogue_on_host(monkeypatch, host_epilogue, b_tile, B,
+                                 nb_band):
+    """The CUDA kernel's fused epilogue (fragment predicates, ballot words to
+    query-major bits, per-128-row counts, totals) from accumulators in MMA
+    fragment order, against stage_a_masks_plain byte for byte; bt = 8 covers
+    a query tile narrower than the MMA width. The launch runs only on a card."""
+    monkeypatch.setattr(tsa, "B_TILE", b_tile)
+    bins, cc, valid, qbin, q_cc, k_ana, k_len, start = _inputs(
+        b_tile + B + 3, Ni=4096, A=9, T=3, B=B, nb_band=nb_band
+    )
+    bt = tsa._b_tile(B, bins.shape[0])
+    qt = min(tsa.KERNEL_QT, bt)
+    acc = _fragment_accumulators(bins, qbin, start, bt, qt, nb_band)
+    Nb = nb_band * 1024
+    out = [np.zeros((B, Nb // 8), np.uint8), np.zeros((B, Nb // 8), np.uint8),
+           np.zeros((Nb // 128, B), np.int32), np.zeros(B, np.int32),
+           np.zeros(B, np.int32)]
+    valid_u8 = valid.astype(np.uint8)
+    ptr = ctypes.c_void_p
+    host_epilogue.analiticcl_stage_a_host(
+        *[ptr(x.ctypes.data) for x in (acc, cc, valid_u8, q_cc, k_ana, k_len,
+                                       start, *out)],
+        *map(ctypes.c_int, (B, nb_band, bt, qt)),
+    )
+    want = tsa.stage_a_masks_plain(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (
+            bins, cc, valid, qbin, q_cc, k_ana, k_len, start)), nb_band,
+    )
+    names = ("packed_q", "exact_q", "counts_t", "nmatch", "nexact")
+    for name, g, w in zip(names, out, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    assert out[3].sum() > 0 and out[4].sum() > 0
+
+
+def _port_mixed_model(jm=None):
+    """The port's model over test_banding's mixed lexicon (the JAX package's
+    model ``jm``, built anew if not given)."""
+    jm = _mixed_model() if jm is None else jm
     words = [jm.decoder[i].text for i in range(3, len(jm.decoder))]
     return populate(VariantModel(alphabet=TEST_ALPHABET, device="cpu"), words)
 
@@ -105,7 +184,8 @@ def _port_mixed_model():
 def test_banded_pipeline_matches_oracle(monkeypatch, b_tile):
     monkeypatch.setattr(jsa, "B_TILE", b_tile)
     monkeypatch.setattr(tsa, "B_TILE", b_tile)
-    model = _port_mixed_model()
+    jm = _mixed_model()
+    model = _port_mixed_model(jm)
     params = SearchParameters(
         max_anagram_distance=DistanceThreshold.absolute(2),
         max_edit_distance=DistanceThreshold.absolute(2),
@@ -119,10 +199,10 @@ def test_banded_pipeline_matches_oracle(monkeypatch, b_tile):
         "pens", "suns",
     ]
     device = DevicePipeline(model, "cpu").find_variants_batch(queries, params)
-    jax_dev = jpl.DevicePipeline(model).find_variants_batch(queries, params)
+    jax_dev = jpl.DevicePipeline(jm).find_variants_batch(queries, to_ref(params))
     for q, d, j in zip(queries, device, jax_dev):
         o = model._find_variants_oracle(q, params)
-        assert _tuples(model, d) == _tuples(model, o) == _tuples(model, j), q
+        assert _tuples(model, d) == _tuples(model, o) == _tuples(jm, j), q
 
 
 def test_band_plan_matches_jax(monkeypatch):
@@ -130,9 +210,9 @@ def test_band_plan_matches_jax(monkeypatch):
     bucketed band, and covers every tile's charcount range."""
     monkeypatch.setattr(jsa, "B_TILE", 8)
     monkeypatch.setattr(tsa, "B_TILE", 8)
-    model = _port_mixed_model()
-    pipe = DevicePipeline(model, "cpu")
-    jpipe = jpl.DevicePipeline(model)
+    jm = _mixed_model()
+    pipe = DevicePipeline(_port_mixed_model(jm), "cpu")
+    jpipe = jpl.DevicePipeline(jm)
     B = 16
     rng = np.random.default_rng(0)
     q_cc = np.sort(rng.integers(2, 21, size=B).astype(np.int32))
@@ -153,9 +233,39 @@ def test_band_plan_matches_jax(monkeypatch):
 def test_all_padding_tile(monkeypatch):
     monkeypatch.setattr(tsa, "B_TILE", 8)
     model = _port_mixed_model()
-    params = get_test_searchparams()
+    params = to_port(get_test_searchparams())
     queries = ["cat", "dog", "sun", "map", "pen", "pens", "cats", "dogs", "sunn"]
     device = DevicePipeline(model, "cpu").find_variants_batch(queries, params)
     for q, d in zip(queries, device):
         o = model._find_variants_oracle(q, params)
         assert _tuples(model, d) == _tuples(model, o), q
+
+
+def test_index_planes_padded_to_32_match_jax():
+    """The port pads the index's count planes (and so the query planes) with
+    zero columns to a multiple of 32, one int8 MMA k-step. On a batch of the
+    port's pipeline, stage A over the padded planes equals the JAX package's
+    over the same planes without the padding."""
+    model = _port_mixed_model()
+    pipe = DevicePipeline(model, "cpu")
+    idx = pipe.index
+    assert idx.bins.shape[1] % 32 == 0 and idx.bins.shape[1] > idx.at
+    queries = ["cat", "dogg", "windwo", "bottel", "gadren", "pilow",
+               "carpets", "aproximately", "pens", "suns", "extraordinry"]
+    st = pipe.prepare(queries, to_port(get_test_searchparams()))
+    q_counts, q_cc, _, _, _, k_ana, _, k_len, _, start_blk, _, _ = st["args"]
+    qbin = query_planes(idx, q_counts)
+    assert qbin.shape[1] == idx.bins.shape[1]
+    got = tsa.stage_a_masks(idx.bins, idx.cc, idx.validrows, qbin, q_cc,
+                            k_ana, k_len, start_blk, st["nb_band"])
+    at = idx.at
+    want = jsa.stage_a_masks_xla(
+        *(jnp.asarray(x.numpy()) for x in (
+            idx.bins[:, :at], idx.cc, idx.validrows, qbin[:, :at], q_cc,
+            k_ana, k_len, start_blk)),
+        st["nb_band"],
+    )
+    for name, g, w in zip(("packed_q", "exact_q", "counts_t", "nmatch",
+                           "nexact"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert int(got[3].sum()) > 0 and int(got[4].sum()) > 0

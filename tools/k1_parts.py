@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Which part of the stage-A kernel (K1) holds its time, on one CUDA card.
+
+    python3 tools/k1_parts.py
+
+Builds ``analiticcl_tpu_torch/csrc/stage_a.cu`` as it is and in three
+variants made by replacing source text: without the epilogue (the
+accumulators are folded into one word per lane and stored), without the
+int8 products (the accumulators stay zero), and without either (the chunk
+loads, the ring, the bit tile and the stores only). Each is launched 20
+times back to back through its C entry point at the main path's shape
+(B = 4,096 queries, a band of 89 x 1,024 rows of a 120,832-row index,
+AT 224; seeded planes from ``chip_smoke.k1_direct_inputs``) and timed with
+CUDA events. The variants compute wrong bits; only their times are read.
+Prints ptxas's registers and spills per variant, one line per variant, and
+the card's name and power limit. Needs ``nvcc``; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+B, NI, NB_BAND, AT, BT = 4096, 120_832, 89, 224, 1024
+
+
+def variants(src: str) -> dict:
+    kloop = ("      for (int ks = 0; ks < KS; ++ks) "
+             "kstep(acc, a_res[ks], b_addr, rstride, ks);\n")
+    e0 = src.index("    const int* cc_s")
+    e1 = src.index("    ex_w[w] = pick(ew, t);\n") + len("    ex_w[w] = pick(ew, t);\n")
+    assert kloop in src and e0 < e1
+    folded = ("    unsigned x = 0;\n"
+              "    for (int i = 0; i < NACC; ++i) x ^= acc[i];\n"
+              "    const int w = (qg * 32 + 8 * t + g) * WSTRIDE + chunk * 2 + rg;\n"
+              "    hit_w[w] = x;\n    ex_w[w] = x;\n")
+    no_epi = src[:e0] + folded + src[e1:]
+    return {
+        "full": src,
+        "no_epilogue": no_epi,
+        "no_products": src.replace(kloop, "      acc[0] = b_addr;\n"),
+        "loads_and_stores_only": no_epi.replace(kloop, "      acc[0] = b_addr;\n"),
+    }
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke
+    from analiticcl_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_parts: no CUDA card")
+    print(chip_smoke.gpu_line(), flush=True)
+    out = ROOT / "build" / "k1_parts"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / "stage_a.cu").read_text()
+    procs = {}
+    for name, text in variants(src).items():
+        (out / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+             str(out / f"{name}.so"), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        info = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"{name}: ptxas {info}", flush=True)
+
+    args = chip_smoke.k1_direct_inputs(1, NI, B, NB_BAND)
+    Nb = NB_BAND * 1024
+    outs = [torch.empty((B, Nb // 8), dtype=torch.uint8, device="cuda"),
+            torch.empty((B, Nb // 8), dtype=torch.uint8, device="cuda"),
+            torch.empty((Nb // 128, B), dtype=torch.int32, device="cuda"),
+            torch.zeros(B, dtype=torch.int32, device="cuda"),
+            torch.zeros(B, dtype=torch.int32, device="cuda")]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [x.data_ptr() for x in (*args, *outs)]
+    for name in procs:
+        fn = ctypes.CDLL(str(out / f"{name}.so")).analiticcl_stage_a
+        fn.argtypes = _build.SIGNATURES["stage_a"]["analiticcl_stage_a"]
+        fn.restype = ctypes.c_int
+
+        def call(fn=fn):
+            _build.check(fn(*ptrs, B, AT, NB_BAND, BT, 128, stream),
+                         "stage_a variant")
+
+        ms = chip_smoke.time_ms(call, 10, inner=20)
+        print(f"{name}: {ms:.4f} ms per launch (CUDA events, median of 10 "
+              f"runs of 20 back-to-back launches)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
