@@ -11,102 +11,176 @@
 //
 // Design: one thread per pair. The Pallas kernel put 1024 pairs in the
 // (8, 128) vector lanes and unrolled the DP over static indices because a
-// TPU cannot gather per lane; a CUDA thread indexes its own arrays, so the
+// TPU cannot gather per lane; a CUDA thread indexes its own state, so the
 // transposition term is a single read at (last, db) instead of a
-// (W+1)^2 select slab. The ring of W + 3 DP rows, the last-occurrence
-// column and the LCS row live in per-thread local memory (L1-cached).
+// (W+1)^2 select slab.
 //
-// What bounds it on the H100: per-thread local-memory traffic, about six
-// 4-byte accesses per band cell, al * (2W + 3) cells per pair; the pairs'
-// strings are read once. Nothing is shared between threads, so the kernel
-// needs no shared memory and no synchronisation. Making it fast (a
-// warp-cooperative band, rings in registers or shared memory, 16-bit cells)
-// is later work.
+// Storage: the ring of W + 3 DP rows of L + 1 columns and the last-match
+// column live in dynamic shared memory as bytes, pair-fastest (element k of
+// thread t at smem[k * THREADS + t], the Pallas kernel's ring[R, L+1, SUB,
+// LANE] layout): when a warp touches one element it reads 32 consecutive
+// bytes, one wavefront without bank conflicts; only the transposition read
+// has a data-dependent address. b's characters and the LCS row sit in
+// registers (static indices in fully unrolled loops); one pass over them per
+// DP row also builds the row's match mask (bit j: b[j] == a[i-1]), which
+// the band loop tests instead of indexing b. No per-thread array has a
+// dynamic index, so nothing goes to local memory. For L > 32 (the LMAX 64
+// instance) the LCS row is kept in shared memory as bytes too.
+//
+// Why bytes are exact: a band cell is min(sub, ins, del, transp) and
+// del = (the cell to its left) + 1, starting from `i` or `big` at the band's
+// first column, so along a row every stored cell is at most big + L =
+// 3L + 8 <= 200 for L <= 64; row 0 and the margins hold big = 2L + 8, row 1
+// holds 0..L, the last-match column and the LCS row hold values <= L. Every
+// stored value fits in a uint8_t unchanged: no clamping, no saturation, and
+// the outputs equal those of the same DP on int cells bit for bit, above W
+// too (tests/test_torch_dl.py holds both host builds against each other).
+//
+// What bounds it on the H100: instruction issue, about 3,000 integer
+// operations per pair at L 25 and W 3 (the band, and a full-width pass per
+// row for the mask and the LCS row); the pairs' strings are read once.
+// Shared memory per thread is (W + 3)(L + 1) + L bytes (+ L for LMAX 64);
+// the registers (96-116 at LMAX 32) allow 4-5 blocks of 128 threads per
+// SM, and capping them to fit more blocks spills and runs slower.
 
 // With -DANALITICCL_HOST_TEST the per-pair DP compiles as plain C++ (for
 // checking its arithmetic on a machine without a card).
 #ifndef ANALITICCL_HOST_TEST
 #include <cuda_runtime.h>
 #define DEVFN __device__ __forceinline__
+#define HDFN __host__ __device__ __forceinline__
 #else
 #include <algorithm>
 #include <cstddef>
+#include <vector>
 using std::max;
 using std::min;
 #define DEVFN inline
+#define HDFN inline
 #endif
 
 namespace {
 
+constexpr int KERNEL_MAX_L = 64;
+static_assert(3 * KERNEL_MAX_L + 8 <= 255,
+              "every stored DP value (at most 3L + 8) must fit in a byte");
+
+template <int LMAX>
+struct MaskOf {
+  using T = unsigned long long;
+};
+template <>
+struct MaskOf<32> {
+  using T = unsigned int;
+};
+
+// Per-pair state elements: the ring (R rows of L + 1), the last-match
+// column (L) and, for LMAX > 32, the LCS row (L).
 template <int W, int LMAX>
+HDFN constexpr int state_elems(int L) {
+  return (W + 3) * (L + 1) + L + (LMAX > 32 ? L : 0);
+}
+
+// Initial value of state element k: ring row 1 holds 0..L, the other rows
+// big; the last-match column and the LCS row 0.
+template <int W>
+HDFN int state_init(int k, int L) {
+  const int pitch = L + 1;
+  if (k >= (W + 3) * pitch) return 0;
+  return k / pitch == 1 ? k - pitch : 2 * L + 8;
+}
+
+// The DP of one pair over initialised state: element k at st[k * stride].
+template <typename Cell, int W, int LMAX>
 DEVFN void dl_lcs_pair(const int* ap, int al, const int* bp, int bl, int L,
-                       int* ld_out, int* lcs_out) {
+                       Cell* st, int stride, int* ld_out, int* lcs_out) {
   constexpr int R = W + 3;   // ring depth: rows i+1 .. i-W-1
   constexpr int B1 = W + 1;  // band half-width
+  constexpr bool LCS_IN_STATE = LMAX > 32;
+  using Mask = typename MaskOf<LMAX>::T;
   const int big = 2 * L + 8;
+  const int pitch = L + 1;
+  Cell* const ring = st;  // slot k % R holds DP row k; (slot, p) at slot * pitch + p
+  Cell* const lastcol = st + R * pitch * stride;  // last row i with a[i-1] == b[j]
+  Cell* const lcs_st = lastcol + L * stride;      // LCS row when LCS_IN_STATE
 
   int bs[LMAX];
-  int ring[R][LMAX + 1];  // slot k % R holds DP row k; position p = column p+1
-  int lastcol[LMAX];      // last query row i with a[i-1] == b[j-1]
   int lcsrow[LMAX];
-  for (int j = 0; j < L; ++j) {
-    bs[j] = bp[j];
-    lastcol[j] = 0;
+#pragma unroll
+  for (int j = 0; j < LMAX; ++j) {
+    bs[j] = j < L ? bp[j] : 0;
     lcsrow[j] = 0;
   }
-  for (int r = 0; r < R; ++r)
-    for (int p = 0; p <= L; ++p) ring[r][p] = big;
-  for (int p = 0; p <= L; ++p) ring[1 % R][p] = p;
 
   int res = big;
   int best = 0;
+  int s_next = al > 0 ? ap[0] : 0;
   for (int i1 = 0; i1 < al; ++i1) {
     const int i = i1 + 1;  // reading row i, writing row i + 1
-    const int s = ap[i1];
-    int* wrow = ring[(i + 1) % R];
-    const int* rrow = ring[i % R];
+    const int s = s_next;
+    if (i < al) s_next = ap[i];
+
+    // the row's match mask, and the LCS row rolled in place from the right
+    Mask mbits = 0;
+#pragma unroll
+    for (int j = LMAX - 1; j >= 0; --j) {
+      const bool m = bs[j] == s;
+      mbits |= Mask(m) << j;
+      if (!LCS_IN_STATE) {
+        const int v = m && j < bl ? (j > 0 ? lcsrow[j - 1] : 0) + 1 : 0;
+        lcsrow[j] = v;
+        best = max(best, v);
+      }
+    }
+    if (LCS_IN_STATE) {
+      for (int j = bl - 1; j >= 0; --j) {
+        const int v = (mbits >> j) & 1 ? (j > 0 ? int(lcs_st[(j - 1) * stride]) : 0) + 1 : 0;
+        lcs_st[j * stride] = Cell(v);
+        best = max(best, v);
+      }
+    }
+
+    Cell* const wrow = ring + ((i + 1) % R) * pitch * stride;
+    const Cell* const rrow = ring + (i % R) * pitch * stride;
     const int center = i1 + 1;
     const int jstart = max(1, center - B1);
     const int jend = min(L, center + B1);
 
-    wrow[0] = i;
+    wrow[0] = Cell(i);
+#pragma unroll
     for (int m = 1; m <= B1; ++m) {
       const int lo = center - B1 - m, hi = center + B1 + m;
-      if (lo >= 1 && lo <= L) wrow[lo] = big;
-      if (hi >= 1 && hi <= L) wrow[hi] = big;
+      if (lo >= 1 && lo <= L) wrow[lo * stride] = Cell(big);
+      if (hi >= 1 && hi <= L) wrow[hi * stride] = Cell(big);
     }
 
     const int ndl = min(W, i);
     int del_prev = jstart == 1 ? i : big;
+    int up_left = rrow[(jstart - 1) * stride];  // rrow[j - 1]
     int db = 0;  // last column < j of this row with a match
     for (int j = jstart; j <= jend; ++j) {
-      const bool match = bs[j - 1] == s;
-      const int sub = rrow[j - 1] + (match ? 0 : 1);
-      const int ins = rrow[j] + 1;
+      const bool match = (mbits >> (j - 1)) & 1;
+      const int up = rrow[j * stride];
+      const int sub = up_left + (match ? 0 : 1);
+      const int ins = up + 1;
       const int del = del_prev + 1;
-      const int last = lastcol[j - 1];
+      const int last = lastcol[(j - 1) * stride];
       const int d = i - last;
       const int smax = min(W, j - 1);
       int transp = big;
       if (smax >= 1 && d >= 1 && d <= ndl && db >= j - smax) {
-        const int t = ring[last % R][db - 1] + d - 1 + j - db;
+        const int t = int(ring[((last % R) * pitch + db - 1) * stride]) + d - 1 + j - db;
         transp = min(transp, t);
       }
       const int nv = min(min(sub, ins), min(del, transp));
-      wrow[j] = nv;
+      wrow[j * stride] = Cell(nv);
       if (i1 == al - 1 && j == bl) res = nv;
       del_prev = nv;
+      up_left = up;
       if (match) {
         db = j;
-        lastcol[j - 1] = i;
+        lastcol[(j - 1) * stride] = Cell(i);
       }
-    }
-
-    // full-width LCS row, rolled in place from the right
-    for (int j = bl - 1; j >= 0; --j) {
-      const int v = bs[j] == s ? (j > 0 ? lcsrow[j - 1] : 0) + 1 : 0;
-      lcsrow[j] = v;
-      best = max(best, v);
     }
   }
   if (al == 0) res = bl;
@@ -116,26 +190,61 @@ DEVFN void dl_lcs_pair(const int* ap, int al, const int* bp, int bl, int L,
 }
 
 #ifndef ANALITICCL_HOST_TEST
-template <int W, int LMAX>
-__global__ void __launch_bounds__(128)
+template <int W, int LMAX, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 dl_lcs_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
               const int* __restrict__ b, const int* __restrict__ b_len,
               int* __restrict__ ld, int* __restrict__ lcs, int P, int L) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // element k of every thread is one row of THREADS equal bytes: the block
+  // fills the rows with 16-byte stores
+  constexpr int PER_ROW = THREADS / 16;
+  const int nwords = state_elems<W, LMAX>(L) * PER_ROW;
+  uint4* const words = reinterpret_cast<uint4*>(smem);
+  for (int w = threadIdx.x; w < nwords; w += THREADS) {
+    const unsigned v = 0x01010101u * (unsigned)state_init<W>(w / PER_ROW, L);
+    words[w] = make_uint4(v, v, v, v);
+  }
+  __syncthreads();
+  const int p = blockIdx.x * THREADS + threadIdx.x;
   if (p >= P) return;
   // a length above L is invalid input; clamping keeps every read in the row
-  dl_lcs_pair<W, LMAX>(a + (size_t)p * L, min(a_len[p], L), b + (size_t)p * L,
-                       min(b_len[p], L), L, ld + p, lcs + p);
+  dl_lcs_pair<unsigned char, W, LMAX>(
+      a + (size_t)p * L, min(a_len[p], L), b + (size_t)p * L,
+      min(b_len[p], L), L, smem + threadIdx.x, THREADS, ld + p, lcs + p);
+}
+
+template <int W, int LMAX, int THREADS>
+int launch(const int* a, const int* al, const int* b, const int* bl, int* ld,
+           int* lcs, int P, int L, cudaStream_t st) {
+  static_assert(THREADS % 16 == 0, "rows of whole 16-byte words");
+  // above 48 KB a block's dynamic shared memory needs the attribute; it is
+  // set once per instance and device, for the instance's largest L
+  static unsigned long long attr_set = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!(attr_set >> dev & 1)) {
+    e = cudaFuncSetAttribute(dl_lcs_kernel<W, LMAX, THREADS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             state_elems<W, LMAX>(LMAX) * THREADS);
+    if (e != cudaSuccess) return (int)e;
+    attr_set |= 1ull << dev;
+  }
+  const size_t smem = (size_t)state_elems<W, LMAX>(L) * THREADS;
+  dl_lcs_kernel<W, LMAX, THREADS><<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(
+      a, al, b, bl, ld, lcs, P, L);
+  return (int)cudaGetLastError();
 }
 
 template <int W>
-void launch(const int* a, const int* al, const int* b, const int* bl, int* ld,
-            int* lcs, int P, int L, cudaStream_t st) {
-  const dim3 block(128), grid((P + 127) / 128);
-  if (L <= 32)
-    dl_lcs_kernel<W, 32><<<grid, block, 0, st>>>(a, al, b, bl, ld, lcs, P, L);
-  else
-    dl_lcs_kernel<W, 64><<<grid, block, 0, st>>>(a, al, b, bl, ld, lcs, P, L);
+int launch_w(const int* a, const int* al, const int* b, const int* bl, int* ld,
+             int* lcs, int P, int L, cudaStream_t st) {
+  // 128 threads: at L 32, 230 B a thread at W=3 (29 KB a block), 527 B at
+  // W=12 (67 KB, three blocks per SM); LMAX 64 takes 64 threads (W=12, L 64:
+  // 71 KB)
+  if (L <= 32) return launch<W, 32, 128>(a, al, b, bl, ld, lcs, P, L, st);
+  return launch<W, 64, 64>(a, al, b, bl, ld, lcs, P, L, st);
 }
 #endif
 
@@ -149,29 +258,63 @@ extern "C" int analiticcl_dl_lcs(const void* a, const void* a_len,
                                  void* lcs, int P, int L, int W,
                                  void* stream) {
   if (P <= 0) return 0;
-  if (L < 1 || L > 64) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > KERNEL_MAX_L) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto A = (const int*)a, AL = (const int*)a_len, B = (const int*)b,
        BL = (const int*)b_len;
   auto LD = (int*)ld, LCS = (int*)lcs;
   switch (W) {
-    case 3: launch<3>(A, AL, B, BL, LD, LCS, P, L, st); break;
-    case 6: launch<6>(A, AL, B, BL, LD, LCS, P, L, st); break;
-    case 12: launch<12>(A, AL, B, BL, LD, LCS, P, L, st); break;
+    case 3: return launch_w<3>(A, AL, B, BL, LD, LCS, P, L, st);
+    case 6: return launch_w<6>(A, AL, B, BL, LD, LCS, P, L, st);
+    case 12: return launch_w<12>(A, AL, B, BL, LD, LCS, P, L, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 #else
+namespace {
+// The kernel's instances on the host, one pair at a time over state of
+// stride 1: LMAX 32 (LCS row in registers) up to L 32, else LMAX 64.
+template <typename Cell, int W, int LMAX>
+void host_pairs(const int* a, const int* a_len, const int* b, const int* b_len,
+                int* ld, int* lcs, int P, int L) {
+  std::vector<Cell> st(state_elems<W, LMAX>(L));
+  for (int p = 0; p < P; ++p) {
+    for (size_t k = 0; k < st.size(); ++k) st[k] = Cell(state_init<W>((int)k, L));
+    dl_lcs_pair<Cell, W, LMAX>(a + (size_t)p * L, min(a_len[p], L),
+                               b + (size_t)p * L, min(b_len[p], L), L,
+                               st.data(), 1, ld + p, lcs + p);
+  }
+}
+
+template <typename Cell, int W>
+void host_w(const int* a, const int* a_len, const int* b, const int* b_len,
+            int* ld, int* lcs, int P, int L) {
+  if (L <= 32) host_pairs<Cell, W, 32>(a, a_len, b, b_len, ld, lcs, P, L);
+  else host_pairs<Cell, W, 64>(a, a_len, b, b_len, ld, lcs, P, L);
+}
+
+template <typename Cell>
+void host_all(const int* a, const int* a_len, const int* b, const int* b_len,
+              int* ld, int* lcs, int P, int L, int W) {
+  if (L < 1 || L > KERNEL_MAX_L) return;
+  if (W == 3) host_w<Cell, 3>(a, a_len, b, b_len, ld, lcs, P, L);
+  if (W == 6) host_w<Cell, 6>(a, a_len, b, b_len, ld, lcs, P, L);
+  if (W == 12) host_w<Cell, 12>(a, a_len, b, b_len, ld, lcs, P, L);
+}
+}  // namespace
+
+// the kernel's byte cells
 extern "C" void analiticcl_dl_lcs_host(const int* a, const int* a_len,
                                        const int* b, const int* b_len, int* ld,
                                        int* lcs, int P, int L, int W) {
-  for (int p = 0; p < P; ++p) {
-    const int* ap = a + (size_t)p * L;
-    const int* bp = b + (size_t)p * L;
-    if (W == 3) dl_lcs_pair<3, 64>(ap, a_len[p], bp, b_len[p], L, ld + p, lcs + p);
-    if (W == 6) dl_lcs_pair<6, 64>(ap, a_len[p], bp, b_len[p], L, ld + p, lcs + p);
-    if (W == 12) dl_lcs_pair<12, 64>(ap, a_len[p], bp, b_len[p], L, ld + p, lcs + p);
-  }
+  host_all<unsigned char>(a, a_len, b, b_len, ld, lcs, P, L, W);
+}
+
+// the same DP on int cells
+extern "C" void analiticcl_dl_lcs_host_int(const int* a, const int* a_len,
+                                           const int* b, const int* b_len,
+                                           int* ld, int* lcs, int P, int L,
+                                           int W) {
+  host_all<int>(a, a_len, b, b_len, ld, lcs, P, L, W);
 }
 #endif

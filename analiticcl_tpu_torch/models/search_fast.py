@@ -519,7 +519,9 @@ def consolidate_unit(
             qidx=q if attached_l[si] else None,
         )
         if attached_l[si]:
-            m.variants = variants_of(q)
+            # each Match owns its list: matches of one row (and the row
+            # cache) must not see each other's edits
+            m.variants = list(variants_of(q))
         m.selected = selected
         return m
 

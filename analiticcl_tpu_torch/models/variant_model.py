@@ -216,9 +216,13 @@ class VariantModel:
 
     @classmethod
     def new_with_alphabet(
-        cls, alphabet: Alphabet, weights: Optional[Weights] = None, debug: int = 0
+        cls,
+        alphabet: Alphabet,
+        weights: Optional[Weights] = None,
+        debug: int = 0,
+        device="cuda",
     ) -> "VariantModel":
-        return cls(alphabet=alphabet, weights=weights, debug=debug)
+        return cls(alphabet=alphabet, weights=weights, debug=debug, device=device)
 
     def set_confusables_before_pruning(self) -> None:
         self.confusables_before_pruning = True
@@ -1754,10 +1758,8 @@ class VariantModel:
                     if order_idx == 0 or not redundant_match(
                         seg, batch_matches[bi]
                     ):
-                        # shared, not copied: Match.variants is read-only
-                        # everywhere downstream (selection writes
-                        # Match.selected, never the list)
-                        seg.variants = found[uniq[seg.text]]
+                        # copied: each Match owns its variant list
+                        seg.variants = list(found[uniq[seg.text]])
                     batch_matches[bi].append(seg)
 
             matches: List[Match] = []
@@ -1880,7 +1882,7 @@ class VariantModel:
                 if not consolidate:
                     for m in bmatches:
                         if m.qidx is not None:
-                            m.variants = found[m.qidx]
+                            m.variants = list(found[m.qidx])
                         m.selected = 0
                     plan.append(("direct", bmatches))
                     continue
@@ -2024,7 +2026,7 @@ class VariantModel:
                     # redundancy-filtered segments keep variants None there
                     for m in bmatches:
                         if m.variants is None and m.qidx is not None:
-                            m.variants = found[m.qidx]
+                            m.variants = list(found[m.qidx])
                     chain_out.append(bmatches)
                     continue
                 best_cost = np.inf
@@ -2051,7 +2053,7 @@ class VariantModel:
                     vx = int(a_vidx[aid])
                     m.selected = vx if vx >= 0 else None
                     if m.qidx is not None:
-                        m.variants = found[m.qidx]
+                        m.variants = list(found[m.qidx])
                     out.append(m)
                 chain_out.append(out)
 

@@ -25,7 +25,10 @@ leaves out, because PyTorch runs eagerly and sizes every tensor from the data:
   per-array transfer cost of the remote TPU;
 * the ``max_B`` batch ceiling, the band-width compile ceiling, the batch
   split (``_collect_split``) and the band-width buckets: there is no compile
-  step on the card, so a batch of any size runs with its exact band.
+  step on the card, so a batch runs with its exact band. The one cap left is
+  on memory: a batch whose stage-A hit bits (queries x band rows) pass
+  :attr:`DevicePipeline.max_hit_bits` splits into charcount-contiguous
+  sub-batches, joined as the window split joins its sub-batches.
 """
 
 from __future__ import annotations
@@ -271,9 +274,10 @@ def query_core(
 class DevicePipeline:
     """A built model's index on one device, and the batched query over it."""
 
-    # The inherited VariantModel.find_variants_stream caps its batches at
-    # ``max_B``; no batch ceiling applies on the card.
-    max_B = sys.maxsize
+    # Largest B x band rows of one query_core call: pair compaction unpacks
+    # every hit bit to a byte (1 GiB here), and torch.nonzero counts them
+    # in int32. Larger batches split (``prepare``).
+    max_hit_bits = 1 << 30
 
     def __init__(self, model, device):
         self.model = model
@@ -387,8 +391,9 @@ class DevicePipeline:
 
     def prepare(self, inputs: Sequence[str], params: SearchParameters):
         """Host prep of one batch. The state it returns holds the results
-        already known (empty, over-long), and either per-window sub-batches
-        (``subs``, each already submitted) or :func:`query_core`'s
+        already known (empty, over-long), and either sub-batches (``subs``,
+        one per DL window or per part under :attr:`max_hit_bits`, each
+        already submitted) or :func:`query_core`'s
         arguments on the device (``args``) with its static parameters."""
         model = self.model
         enc = model.enc
@@ -465,22 +470,26 @@ class DevicePipeline:
             ):
                 wb = np.searchsorted(WINDOW_BUCKETS, ke, side="left")
                 prep_cm.__exit__(None, None, None)
-                subs = []
-                for w in np.unique(wb):
-                    grp = [active[j] for j in range(na) if wb[j] == w]
-                    subs.append(
-                        (grp, self.submit([inputs[i] for i in grp], params))
-                    )
-                return {
-                    "results": results, "active": active, "inputs": inputs,
-                    "params": params, "subs": subs,
-                }
+                return self._split(inputs, params, results, active, [
+                    [active[j] for j in range(na) if wb[j] == w]
+                    for w in np.unique(wb)
+                ])
 
         # DL >= |len(a) - len(q)|: rows past min(k_ana, k_ed) cannot survive
         k_len = np.minimum(k_ana, k_ed)
         k_len[na:] = -1
         q_cc = q_counts.sum(axis=1).astype(np.int32)
         start_blk, nb_band = self._band_plan(q_cc, k_len, B)
+        # over the memory cap: charcount-contiguous parts, each with its own
+        # (narrower) band; a part still over the cap splits again
+        hit_bits = B * nb_band * ROW_BLOCK
+        if hit_bits > self.max_hit_bits and na > 1:
+            prep_cm.__exit__(None, None, None)
+            nparts = min(na, -(-hit_bits // self.max_hit_bits))
+            cuts = np.linspace(0, na, nparts + 1).astype(np.int64).tolist()
+            return self._split(inputs, params, results, active, [
+                active[lo:hi] for lo, hi in zip(cuts[:-1], cuts[1:])
+            ])
         stop_exact = np.full(
             B, params.stop_criterion is StopCriterion.STOP_AT_EXACT_MATCH
         )
@@ -504,6 +513,18 @@ class DevicePipeline:
             "params": params, "args": args, "window": window,
             "nb_band": nb_band, "use_stop_exact": use_se, "B": B,
             "q_lens": q_lens,
+        }
+
+    def _split(self, inputs, params, results, active, groups):
+        """Submit each group of active inputs as its own batch; :meth:`collect`
+        joins them in input order (:meth:`_collect_subs`)."""
+        subs = [
+            (grp, self.submit([inputs[i] for i in grp], params))
+            for grp in groups
+        ]
+        return {
+            "results": results, "active": active, "inputs": inputs,
+            "params": params, "subs": subs,
         }
 
     def _band_plan(self, q_cc: np.ndarray, k_ana: np.ndarray, B: int):

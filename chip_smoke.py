@@ -8,8 +8,10 @@ from ``analiticcl_tpu_torch/csrc`` (with ptxas's registers, shared memory
 and spills); the stage-A kernel against its plain PyTorch version (bit for
 bit) on seeded inputs with query tiles of 8, 64, 1,024 and (from 262,144
 index rows) 256, and at the main path's shapes; the DL+LCS kernel against
-its plain version (DL clipped at window + 1) at the main path's shapes;
-CUDA-event times of both beside their bounds. Then the main path:
+its plain version (DL clipped at window + 1) on the main path's pairs at
+windows 3, 6 and 12, with the ptxas summary and the shared memory per block
+of each window's instance; CUDA-event and profiler times of both beside
+their bounds. Then the main path:
 ``VariantModel(device="cuda")`` over a seeded synthetic lexicon of
 eng.aspell's size, ``find_variants_stream`` over 16,384 corrupted queries,
 and 1,024 ratio-threshold queries that reach the W=12 window and the window
@@ -32,6 +34,7 @@ the kernels' build directory ``build/analiticcl_tpu_torch/``.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -113,10 +116,13 @@ def device_ms(fn, kernel: str, reps: int) -> float:
     spans = [e.time_range for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel in e.name]
-    if len(spans) != reps:
+    # the trace can miss a launch's record (9 of 10 seen on an H100 with
+    # torch 2.11), never add one: the mean over the records it kept is the
+    # time per launch
+    if not reps // 2 <= len(spans) <= reps:
         raise SystemExit(f"profiler saw {len(spans)} launches of {kernel}, "
                          f"not {reps}")
-    return sum(tr.end - tr.start for tr in spans) / reps / 1e3
+    return sum(tr.end - tr.start for tr in spans) / len(spans) / 1e3
 
 
 def launch_counts() -> dict:
@@ -261,6 +267,69 @@ def k1_bound_ms(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * B * Nb * AT / INT8_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def k2_main_pairs(pipe, queries, params):
+    """The (query, candidate) pairs of the main path's first batch of
+    ``queries`` (stage A on the card, then the pair compaction and gathers
+    of ``query_core``), repeated to TARGET_PAIRS: ``(a, al, b, bl)`` and
+    the number of distinct pairs."""
+    from analiticcl_tpu_torch.ops.pipeline import (
+        compact_pairs, gather_pairs, query_planes,
+    )
+    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+
+    st = pipe.prepare(queries[:BATCH], params)
+    (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
+     start_blk, _w, _thr) = st["args"]
+    idx = pipe.index
+    got = stage_a_masks(idx.bins, idx.cc, idx.validrows,
+                        query_planes(idx, q_counts), q_cc, k_ana, k_len,
+                        start_blk, st["nb_band"])
+    pq, _pcb, pc = compact_pairs(got[0], start_blk, pipe.Ni_pad)
+    pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
+    reps = -(-TARGET_PAIRS // max(1, pr.a.shape[0]))
+    pairs = tuple(x.repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
+                  .contiguous() for x in (pr.a, pr.ql, pr.b, pr.cl))
+    return pairs, pr.a.shape[0]
+
+
+def k2_instance(L: int):
+    """(LMAX, threads per block) of the DL+LCS kernel instance for strings
+    of width L (csrc/dl_lcs.cu ``launch_w``)."""
+    return (32, 128) if L <= 32 else (64, 64)
+
+
+def k2_smem_bytes(W: int, L: int) -> int:
+    """Dynamic shared memory per block of the DL+LCS kernel: a byte per
+    state element per thread (csrc/dl_lcs.cu ``state_elems``)."""
+    lmax, threads = k2_instance(L)
+    return ((W + 3) * (L + 1) + L + (L if lmax > 32 else 0)) * threads
+
+
+def dl_lcs_ptxas(report: str) -> dict:
+    """ptxas's registers, stack frame and spills of each ``dl_lcs_kernel``
+    instance in ``report``, keyed by (W, LMAX)."""
+    out, key = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"dl_lcs_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            key = (int(k.group(1)), int(k.group(2))) if k else None
+            if key is not None:
+                out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[key].update(stack=int(m[1]), spill_stores=int(m[2]),
+                            spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key]["registers"] = int(m[1])
+    return out
 
 
 def k2_bound_ms(a_len, b_len, L: int, W: int):
@@ -529,9 +598,7 @@ def main() -> int:
     from analiticcl_tpu_torch.ops.dl import (
         dl_lcs, dl_metrics_windowed_plain,
     )
-    from analiticcl_tpu_torch.ops.pipeline import (
-        compact_pairs, gather_pairs, query_planes,
-    )
+    from analiticcl_tpu_torch.ops.pipeline import query_planes
     from analiticcl_tpu_torch.ops.stage_a import (
         stage_a_masks, stage_a_masks_plain,
     )
@@ -592,13 +659,12 @@ def main() -> int:
         log(f"K1 stage_a direct: B={B} bt={bt} Ni={ni} nb_band={nb} "
             f"bit-identical to plain ({n_exact} exact hits)")
     st = pipe.prepare(queries[:BATCH], params)
-    (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
+    (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se,
      start_blk, _w, _thr) = st["args"]
     qbin = query_planes(idx, q_counts)
     a_args = (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
               start_blk, st["nb_band"])
     k1_err, _bt, _ne = hold_k1(*a_args)
-    got = stage_a_masks(*a_args)
     k1_ms = time_ms(lambda: stage_a_masks(*a_args), 10, inner=10)
     k1_dev = device_ms(lambda: stage_a_masks(*a_args), "stage_a_kernel", 10)
     k1_plain = time_ms(lambda: stage_a_masks_plain(*a_args), 5)
@@ -625,12 +691,10 @@ def main() -> int:
     })
 
     # ---- 4. K2 against its plain version on the main path's pairs ----
-    pq, _pcb, pc = compact_pairs(got[0], start_blk, pipe.Ni_pad)
-    pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
-    reps = -(-TARGET_PAIRS // max(1, pr.a.shape[0]))
-    a, al, b, bl = (x.repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
-                    .contiguous() for x in (pr.a, pr.ql, pr.b, pr.cl))
+    (a, al, b, bl), n_distinct = k2_main_pairs(pipe, queries, params)
     P, L = a.shape
+    lmax, threads = k2_instance(L)
+    k2_ptxas = dl_lcs_ptxas(_build.ptxas_report("dl_lcs"))
     k2 = {}
     for W in (3, 6, 12):
         ld, lcs = dl_lcs(a, al, b, bl, L, W)
@@ -643,15 +707,21 @@ def main() -> int:
         if err:
             raise SystemExit(f"dl_lcs kernel differs from plain at W={W}")
         ms = time_ms(lambda: dl_lcs(a, al, b, bl, L, W), 10, inner=10)
+        dev = device_ms(lambda: dl_lcs(a, al, b, bl, L, W), "dl_lcs_kernel",
+                        10)
         plain = time_ms(
             lambda: dl_metrics_windowed_plain(a, al, b, bl, L, W), 3
         )
         bound, by = k2_bound_ms(al, bl, L, W)
-        k2[W] = (err, ms, plain, bound, by)
-        log(f"K2 dl_lcs W={W}: P={P} L={L} ({pr.a.shape[0]} distinct "
+        px = k2_ptxas.get((W, lmax))
+        k2[W] = (err, ms, plain, bound, by, dev, px)
+        log(f"K2 dl_lcs W={W}: P={P} L={L} ({n_distinct} distinct "
             f"main-path pairs) equal to plain (DL clipped at W+1); kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}) "
-            f"| {card}")
+            f"{ms:.3f} ms (CUDA events, 10 back-to-back calls; profiler "
+            f"device time {dev:.4f} ms), plain {plain:.3f} ms, bound "
+            f"{bound:.4f} ms ({by}); instance W={W} LMAX={lmax}: ptxas {px}, "
+            f"dynamic shared memory {k2_smem_bytes(W, L)} bytes per block of "
+            f"{threads} threads | {card}")
     records.append({
         "name": "dl_lcs", "route": "cuda",
         "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
@@ -660,6 +730,9 @@ def main() -> int:
         "ms": k2[3][1], "plain_ms": k2[3][2],
         "bound_ms": k2[3][3], "bound_by": k2[3][4], "library_ms": None,
         "library_note": "no PyTorch call computes banded Damerau-Levenshtein",
+        "by_window": {W: {"ms": v[1], "device_ms": v[5], "plain_ms": v[2],
+                          "bound_ms": v[3], "ptxas": v[6]}
+                      for W, v in k2.items()},
     })
 
     # ---- 5. the main path ----

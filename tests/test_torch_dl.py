@@ -122,32 +122,111 @@ def test_cpu_tensors_take_the_plain_version():
         tdl.dl_lcs(*_t(a, al, b, bl), L + 1, window)
 
 
-def test_kernel_pair_dp_on_host(tmp_path):
+def _host_dp(tmp_path, entry="analiticcl_dl_lcs_host"):
     """The CUDA kernel's per-pair DP (csrc/dl_lcs.cu, compiled as plain C++
-    with -DANALITICCL_HOST_TEST) against the scalar oracle and the Pallas
-    interpreter. The launch itself runs only on a card."""
+    with -DANALITICCL_HOST_TEST) as a function of numpy pairs: ``entry`` is
+    the kernel's byte-cell instance or ``analiticcl_dl_lcs_host_int``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler")
     src = Path(tdl.__file__).resolve().parent.parent / "csrc" / "dl_lcs.cu"
     so = tmp_path / "libdlhost.so"
-    subprocess.run(
-        [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST", "-shared",
-         "-fPIC", "-o", str(so), str(src)],
-        check=True, capture_output=True,
-    )
-    lib = ctypes.CDLL(str(so))
+    if not so.exists():
+        subprocess.run(
+            [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST", "-shared",
+             "-fPIC", "-o", str(so), str(src)],
+            check=True, capture_output=True,
+        )
+    fn = getattr(ctypes.CDLL(str(so)), entry)
     ptr = ctypes.c_void_p
 
     def host(a, al, b, bl, L, W):
         P = len(al)
         ld = np.zeros(P, np.int32)
         lcs = np.zeros(P, np.int32)
-        lib.analiticcl_dl_lcs_host(
+        fn(
             *[ptr(x.ctypes.data) for x in (a, al, b, bl, ld, lcs)],
             ctypes.c_int(P), ctypes.c_int(L), ctypes.c_int(W),
         )
         return ld, lcs
+
+    return host
+
+
+@pytest.fixture(scope="module")
+def host_dp_lib(tmp_path_factory):
+    path = tmp_path_factory.mktemp("dlhost")
+    return _host_dp(path), _host_dp(path, "analiticcl_dl_lcs_host_int")
+
+
+def _adversarial_pairs(rng, L):
+    """Pairs that push the DP's stored values up: disjoint alphabets, one
+    repeated character, identical strings, full length against lengths 0-3
+    (both ways), both empty, and random lengths of unrelated strings."""
+    rows = []
+
+    def add(sa, sb):
+        rows.append((list(sa), list(sb)))
+
+    for la, lb in ((L, L), (L, L // 2), (L // 3, L), (L, 1), (1, L)):
+        add(rng.integers(1, 6, la), rng.integers(10, 16, lb))  # disjoint
+        add([3] * la, [3] * lb)  # one repeated character
+        add([3] * la, [4] * lb)
+    for n in (L, L - 1, L // 2, 2):
+        s = rng.integers(1, 4, n)
+        add(s, s)  # identical
+        add(s, s[::-1])
+    for short in range(4):
+        long_ = rng.integers(1, 8, L)
+        add(long_, rng.integers(1, 8, short))
+        add(rng.integers(1, 8, short), long_)
+        add([5] * L, [5] * short)
+    add([], [])
+    for _ in range(40):
+        add(rng.integers(1, 30, rng.integers(0, L + 1)),
+            rng.integers(1, 30, rng.integers(0, L + 1)))
+    P = len(rows)
+    a = np.full((P, L), tdl.PAD_A, np.int32)
+    b = np.full((P, L), tdl.PAD_B, np.int32)
+    al = np.zeros(P, np.int32)
+    bl = np.zeros(P, np.int32)
+    for p, (sa, sb) in enumerate(rows):
+        al[p], bl[p] = len(sa), len(sb)
+        a[p, :len(sa)] = sa
+        b[p, :len(sb)] = sb
+    return a, al, b, bl
+
+
+@pytest.mark.parametrize("window", [3, 6, 12])
+@pytest.mark.parametrize("L", [8, 24, 32, 64])
+def test_kernel_byte_cells_equal_int_cells(host_dp_lib, L, window):
+    """The kernel's DP on byte cells equals the same DP on int cells exactly,
+    above the window too (no clipping), on random and adversarial pairs;
+    both equal the oracle with DL clipped at window + 1."""
+    host_u8, host_int = host_dp_lib
+    rng = np.random.default_rng(31 * L + window)
+    adv = _adversarial_pairs(rng, L)
+    rnd = _random_pairs(rng, 160, L, sigma=6)
+    for a, al, b, bl in (adv, rnd):
+        ld8, lcs8 = host_u8(a, al, b, bl, L, window)
+        ldi, lcsi = host_int(a, al, b, bl, L, window)
+        np.testing.assert_array_equal(ld8, ldi)
+        np.testing.assert_array_equal(lcs8, lcsi)
+        assert (ld8 <= window).any()
+        assert (ld8 > window).any() or window >= L  # DL <= L at L 8, W 12
+        for p in range(len(al)):
+            sa = a[p, : al[p]].tolist()
+            sb = b[p, : bl[p]].tolist()
+            true_ld = oracle.damerau_levenshtein(sa, sb, 4 * L)
+            assert min(int(ld8[p]), window + 1) == min(true_ld, window + 1)
+            assert lcs8[p] == oracle.longest_common_substring_length(sa, sb)
+
+
+def test_kernel_pair_dp_on_host(tmp_path):
+    """The CUDA kernel's per-pair DP (csrc/dl_lcs.cu, compiled as plain C++
+    with -DANALITICCL_HOST_TEST) against the scalar oracle and the Pallas
+    interpreter. The launch itself runs only on a card."""
+    host = _host_dp(tmp_path)
 
     for window in (3, 6, 12):
         for L in (8, 24):
