@@ -23,22 +23,33 @@ bigrams the text holds, and learn mode (strict over 4,096 corrupted words,
 then over 512 lines, five corpora each), each held against the object-path
 consolidation or the host oracle, each holding both kernels against their
 plain versions on its own first lookup batch, and each required to launch
-both kernels. The last two lines are the kernels' JSON record and
-``{"ok": true, ...}``.
+both kernels. Then the CLI and the API (phase 9): the lexicon written to
+files under ``build/chip_smoke_cli/``, a model read and built from them as
+the CLI does it with both kernels held against their plain versions on its
+first query batch, and ``cli.main`` in this process for ``query`` (TSV and
+``--json``), ``search -N 2`` and ``learn --strict``, each required to
+launch both kernels, their output held byte for byte against the
+``--backend oracle`` output on prefixes and the JSON against
+``api.VariantModel.find_variants_par``. The last two lines are the
+kernels' JSON record (stamped with the commit) and ``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
-card is visible. Imports no JAX. Writes nothing outside the checkout but
-the kernels' build directory ``build/analiticcl_tpu_torch/``.
+card is visible. Imports no JAX. Writes nothing outside the checkout's
+``build/`` directory (the kernels' builds and phase 9's files).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 0
 N_LEXICON = 120_000  # eng.aspell holds 119,773 entries
@@ -55,6 +66,7 @@ N_LEARN_STRICT = 4096
 N_LEARN_LINES = 512
 N_LEARN_CALLS = 5  # learn calls per mode, each on its own corpus
 N_LEARN_CHECK = 256
+N_OTHER = 10_000  # entries of the CLI phase's second lexicon
 # (B, index rows, band blocks) of the direct K1 checks: query tiles of 8,
 # 64 and 1,024, and 256 from 262,144 index rows up
 K1_DIRECT = ((8, 32_768, 4), (64, 32_768, 8), (8192, 32_768, 8),
@@ -586,6 +598,206 @@ def learn_phase(model, words, card: str) -> dict:
     return launches
 
 
+class StampedStderr(io.TextIOBase):
+    """Passes writes on to the process's stderr and notes when the CLI
+    announces its serving loop, which it does right after its model is
+    read and built."""
+
+    SERVING = ("Querying the model", "Finding all variants", "Collecting")
+
+    def __init__(self):
+        self.serving_at = None
+
+    def write(self, s: str) -> int:
+        if self.serving_at is None and s.startswith(self.SERVING):
+            self.serving_at = time.perf_counter()
+        return sys.__stderr__.write(s)
+
+
+def run_cli(name: str, argv, stdin_path: Path, stdout_path: Path):
+    """``cli.main(argv)`` in this process, its standard input and output
+    redirected to files; returns (wall seconds, seconds to the model's read
+    and build, the launch counts of the run). Fails unless it exits 0."""
+    import torch
+
+    from analiticcl_tpu_torch import cli
+
+    gc.collect()
+    reset_counts()
+    err = StampedStderr()
+    old = sys.stdin
+    with open(stdin_path, encoding="utf-8") as fin, \
+            open(stdout_path, "w", encoding="utf-8") as fout:
+        sys.stdin = fin
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(fout), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(list(argv))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            sys.stdin = old
+    if rc != 0 or err.serving_at is None:
+        raise SystemExit(f"{name}: cli.main exited {rc}")
+    return dt, err.serving_at - t0, launch_counts()
+
+
+def write_lines(path: Path, lines) -> Path:
+    path.write_text("".join(f"{line}\n" for line in lines), encoding="utf-8")
+    return path
+
+
+def cli_phase(words, queries, texts, card: str) -> dict:
+    """The CLI and the API on the card: a model built from lexicon files as
+    the CLI builds it, both kernels held against their plain versions on
+    the CLI's first query batch, then ``cli.main`` for query (TSV and
+    JSON), search and strict learn, each required to launch both kernels;
+    the device output against the oracle backend's on prefixes, and
+    ``api.VariantModel.find_variants_par`` against the JSON run."""
+    import torch
+
+    from analiticcl_tpu_torch import api, cli
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, corrupt_queries, synthetic_frequencies, synthetic_lexicon,
+    )
+
+    d = Path("build/chip_smoke_cli")
+    d.mkdir(parents=True, exist_ok=True)
+    known = set(words)
+    other = [w for w in synthetic_lexicon(SEED + 40, 2 * N_OTHER)
+             if w not in known][:N_OTHER]
+    freqs = synthetic_frequencies(SEED + 41, len(words))
+    alphabet = write_lines(d / "alphabet.tsv", ["\t".join(c) for c in ALPHABET])
+    lexicon = write_lines(d / "lexicon.tsv",
+                          [f"{w}\t{f}" for w, f in zip(words, freqs)])
+    lexicon2 = write_lines(d / "other.tsv", [f"{w}\t3" for w in other])
+    learn_words = corrupt_queries(words, SEED + 42, N_LEARN_STRICT)
+    inputs = {
+        "queries": write_lines(d / "queries.txt", queries),
+        "queries_head": write_lines(d / "queries_head.txt", queries[:N_ORACLE]),
+        "text": write_lines(d / "text.txt", texts),
+        "text_head": write_lines(d / "text_head.txt", texts[:N_LINES_ORACLE]),
+        "learn": write_lines(d / "learn.txt", learn_words),
+        "learn_head": write_lines(d / "learn_head.txt",
+                                  learn_words[:N_LEARN_CHECK]),
+    }
+    common = ["-a", str(alphabet), "-l", str(lexicon), "-l", str(lexicon2),
+              "--device", "cuda"]
+
+    # the model as the CLI builds it, and both kernels on its first batch
+    t0 = time.perf_counter()
+    args = cli.build_argparser().parse_args(
+        ["query", *common, "--backend", "device"])
+    model, params = cli.build_model_from_args(args)
+    t_load = time.perf_counter() - t0
+    model.build()
+    pipe = model._pipeline()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    log(f"cli model: {len(words)} + {len(other)} lexicon entries from files, "
+        f"index {model.index.size}, read in {t_load:.3f} s, read and built "
+        f"in {t_build:.3f} s | {card}")
+    hold_kernels("cli", pipe, queries[:cli.MAX_BATCHSIZE], params)
+    del model, pipe
+    gc.collect()
+
+    runs = {  # name: (argv, input, unit, count)
+        "cli_query": (["query", *common, "--backend", "device"], "queries",
+                      "queries", len(queries)),
+        "cli_query_json": (["query", *common, "--backend", "device", "--json"],
+                           "queries", "queries", len(queries)),
+        "cli_search": (["search", *common, "--backend", "device", "-N", "2"],
+                       "text", "tokens", sum(len(t.split()) for t in texts)),
+        "cli_learn": (["learn", *common, "--backend", "device", "--strict"],
+                      "learn", "words", len(learn_words)),
+    }
+    by_path, out = {}, {}
+    for name, (argv, src, unit, n) in runs.items():
+        out[name] = d / f"{name}.out"
+        dt, t_model, counts = run_cli(name, argv, inputs[src], out[name])
+        if min(counts.values()) <= 0:
+            raise SystemExit(f"{name}: a kernel was not launched: {counts}")
+        by_path[name] = counts
+        log(f"{name}: {n} {unit} in {dt:.3f} s wall, of which {t_model:.3f} s "
+            f"to read and build the model and {dt - t_model:.3f} s to serve "
+            f"and emit: {n / (dt - t_model):.1f} {unit}/s served, "
+            f"{n / dt:.1f} {unit}/s over the wall; "
+            f"{out[name].stat().st_size} bytes out; launches {counts} | {card}")
+
+    # exactness against the oracle backend
+    def lines(path):
+        return path.read_text(encoding="utf-8").split("\n")
+
+    query_out = lines(out["cli_query"])
+    if len(query_out) != len(queries) + 1:
+        raise SystemExit(f"cli_query: {len(query_out) - 1} lines for "
+                         f"{len(queries)} queries")
+    checks = []
+    for name, argv, src, want in (
+        ("query", runs["cli_query"][0], "queries_head",
+         query_out[:N_ORACLE]),
+        ("search", runs["cli_search"][0], "text_head", None),
+        ("learn", runs["cli_learn"][0], "learn_head", None),
+    ):
+        t0 = time.perf_counter()
+        if want is None:  # the device run on the head of the input
+            path = d / f"{name}_head_device.out"
+            run_cli(name, argv, inputs[src], path)
+            want = lines(path)
+        path = d / f"{name}_head_oracle.out"
+        oracle = [a if a != "device" else "oracle" for a in argv]
+        run_cli(name, oracle, inputs[src], path)
+        got = lines(path)[:len(want)]
+        if got != want or len(want) < 16:
+            bad = sum(a != b for a, b in zip(got, want))
+            raise SystemExit(f"cli {name}: {bad} of {len(want)} lines differ "
+                             f"from the oracle backend")
+        checks.append(f"{name} {len(want)} lines ({time.perf_counter() - t0:.1f} s)")
+    log(f"cli checks: device output equal to the oracle backend's, byte for "
+        f"byte: {', '.join(checks)}")
+
+    # the API over the first 4,096 queries against the JSON run
+    entries = json.loads(out["cli_query_json"].read_text(encoding="utf-8"))
+    if len(entries) != len(queries):
+        raise SystemExit(f"cli_query_json: {len(entries)} entries for "
+                         f"{len(queries)} queries")
+    t0 = time.perf_counter()
+    m = api.VariantModel(str(alphabet), api.Weights(), device="cuda")
+    m.read_lexicon(str(lexicon))
+    m.read_lexicon(str(lexicon2))
+    m.build()
+    t_api_build = time.perf_counter() - t0
+    sp = api.SearchParameters(
+        max_anagram_distance=3, max_edit_distance=2, max_matches=10,
+        score_threshold=0.25, cutoff_threshold=2.0, freq_weight=0.0,
+        stop_at_exact_match=False,
+    )
+    head = queries[:BATCH]
+    reset_counts()
+    t0 = time.perf_counter()
+    par = m.find_variants_par(head, sp)
+    dt = time.perf_counter() - t0
+    counts = require_launches("api")
+    keys = ("text", "score", "dist_score", "freq_score")
+    got = [(r["input"], [tuple(v[k] for k in keys) for v in r["variants"]])
+           for r in par]
+    want = [(e["input"], [tuple(v[k] for k in keys) for v in e.get("variants", [])])
+            for e in entries[:len(head)]]
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise SystemExit(f"api: {bad} of {len(head)} results differ from the "
+                         f"CLI's JSON")
+    log(f"api: VariantModel(device='cuda') read and built in "
+        f"{t_api_build:.3f} s; find_variants_par over {len(head)} queries in "
+        f"{dt:.3f} s ({len(head) / dt:.1f} q/s), equal to the CLI's JSON "
+        f"(text, score, dist_score, freq_score); launches {counts} | {card}")
+    del m
+    gc.collect()
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -606,6 +818,7 @@ def main() -> int:
         ALPHABET, corrupt_queries, populate, synthetic_bigrams,
         synthetic_lexicon, synthetic_text,
     )
+    from analiticcl_tpu_torch.utils.provenance import stamp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # ---- 1. the card ----
@@ -818,10 +1031,13 @@ def main() -> int:
     del lm_model
     by_path["learn"] = learn_phase(model, words, card)
 
+    # ---- 9. the CLI and the API ----
+    by_path.update(cli_phase(words, queries, texts, card))
+
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
-    log(json.dumps({"kernels": records}))
+    log(json.dumps(stamp({"kernels": records})))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
