@@ -56,18 +56,22 @@ class HostLayout(NamedTuple):
     L: int  # padded string width, at least 8
 
 
-def host_layout(model) -> HostLayout:
+def host_layout(model, pad_unit: int = ROW_BLOCK) -> HostLayout:
     """The device layout of ``model``'s built index, as numpy arrays
-    (ported from ``DevicePipeline.__init__``, ops/pipeline.py:966-1004)."""
+    (ported from ``DevicePipeline.__init__``, ops/pipeline.py:966-1004),
+    its rows padded to a multiple of ``pad_unit`` (a multiple of
+    ROW_BLOCK; a sharded index passes ROW_BLOCK times its shard count)."""
     index = model.index
     if index is None:
         raise RuntimeError("build() the model before moving its index")
+    if pad_unit < ROW_BLOCK or pad_unit % ROW_BLOCK:
+        raise ValueError(f"pad_unit {pad_unit} is not a multiple of {ROW_BLOCK}")
     A = model.alphabet_size()
     Ni = index.size
     L = max(8, index.max_norm_len)
     counts = index.counts.astype(np.int32)
     T = max(1, int(counts.max())) if counts.size else 1
-    Ni_pad = max(ROW_BLOCK, -(-Ni // ROW_BLOCK) * ROW_BLOCK)
+    Ni_pad = max(pad_unit, -(-Ni // pad_unit) * pad_unit)
 
     perm = np.argsort(index.charcounts, kind="stable")
     canon_of = np.full(Ni_pad, max(Ni - 1, 0), dtype=np.int64)

@@ -9,7 +9,8 @@ methods that reached for the JAX pipeline take the port's in their place:
 ``find_all_matches`` and ``find_all_matches_batch`` delegate to them),
 ``learn_variants`` (its strict mode reads the ranked lookup stream) and
 ``_refresh_index_freqs`` (learn's linked entries go to
-``DevicePipeline.refresh_freqs``). ``use_mesh`` is not ported.
+``DevicePipeline.refresh_freqs``), and ``use_mesh`` (the port's
+``parallel/mesh.py`` ``ShardedPipeline``).
 
 Parity target: reference src/lib.rs (VariantModel). The architecture:
 
@@ -79,6 +80,7 @@ from ..vocab import (
 from ..device import resolve_device
 from ..ops.pipeline import DevicePipeline
 from ..ops.ranked import RankedResults
+from ..parallel.mesh import ShardedPipeline, make_mesh
 from . import search_fast
 
 # Lookups per device call in search mode. A search unit aims at 95 % of this
@@ -234,9 +236,17 @@ class VariantModel:
         self._device = None
 
     def use_mesh(self, mesh=None, dp: Optional[int] = None) -> None:
-        raise NotImplementedError(
-            "sharding the index over several devices is not ported to "
-            "PyTorch yet (ROADMAP P10)"
+        """Shard the index over a device mesh (see parallel/mesh.py).
+
+        ``mesh`` defaults to a ("dp", "lex") mesh over every visible CUDA
+        device with the given dp degree (default 1 = pure lexicon
+        sharding). A later :meth:`build` or :meth:`set_backend` drops the
+        mesh."""
+        if self.index is None:
+            raise RuntimeError("call build() before use_mesh()")
+        self._backend = "device"
+        self._device = ShardedPipeline(
+            self, make_mesh(dp=dp) if mesh is None else mesh
         )
 
     def alphabet_size(self) -> int:

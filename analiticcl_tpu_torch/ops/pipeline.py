@@ -7,7 +7,10 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
   per-batch query arrays) and the same outputs ``o_q, o_c, o_ld, o_lcs, o_pf,
   o_sf, o_case, max_freq, total_match, total_keep``. Stage A and the DL+LCS
   DP run in the hand-written kernels (``ops/stage_a.py``, ``ops/dl.py``) on
-  CUDA tensors; the glue between them is torch ops.
+  CUDA tensors; the glue between them is torch ops. It is the composition
+  of :func:`query_stage_a` and :func:`query_stage_b`, which a sharded index
+  (``parallel/mesh.py``) calls per shard, combining the shards' exact
+  counts between them.
 * :class:`DevicePipeline` ports the host side: query preparation, the window
   split, the band plan, and the float64 ranking tail (the native C++ one, or
   the numpy one).
@@ -175,6 +178,25 @@ def gather_pairs(index: DeviceIndex, q_norms, q_lens, k_ed, q_first_lower,
     )
 
 
+class StageA(NamedTuple):
+    packed_q: torch.Tensor  # uint8 [B, Nb / 8] hit bits
+    exact_q: torch.Tensor  # uint8 [B, Nb / 8] exact-anagram bits
+    nmatch: torch.Tensor  # int32 [B] hits per query
+    nexact: torch.Tensor  # int32 [B] exact anagrams per query
+
+
+def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,
+                  start_blk, nb_band: int) -> StageA:
+    """Stage A of :func:`query_core`: banded retrieval (kernel K1) over
+    ``index``'s rows. The per-128-row counts fed the JAX core's radix
+    descent; ``nonzero`` over the unpacked bits needs no counts."""
+    packed_q, exact_q, _counts_t, nmatch, nexact = stage_a_masks(
+        index.bins, index.cc, index.validrows, query_planes(index, q_counts),
+        q_cc, k_ana, k_len, start_blk, nb_band,
+    )
+    return StageA(packed_q, exact_q, nmatch, nexact)
+
+
 def query_core(
     index: DeviceIndex,
     q_counts,  # int32 [B, A] per-character counts
@@ -197,18 +219,34 @@ def query_core(
 ):
     """One batch through stage A, pair compaction, stage B and the f32
     pre-filter. Survivors come back in (query, device row) order."""
-    dev = q_counts.device
-    B = q_counts.shape[0]
-    i32 = torch.int32
-
-    # ---- stage A: banded retrieval (kernel K1) ----
-    # (the per-128-row counts fed the JAX core's radix descent; nonzero over
-    # the unpacked bits needs no counts)
-    packed_q, exact_q, _counts_t, nmatch, nexact = stage_a_masks(
-        index.bins, index.cc, index.validrows, query_planes(index, q_counts),
-        q_cc, k_ana, k_len, start_blk, nb_band,
+    sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
+                       nb_band)
+    return query_stage_b(
+        index, sa, stop_exact & (sa.nexact > 0), q_norms, q_lens,
+        q_first_lower, k_ed, start_blk, weights, score_threshold,
+        have_freq=have_freq, window=window, use_stop_exact=use_stop_exact,
     )
-    use_exact = stop_exact & (nexact > 0)
+
+
+def query_stage_b(
+    index: DeviceIndex,
+    sa: StageA,
+    use_exact,  # bool [B]: the query keeps only its exact-anagram pairs
+    q_norms, q_lens, q_first_lower, k_ed, start_blk, weights,
+    score_threshold,
+    *,
+    have_freq: bool,
+    window: int,
+    use_stop_exact: bool = True,
+):
+    """Stage B of :func:`query_core` over stage A's hits in ``index``: pair
+    compaction, the gathers, DL + LCS (kernel K2), the affixes, the f32
+    score and survivor compaction. ``use_exact`` is separate because under
+    a sharded index it depends on every shard's exact count."""
+    packed_q, exact_q, nmatch = sa.packed_q, sa.exact_q, sa.nmatch
+    dev = packed_q.device
+    B = packed_q.shape[0]
+    i32 = torch.int32
     total_match = nmatch.sum()
     pq, pc_band, pc = compact_pairs(packed_q, start_blk, index.bins.shape[0])
     pr = gather_pairs(index, q_norms, q_lens, k_ed, q_first_lower, pq, pc)
@@ -381,13 +419,27 @@ class DevicePipeline:
         state = self.prepare(inputs, params)
         if "args" in state:
             with self.stats.stage("device"):
-                state["out"] = query_core(
-                    self.index, *state["args"],
-                    have_freq=bool(self.model.have_freq),
-                    window=state["window"], nb_band=state["nb_band"],
-                    use_stop_exact=state["use_stop_exact"],
+                state["out"] = self._query(
+                    state["args"], state["window"], state["nb_band"],
+                    state["use_stop_exact"],
                 )
         return state
+
+    def _query(self, args, window: int, nb_band, use_stop_exact: bool):
+        """The device call of one prepared batch."""
+        return query_core(
+            self.index, *args, have_freq=bool(self.model.have_freq),
+            window=window, nb_band=nb_band, use_stop_exact=use_stop_exact,
+        )
+
+    def _batch_rows(self, n: int) -> int:
+        """Padded batch size for ``n`` active queries."""
+        return _batch_rows(n)
+
+    def _hit_bits(self, B: int, nb_band) -> int:
+        """Stage-A hit bits of the largest device call of a batch: the
+        quantity :attr:`max_hit_bits` caps."""
+        return B * nb_band * ROW_BLOCK
 
     def prepare(self, inputs: Sequence[str], params: SearchParameters):
         """Host prep of one batch. The state it returns holds the results
@@ -433,7 +485,7 @@ class DevicePipeline:
             prep_cm.__exit__(None, None, None)
             return {"results": results, "active": [], "inputs": inputs}
 
-        B = _batch_rows(len(active))
+        B = self._batch_rows(len(active))
         act = np.asarray(active)
         # charcount-sorted queries: each tile then covers a narrow band
         cc_act = enc.counts_from_norms(all_norms[act], all_lens[act])
@@ -482,7 +534,7 @@ class DevicePipeline:
         start_blk, nb_band = self._band_plan(q_cc, k_len, B)
         # over the memory cap: charcount-contiguous parts, each with its own
         # (narrower) band; a part still over the cap splits again
-        hit_bits = B * nb_band * ROW_BLOCK
+        hit_bits = self._hit_bits(B, nb_band)
         if hit_bits > self.max_hit_bits and na > 1:
             prep_cm.__exit__(None, None, None)
             nparts = min(na, -(-hit_bits // self.max_hit_bits))

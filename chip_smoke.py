@@ -30,8 +30,19 @@ first query batch, and ``cli.main`` in this process for ``query`` (TSV and
 ``--json``), ``search -N 2`` and ``learn --strict``, each required to
 launch both kernels, their output held byte for byte against the
 ``--backend oracle`` output on prefixes and the JSON against
-``api.VariantModel.find_variants_par``. The last two lines are the
-kernels' JSON record (stamped with the commit) and ``{"ok": true, ...}``.
+``api.VariantModel.find_variants_par``. Then lexicon sharding (phase 10,
+``parallel/mesh.py``, every mesh over ``cuda:0`` repeated): the main
+lexicon, built anew, on 1x1, 1x4 and 2x2 meshes, each pass of the 16,384 queries equal to the
+single-device pipeline's (and under StopAtExactMatch on 4,096), its first
+256 to the oracle, K1 launched once per shard and batch, one profiler
+window over the warm 1x4 pass; the same strict learn on a 2x2-meshed and
+a single-device 120k model, with equal links, frequencies and lookups
+after; and a seeded 1,000,000-entry lexicon on a 1x4 mesh: 4,096 queries
+in batches of 2,048 against its single-device pipeline and the oracle, a
+strict learn over 7,000 words, a re-shard and the oracle again. Each mesh
+path holds both kernels against their plain versions on its first batch's
+call of shard 0. The last two lines are the kernels' JSON record (stamped
+with the commit, launches per path) and ``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
 card is visible. Imports no JAX. Writes nothing outside the checkout's
@@ -67,6 +78,13 @@ N_LEARN_LINES = 512
 N_LEARN_CALLS = 5  # learn calls per mode, each on its own corpus
 N_LEARN_CHECK = 256
 N_OTHER = 10_000  # entries of the CLI phase's second lexicon
+MESHES = ((1, 1), (1, 4), (2, 2))  # (dp, lex) meshes of cuda:0, phase 10
+N_MESH_ORACLE = 256
+N_1M = 1_000_000  # the background lexicon of the JAX suite's sharded_1m
+N_1M_QUERIES = 4096
+BATCH_1M = 2048
+N_1M_ORACLE = 64
+N_1M_LEARN = 7000  # learn_1m's corpus
 # (B, index rows, band blocks) of the direct K1 checks: query tiles of 8,
 # 64 and 1,024, and 256 from 262,144 index rows up
 K1_DIRECT = ((8, 32_768, 4), (64, 32_768, 8), (8192, 32_768, 8),
@@ -407,7 +425,8 @@ def profile_pass(fn) -> str:
 def hold_kernels(name: str, pipe, lookups, params) -> None:
     """Prepare ``lookups`` as one device batch, as the path does, and hold
     the stage-A kernel (bit for bit) and the DL+LCS kernel (DL clipped at
-    the batch's window + 1, LCS exact) against their plain versions on it.
+    the batch's window + 1, LCS exact) against their plain versions on it;
+    on a sharded pipeline, on the call of mesh row 0 and lex shard 0.
     Its launches count, so call it before the path's counts are reset."""
     import torch
 
@@ -416,6 +435,7 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
         compact_pairs, gather_pairs, query_planes,
     )
     from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+    from analiticcl_tpu_torch.parallel.mesh import ShardedPipeline
 
     t0 = time.perf_counter()
     st = pipe.prepare(lookups, params)
@@ -424,12 +444,24 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
                          "device batch")
     (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
      start_blk, _w, _thr) = st["args"]
-    idx = pipe.index
+    nb_band = st["nb_band"]
+    where = ""
+    if isinstance(pipe, ShardedPipeline):
+        rows = slice(0, q_lens.shape[0] // pipe.n_dp)
+        q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len = (
+            x[rows] for x in (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana,
+                              k_ed, k_len))
+        start_blk, nb_band, idx = start_blk[0, 0], int(nb_band[0, 0]), \
+            pipe.shard(0, 0)
+        where = (f" of mesh row 0, lex shard 0 ({idx.bins.shape[0]} shard "
+                 f"rows)")
+    else:
+        idx = pipe.index
     a_args = (idx.bins, idx.cc, idx.validrows, query_planes(idx, q_counts),
-              q_cc, k_ana, k_len, start_blk, st["nb_band"])
+              q_cc, k_ana, k_len, start_blk, nb_band)
     hold_k1(*a_args)
     got = stage_a_masks(*a_args)
-    pq, _pcb, pc = compact_pairs(got[0], start_blk, pipe.Ni_pad)
+    pq, _pcb, pc = compact_pairs(got[0], start_blk, idx.bins.shape[0])
     pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
     W = st["window"]
     ld, lcs = dl_lcs(pr.a, pr.ql, pr.b, pr.cl, pipe.L, W)
@@ -441,9 +473,9 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
             and torch.equal(lcs, lcs_p)):
         raise SystemExit(f"{name}: dl_lcs kernel differs from plain at W={W}")
     pipe._oracle_memo.clear()  # the timed run meets over-long segments anew
-    log(f"{name} kernels: K1 bit-identical to plain on B={q_lens.shape[0]} "
-        f"({len(st['active'])} device lookups of {len(lookups)}, band "
-        f"{st['nb_band'] * 1024} rows); K2 equal to plain at W={W} on "
+    log(f"{name} kernels: K1 bit-identical to plain on B={q_lens.shape[0]}"
+        f"{where} ({len(st['active'])} device lookups of {len(lookups)}, "
+        f"band {nb_band * 1024} rows); K2 equal to plain at W={W} on "
         f"{pr.a.shape[0]} pairs ({time.perf_counter() - t0:.2f} s)")
 
 
@@ -798,6 +830,266 @@ def cli_phase(words, queries, texts, card: str) -> dict:
     return by_path
 
 
+def cuda_mesh(n_dp: int, n_lex: int):
+    """A ("dp", "lex") mesh whose devices are all ``cuda:0``."""
+    from analiticcl_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(["cuda:0"] * (n_dp * n_lex), dp=n_dp)
+
+
+def timed_stream(model, queries, params, batch: int):
+    """One warm pass of ``find_variants_stream``: (results, seconds,
+    launches); the counts are reset just before it."""
+    import torch
+
+    list(model.find_variants_stream(queries[:batch], params, batch))  # warm
+    reset_counts()
+    model._device.stats.clear()
+    model._device.candidates = model._device.survivors = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(model.find_variants_stream(queries, params, batch))
+    torch.cuda.synchronize()
+    return got, time.perf_counter() - t0, launch_counts()
+
+
+def require_equal(name: str, got, want, queries) -> None:
+    if got != want:
+        bad = [q for q, a, b in zip(queries, got, want) if a != b]
+        raise SystemExit(f"{name}: {len(bad)} of {len(queries)} results "
+                         f"differ: {bad[:5]}")
+
+
+def mesh_query_phase(words, queries, params, card: str) -> dict:
+    """Phase 10 (a): the main model's lexicon, built anew (learn's links
+    would send most rows to the object tail), sharded over 1x1, 1x4 and
+    2x2 meshes of ``cuda:0``. Each mesh's 16,384-query pass equals the
+    single-device pipeline's tuple for tuple (and under StopAtExactMatch on
+    4,096 queries), its first 256 queries equal the oracle, and it launches
+    K1 once per shard and batch; one profiler window over the warm 1x4
+    pass."""
+    import dataclasses
+
+    from analiticcl_tpu_torch import StopCriterion, VariantModel
+    from analiticcl_tpu_torch.testing import ALPHABET, populate
+
+    stop = dataclasses.replace(
+        params, stop_criterion=StopCriterion.STOP_AT_EXACT_MATCH)
+    model = populate(VariantModel(alphabet=ALPHABET, device="cuda"), words)
+    model._pipeline()
+    single, dt, base = timed_stream(model, queries, params, BATCH)
+    single_stop = list(model.find_variants_stream(queries[:BATCH], stop,
+                                                  BATCH))
+    t0 = time.perf_counter()
+    head = queries[:N_MESH_ORACLE]
+    oracle = [model._find_variants_oracle(q, params) for q in head]
+    require_equal("single device vs oracle", single[:N_MESH_ORACLE], oracle,
+                  head)
+    log(f"mesh reference: single-device pipeline {N_QUERIES} queries "
+        f"{N_QUERIES / dt:.1f} q/s, launches {base}; oracle on "
+        f"{N_MESH_ORACLE} ({time.perf_counter() - t0:.1f} s) | {card}")
+    by_path = {}
+    for n_dp, n_lex in MESHES:
+        name = f"mesh_{n_dp}x{n_lex}"
+        t0 = time.perf_counter()
+        model.use_mesh(cuda_mesh(n_dp, n_lex))
+        pipe = model._device
+        t_shard = time.perf_counter() - t0
+        hold_kernels(name, pipe, queries[:BATCH], params)
+        got, dt, counts = timed_stream(model, queries, params, BATCH)
+        stages = stage_line(pipe.stats)
+        cand, surv = pipe.candidates, pipe.survivors
+        if counts["stage_a"] != n_dp * n_lex * base["stage_a"] \
+                or counts["dl_lcs"] <= 0:
+            raise SystemExit(f"{name}: launches {counts}, single {base}")
+        require_equal(name, got, single, queries)
+        require_equal(f"{name} StopAtExactMatch",
+                      list(model.find_variants_stream(queries[:BATCH], stop,
+                                                      BATCH)),
+                      single_stop, queries[:BATCH])
+        require_equal(f"{name} oracle", got[:N_MESH_ORACLE], oracle, head)
+        by_path[name] = counts
+        log(f"{name}: {N_QUERIES} queries in batches of {BATCH}: "
+            f"{N_QUERIES / dt:.1f} q/s warm ({dt:.3f} s), sharded in "
+            f"{t_shard:.3f} s, {pipe.index_bytes()} index bytes per shard, "
+            f"{cand / N_QUERIES:.2f} candidates and {surv / N_QUERIES:.2f} "
+            f"survivors per query; equal to the single-device pipeline on "
+            f"{N_QUERIES} queries, under StopAtExactMatch on {BATCH}, and "
+            f"to the oracle on {N_MESH_ORACLE}; launches {counts} | {card}")
+        log(f"{name} stages: {stages}")
+        if (n_dp, n_lex) == (1, 4):
+            log(f"{name} {profile_pass(lambda: list(model.find_variants_stream(queries, params, BATCH)))} | {card}")
+    return by_path
+
+
+def mesh_learn_phase(words, card: str) -> dict:
+    """Phase 10 (b): the same strict learn on a 120k model sharded over a
+    2x2 mesh and on a single-device one; links, frequencies and the lookups
+    afterwards must be equal."""
+    import torch
+
+    from analiticcl_tpu_torch import (
+        DistanceThreshold, SearchParameters, VariantModel,
+    )
+    from analiticcl_tpu_torch.models.variant_model import LEARN_BATCH
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, corrupt_queries, populate,
+    )
+
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+        score_threshold=0.25,
+        max_ngram=2,
+    )
+    corpus = corrupt_queries(words, SEED + 50, N_LEARN_STRICT)
+    out = {}
+    for name in ("single", "mesh_2x2"):
+        model = populate(VariantModel(alphabet=ALPHABET, device="cuda"),
+                         words)
+        if name == "single":
+            pipe = model._pipeline()
+        else:
+            model.use_mesh(cuda_mesh(2, 2))
+            pipe = model._device
+            hold_kernels("mesh_learn_2x2", pipe, corpus[:LEARN_BATCH],
+                         params)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = model.learn_variants(corpus, params, strict=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = require_launches(f"learn {name}")
+        if model.learn_profile["build_mode"] != "freq_refresh" \
+                or model._device is not pipe:
+            raise SystemExit(f"learn {name}: {model.learn_profile}")
+        out[name] = (model, n, dt, counts)
+    (single, n_s, dt_s, _), (mesh, n_m, dt_m, counts) = out.values()
+    snap = [[(v.text, v.frequency, v.variants) for v in m.decoder]
+            for m in (single, mesh)]
+    if n_s != n_m or snap[0] != snap[1]:
+        raise SystemExit(f"mesh learn: {n_m} variants against {n_s}, or "
+                         "the links and frequencies differ")
+    linked = [v.text for v in mesh.decoder if v.variants]
+    qs = linked[:BATCH // 2] + corrupt_queries(linked, SEED + 51, BATCH // 2)
+    require_equal("mesh learn lookups", mesh.find_variants_batch(qs, params),
+                  single.find_variants_batch(qs, params), qs)
+    log(f"mesh_learn_2x2: strict learn over {len(corpus)} words in "
+        f"{dt_m:.3f} s ({len(corpus) / dt_m:.1f} words/s; single device "
+        f"{dt_s:.3f} s, {len(corpus) / dt_s:.1f} words/s), {n_m} variants; "
+        f"links and frequencies of {len(snap[0])} entries equal, and "
+        f"{len(qs)} lookups over {len(linked)} linked entries equal; "
+        f"launches {counts} | {card}")
+    return {"mesh_learn_2x2": counts}
+
+
+def mesh_1m_phase(card: str) -> dict:
+    """Phase 10 (c): a seeded 1,000,000-entry lexicon sharded over a 1x4
+    mesh of ``cuda:0``: sharded_1m's traffic (4,096 corrupted queries in
+    batches of 2,048) against the same model's single-device pipeline and
+    the oracle, then learn_1m's strict learn over 7,000 corrupted words,
+    a re-shard and the oracle again."""
+    import gc
+
+    import torch
+
+    from analiticcl_tpu_torch import (
+        DistanceThreshold, SearchParameters, VariantModel,
+    )
+    from analiticcl_tpu_torch.ops.pipeline import DevicePipeline
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, corrupt_queries, populate, synthetic_lexicon,
+    )
+
+    t0 = time.perf_counter()
+    words = synthetic_lexicon(SEED + 60, N_1M)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = populate(VariantModel(alphabet=ALPHABET, device="cuda"), words)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.use_mesh(cuda_mesh(1, 4))
+    pipe = model._device
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    log(f"mesh_1m model: {model.index.size} entries generated in "
+        f"{t_gen:.3f} s, added and built in {t_build:.3f} s, sharded over "
+        f"1x4 in {t_shard:.3f} s: {pipe.Ni_shard} rows and "
+        f"{pipe.index_bytes()} index bytes per shard, L={pipe.L} | {card}")
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+    )
+    queries = corrupt_queries(words, SEED + 61, N_1M_QUERIES)
+    hold_kernels("mesh_1m", pipe, queries[:BATCH_1M], params)
+    got, dt, counts = timed_stream(model, queries, params, BATCH_1M)
+    if min(counts.values()) <= 0:
+        raise SystemExit(f"mesh_1m: a kernel was not launched: {counts}")
+    stages = stage_line(pipe.stats)
+    cand = pipe.candidates
+    single_pipe = DevicePipeline(model, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = [r for b in range(0, len(queries), BATCH_1M)
+              for r in single_pipe.find_variants_batch(
+                  queries[b:b + BATCH_1M], params)]
+    torch.cuda.synchronize()
+    dt_single = time.perf_counter() - t0
+    n_split = single_pipe.stats.counts.get("device", 0)
+    del single_pipe
+    gc.collect()
+    require_equal("mesh_1m vs single device", got, single, queries)
+    t0 = time.perf_counter()
+    head = queries[:N_1M_ORACLE]
+    require_equal("mesh_1m oracle", got[:N_1M_ORACLE],
+                  [model._find_variants_oracle(q, params) for q in head],
+                  head)
+    log(f"mesh_1m query: {len(queries)} queries in batches of {BATCH_1M}: "
+        f"{len(queries) / dt:.1f} q/s warm ({dt:.3f} s), "
+        f"{cand / len(queries):.2f} candidates per query; single-device "
+        f"pipeline {len(queries) / dt_single:.1f} q/s (cold, {n_split} "
+        f"device calls for {len(queries) // BATCH_1M} batches); equal to it "
+        f"on {len(queries)} queries and to the oracle on {N_1M_ORACLE} "
+        f"({time.perf_counter() - t0:.1f} s); launches {counts} | {card}")
+    log(f"mesh_1m query stages: {stages}")
+
+    corpus = corrupt_queries(words, SEED + 62, N_1M_LEARN)
+    lparams = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=3,
+        score_threshold=0.7,
+    )
+    reset_counts()
+    pipe.stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = model.learn_variants(corpus, lparams, strict=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lcounts = require_launches("mesh_1m learn")
+    lstages = stage_line(pipe.stats)
+    log(f"mesh_1m learn: strict over {len(corpus)} words in {dt:.3f} s, "
+        f"{len(corpus) / dt:.1f} words/s, {n} variants; learn_profile "
+        f"{model.learn_profile}; launches {lcounts} | {card}")
+    log(f"mesh_1m learn stages: {lstages}")
+    t0 = time.perf_counter()
+    model.use_mesh(cuda_mesh(1, 4))  # re-shard the learned model
+    head = corpus[:N_1M_ORACLE]
+    require_equal("mesh_1m after learn",
+                  model.find_variants_batch(head, lparams),
+                  [model._find_variants_oracle(q, lparams) for q in head],
+                  head)
+    log(f"mesh_1m re-shard: {N_1M_ORACLE} learned words equal the oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del model, pipe
+    gc.collect()
+    return {"mesh_1m_query": counts, "mesh_1m_learn": lcounts}
+
+
 def main() -> int:
     import torch
 
@@ -1033,6 +1325,17 @@ def main() -> int:
 
     # ---- 9. the CLI and the API ----
     by_path.update(cli_phase(words, queries, texts, card))
+
+    # ---- 10. the index sharded over meshes of cuda:0 ----
+    del model, pipe
+    gc.collect()
+    t10 = time.perf_counter()
+    by_path.update(mesh_query_phase(words, queries, params, card))
+    gc.collect()
+    by_path.update(mesh_learn_phase(words, card))
+    gc.collect()
+    by_path.update(mesh_1m_phase(card))
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -199,17 +199,11 @@ def test_cpu_run_launches_no_kernel(words, queries):
     assert (stage_a_masks.launches, dl_lcs.launches) == before
 
 
-def test_use_mesh_is_not_ported(words):
-    port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words[:100])
-    with pytest.raises(NotImplementedError, match="ROADMAP P10"):
-        port.use_mesh()
-    assert port._device is None
-
-
 def test_port_never_imports_jax():
-    """Query, search (with and without an LM, batch and stream), learn
-    (strict and not) and a save/load round trip, each on a fresh model, load
-    no JAX module and no module of the JAX package."""
+    """Query (on one device and on a mesh), search (with and without an LM,
+    batch and stream), learn (strict and not) and a save/load round trip,
+    each on a fresh model, load no JAX module and no module of the JAX
+    package."""
     script = textwrap.dedent(
         """
         import os
@@ -219,6 +213,7 @@ def test_port_never_imports_jax():
         torch.set_num_threads(1)
         import analiticcl_tpu_torch as at
         from analiticcl_tpu_torch.ops.pipeline import DevicePipeline
+        from analiticcl_tpu_torch.parallel.mesh import make_mesh
         from analiticcl_tpu_torch.testing import (
             ALPHABET, populate, synthetic_bigrams, synthetic_lexicon,
             synthetic_text,
@@ -240,6 +235,10 @@ def test_port_never_imports_jax():
         res += list(model.find_variants_stream([words[1]], params))
         assert res[1], res
         models = [model]
+        model = fresh()
+        model.use_mesh(make_mesh(["cpu"] * 4, dp=2))
+        assert model.find_variants_batch([words[1]], params) == [res[1]]
+        models.append(model)
         model = fresh()
         assert model.find_all_matches(texts[0], params)
         models.append(model)
