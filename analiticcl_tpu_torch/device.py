@@ -6,7 +6,9 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """``"cuda"`` (or ``"cuda:N"``) or ``"cpu"`` as a :class:`torch.device`.
+    """``"cuda"`` (or ``"cuda:N"``) or ``"cpu"`` as a :class:`torch.device`;
+    ``"cuda"`` names the current card by its index, as the tensors made on
+    it report their device.
 
     There is no automatic fallback: asking for CUDA on a machine without a
     usable card raises, so a run can never measure the CPU while it claims
@@ -18,6 +20,8 @@ def resolve_device(device) -> torch.device:
                 f"device {device!r} requested but torch.cuda.is_available() "
                 "is false"
             )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev

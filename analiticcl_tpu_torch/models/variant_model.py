@@ -85,12 +85,11 @@ from . import search_fast
 
 # Lookups per device call in search mode. A search unit aims at 95 % of this
 # many unique segments, but that is an estimate from its token count and a
-# unit can reach the card with many more. Stage A's pair compaction unpacks
-# B x band-rows hit bits and runs ``nonzero`` over them: at 16,384 lookups
-# and the full 120,832-row band of a 120k lexicon that is about 2G elements,
-# near INT_MAX and about 2 GB per call. So a unit goes to the card in parts of
-# at most this many lookups; ``RankedResults.concat`` joins the parts, and the
-# results do not change.
+# unit can reach the card with many more. A call's stage-A bitmaps grow with
+# lookups x band rows, and its candidate pairs must fit the top pair budget,
+# past which the batch runs again in halves. So a unit goes to the card in
+# parts of at most this many lookups (the JAX package's largest batch);
+# ``RankedResults.concat`` joins the parts, and the results do not change.
 SEARCH_BATCH = 8192
 # Lookups per device call in strict learn mode (the JAX package's size).
 LEARN_BATCH = 4096

@@ -34,24 +34,21 @@ KERNEL_WINDOWS = (3, 6, 12)
 KERNEL_MAX_LEN = 64  # compile-time cap of the kernel's per-thread arrays
 
 
-def _first_mismatch_len(x, y, minlen):
+def _first_mismatch_len(x, y):
+    """The common prefix length of each row pair: the first column where
+    they differ, or L. Padding never matches (PAD_A against PAD_B or a
+    symbol), so the prefix never runs past the shorter string."""
     L = x.shape[1]
-    big = 2 * L + 8
-    pos = torch.arange(L, dtype=torch.int32, device=x.device)[None, :]
-    mism = (x != y) & (pos < minlen[:, None])
-    first = torch.where(mism, pos, big).amin(dim=1)
-    return torch.where(first == big, minlen, first).to(torch.int32)
+    pos = torch.arange(L, dtype=torch.int32, device=x.device)
+    return torch.where(x != y, pos, L).amin(dim=1)
 
 
 def affix_metrics_aligned(a, a_len, b, b_len, a_rev, b_rev):
     """Common prefix and suffix lengths; ``a_rev``/``b_rev`` are the strings
     reversed and left-aligned, so the suffix is the prefix of the reversed
-    pair."""
-    minlen = torch.minimum(a_len, b_len)
-    return (
-        _first_mismatch_len(a, b, minlen),
-        _first_mismatch_len(a_rev, b_rev, minlen),
-    )
+    pair. Every string is padded past its length (queries with PAD_A,
+    candidates with PAD_B), which bounds both by the shorter length."""
+    return _first_mismatch_len(a, b), _first_mismatch_len(a_rev, b_rev)
 
 
 def _shift_end(x, lens, pad):
@@ -81,7 +78,7 @@ def dl_metrics_windowed_plain(a, a_len, b, b_len, max_len: int, window: int):
     i32 = torch.int32
 
     minlen = torch.minimum(a_len, b_len)
-    prefix = _first_mismatch_len(a, b, minlen)
+    prefix = _first_mismatch_len(a, b)
     a_r = _shift_end(a, a_len, PAD_A)
     b_r = _shift_end(b, b_len, PAD_B)
     pos = torch.arange(L, dtype=i32, device=dev)[None, :]
@@ -160,7 +157,7 @@ def dl_lcs(a, a_len, b, b_len, max_len: int, window: int):
     _check_pairs(a, a_len, b, b_len, max_len)
     if a.device.type == "cpu":
         ld, lcs, _, _ = dl_metrics_windowed_plain(a, a_len, b, b_len, max_len, window)
-        return ld, lcs
+        return ld.to(torch.int32), lcs
     if a.device.type != "cuda":
         raise ValueError(f"dl_lcs: unsupported device {a.device}")
     if window not in KERNEL_WINDOWS:

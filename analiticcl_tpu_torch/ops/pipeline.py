@@ -4,38 +4,54 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
 
 * :func:`query_core` is the counterpart of the fused ``_query_core``, with the
   same inputs (the index arrays in a :class:`~..convert.DeviceIndex`, then the
-  per-batch query arrays) and the same outputs ``o_q, o_c, o_ld, o_lcs, o_pf,
-  o_sf, o_case, max_freq, total_match, total_keep``. Stage A and the DL+LCS
-  DP run in the hand-written kernels (``ops/stage_a.py``, ``ops/dl.py``) on
+  per-batch query arrays), the same pair budgets ``P`` (candidate-pair slots)
+  and ``P2`` (survivor slots), and the same outputs ``o_q, o_c, o_ld, o_lcs,
+  o_pf, o_sf, o_case`` (``[P2]``, unused slots filled with query ``B`` and
+  zeros), ``max_freq, total_match, total_keep``. Stage A and the DL+LCS DP
+  run in the hand-written kernels (``ops/stage_a.py``, ``ops/dl.py``) on
   CUDA tensors; the glue between them is torch ops. It is the composition
   of :func:`query_stage_a` and :func:`query_stage_b`, which a sharded index
   (``parallel/mesh.py``) calls per shard, combining the shards' exact
   counts between them.
+* Pair compaction is the JAX core's slot resolve (:func:`resolve_pairs`):
+  each of the P slots finds its 128-row block by a search over stage A's
+  per-block hit counts, then its byte and bit by popcount prefix sums over
+  the block's 16 bytes of hit bits. Survivors move into the P2 slots by a
+  cumsum and a search (:func:`compact_slots`). A batch whose totals pass
+  its budgets comes back truncated query-major, as in JAX, and is re-run.
+  Nothing between ``submit``'s entry and its return waits for the card.
 * :class:`DevicePipeline` ports the host side: query preparation, the window
-  split, the band plan, and the float64 ranking tail (the native C++ one, or
-  the numpy one).
+  split, the band plan, the sticky pair budgets (overflow escalation, the
+  top-bucket split, de-escalation), the asynchronous submit/collect, and the
+  float64 ranking tail (the native C++ one, or the numpy one). On a CUDA
+  device ``submit`` packs the query arrays into one pinned host buffer and
+  one copy, enqueues the core on the pipeline's own stream, packs its
+  outputs into one byte buffer copied into pinned memory, and returns;
+  ``collect`` waits for the batch's event. Every launch costs host time
+  that the card cannot hide, so the glue is written for few launches. A
+  CPU pipeline runs the same code on the CPU, with no stream and no
+  pinning.
 
 What the JAX version needed for XLA's static shapes on a TPU and the port
-leaves out, because PyTorch runs eagerly and sizes every tensor from the data:
+leaves out:
 
-* the P/P2 pair-budget buckets, their overflow escalation, de-escalation and
-  the cross-process budget-hint file: pair lists are sized from the true
-  totals, so they cannot overflow;
-* the radix block descent and ``_searchsorted_radix`` for pair compaction:
-  the hit bits are unpacked and ``nonzero`` gives the (query, band row) pairs,
-  query-major by construction, as the reference's gather order wants;
-* the single packed int32 output buffer (``_pack_query_out``), built for a
-  per-array transfer cost of the remote TPU;
-* the ``max_B`` batch ceiling, the band-width compile ceiling, the batch
-  split (``_collect_split``) and the band-width buckets: there is no compile
-  step on the card, so a batch runs with its exact band. The one cap left is
-  on memory: a batch whose stage-A hit bits (queries x band rows) pass
+* the cross-process budget-hint file: it saved TPU compiles, and PyTorch
+  compiles nothing per budget;
+* the radix descents of the resolve (``_searchsorted_radix`` and the block
+  descent): ``torch.searchsorted`` is the same search on the card;
+* the packed output buffer's int32 bitcasts and run-length query bounds
+  (``_pack_query_out``): the port packs the outputs' bytes as they are;
+* the ``max_B`` batch ceiling, the band-width compile ceiling with its
+  split, and the band-width buckets: there is no compile step on the card,
+  so a batch runs with its exact band. The one cap left is on memory: a
+  batch whose stage-A hit bits (queries x band rows) pass
   :attr:`DevicePipeline.max_hit_bits` splits into charcount-contiguous
   sub-batches, joined as the window split joins its sub-batches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 from itertools import repeat
@@ -65,8 +81,16 @@ from .stage_a import ROW_BLOCK, _b_tile, stage_a_masks
 
 THRESHOLD_SLACK = 1e-4
 B_BUCKETS = (8, 64, 256, 1024, 2048, 4096, 8192)
+B_BASE = 1024  # batch size the initial pair budgets scale from
+# candidate-pair budgets; a batch over the top one splits (collect)
+P_BUCKETS = (
+    2048, 8192, 32768, 131072, 262144, 393216, 524288, 786432, 1048576,
+    1572864,
+)
+P2_BUCKETS = (2048, 16384, 32768, 49152, 65536, 98304, 131072, 262144)
 # DL exactness windows (12 = reference MAX_EDIT_DISTANCE)
 WINDOW_BUCKETS = (3, 6, 12)
+HIT_BLOCK = 128  # rows per stage-A hit count (counts_t)
 
 
 def _bucket(value: int, buckets: Sequence[int]) -> int:
@@ -111,17 +135,88 @@ def query_planes(index: DeviceIndex, q_counts):
     return torch.nn.functional.pad(qbin.to(torch.int8), (0, pad))
 
 
-def compact_pairs(packed_q, start_blk, Ni_pad: int):
-    """(query, band row, device row) of every stage-A hit, query-major and
-    then in band-row order: the reference's gather order."""
-    B = packed_q.shape[0]
-    shifts = torch.arange(8, dtype=torch.uint8, device=packed_q.device)
-    bits = (packed_q[:, :, None] >> shifts) & 1
-    pairs = torch.nonzero(bits.view(B, -1))
-    pq = pairs[:, 0]
-    pc_band = pairs[:, 1]
-    pc = start_blk.long()[pq // _b_tile(B, Ni_pad)] * ROW_BLOCK + pc_band
-    return pq, pc_band, pc
+_TABLES: dict = {}
+
+
+class _ByteTables(NamedTuple):
+    popcount: torch.Tensor  # float32 [256]: set bits of each byte value
+    select: torch.Tensor  # int64 [256 * 9]: (v * 9 + k) -> k-th set bit
+    upper: torch.Tensor  # float32 [16, 16]: ones on and above the diagonal
+    bit: torch.Tensor  # uint8 [8]: 1 << k
+
+
+def _byte_tables(dev) -> _ByteTables:
+    """Lookup tables over byte values, made on ``dev`` by torch ops (no
+    host copy) and kept. ``select[v * 9 + k]`` is the position of the
+    k-th set bit (k = 1..8) of the byte v, 7 past its last."""
+    tabs = _TABLES.get(dev)
+    if tabs is None:
+        lanes = torch.arange(8, device=dev)
+        bits = (torch.arange(256, device=dev)[:, None] >> lanes) & 1
+        upto = bits.cumsum(1)  # set bits at or below each position
+        k = torch.arange(9, device=dev)
+        select = (upto[:, None, :] < k[None, :, None]).sum(2).clamp(max=7)
+        tabs = _ByteTables(
+            bits.sum(1).float(), select.reshape(-1),
+            torch.ones(16, 16, device=dev).triu(), (1 << lanes).to(torch.uint8),
+        )
+        _TABLES[dev] = tabs
+    return tabs
+
+
+def resolve_pairs(packed_q, counts_t, start_blk, Ni_pad: int, P: int):
+    """The (query, band row, device row) of each of ``P`` pair slots, the
+    validity of each slot, and the hit total: slot ``p`` holds the
+    ``p + 1``-th stage-A hit in query-major, then band-row order, the
+    reference's gather order (the JAX core's resolve,
+    ``analiticcl_tpu/ops/pipeline.py:450-592``).
+
+    The JAX core finds a slot's query by a search over the per-query totals,
+    then its block by a search over that query's block counts. Both collapse
+    into one search over the query-major cumsum of ``counts_t``, whose row
+    ends are the per-query totals. In the block's 16 bytes of hit bits, a
+    matrix product with a triangular matrix gives the popcount prefix sums
+    (exact: small integers), which locate the byte; a table gives the bit.
+    Slots past the total read the last block and are invalid: the JAX core
+    masks their query and row as well, but no output depends on them."""
+    B, nbytes = packed_q.shape
+    M_band = counts_t.shape[0]
+    dev = packed_q.device
+    tabs = _byte_tables(dev)
+    slot = torch.arange(1, P + 1, dtype=torch.int64, device=dev)
+    counts = counts_t.t().reshape(-1)  # [B * M_band], query-major
+    bcum = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = bcum[-1]
+    fb = torch.searchsorted(bcum, slot).clamp_(max=B * M_band - 1)
+    rank = slot - (bcum - counts)[fb]  # 1-based rank within the block
+    row = packed_q.view(B * M_band, HIT_BLOCK // 8)[fb].long()  # [P, 16]
+    pop = tabs.popcount[row]
+    within = pop @ tabs.upper  # inclusive prefix sums of set bits
+    byte = (within < rank[:, None]).sum(1).clamp_(max=HIT_BLOCK // 8 - 1)
+    rank_in_byte = rank - (within - pop).gather(1, byte[:, None])[:, 0]
+    bit = tabs.select[row.gather(1, byte[:, None])[:, 0] * 9
+                      + rank_in_byte.long().clamp_(max=8)]
+    q = fb // M_band
+    pc_band = (fb % M_band) * HIT_BLOCK + byte * 8 + bit
+    row0 = (start_blk.long() * ROW_BLOCK)[q // _b_tile(B, Ni_pad)]
+    return q, pc_band, row0 + pc_band, slot <= total, total
+
+
+def compact_slots(keep, payload, P2: int, fill: int):
+    """Stable compaction of the columns of ``payload`` (``[k, P]``) at the
+    set positions of ``keep`` into ``P2`` slots, the rest zero (the JAX
+    ``_compact``): slot ``j`` takes the first position where the cumsum of
+    ``keep`` reaches ``j + 1``. Row 0 is filled with ``fill`` instead.
+    Returns ``[k, P2]`` and the number of set positions."""
+    n = keep.shape[0]
+    csum = torch.cumsum(keep, 0, dtype=torch.int64)
+    idx = torch.searchsorted(
+        csum, torch.arange(1, P2 + 1, dtype=torch.int64, device=keep.device)
+    )
+    valid = idx < n
+    out = torch.where(valid, payload[:, idx.clamp_(max=n - 1)], 0)
+    out[0] = torch.where(valid, out[0], fill)
+    return out, csum[-1]
 
 
 class PairInputs(NamedTuple):
@@ -132,55 +227,49 @@ class PairInputs(NamedTuple):
     a_rev: torch.Tensor  # reversed, left-aligned query strings
     b_rev: torch.Tensor  # reversed, left-aligned candidate strings
     k_ed: torch.Tensor  # int32 [P] the pair's query edit threshold
-    c_first_lower: torch.Tensor  # bool [P]
-    q_first_lower: torch.Tensor  # bool [P]
+    same_first: torch.Tensor  # bool [P]: both first letters lowercase, or neither
 
 
 def gather_pairs(index: DeviceIndex, q_norms, q_lens, k_ed, q_first_lower,
-                 pq, pc) -> PairInputs:
+                 pq, pc, valid) -> PairInputs:
     """Per-pair strings and attributes, one gather per side: each side's
-    columns are concatenated into one table first (ops/pipeline.py:594-639)."""
+    columns are concatenated into one int32 table first
+    (ops/pipeline.py:594-639). Slots outside ``valid`` get empty strings, as
+    in the JAX core."""
     i32 = torch.int32
     L = index.norms2.shape[1] // 2
-    pos = torch.arange(L, dtype=i32, device=q_norms.device)[None, :]
-    rev_idx = q_lens[:, None] - 1 - pos
-    q_norms_rev = torch.where(
-        rev_idx >= 0, torch.gather(q_norms, 1, rev_idx.clamp(min=0).long()), 0
-    ).to(q_norms.dtype)
-    norms2 = index.norms2
-    tdt = torch.int8 if norms2.dtype == torch.int8 and L < 127 else i32
-    cand_tab = torch.cat(
-        [norms2.to(tdt), index.norm_lens[:, None].to(tdt),
-         index.first_lower[:, None].to(tdt)],
-        1,
-    )
-    cg = cand_tab[pc]
-    cl = cg[:, 2 * L].to(i32)
-    q_tab = torch.cat(
-        [q_norms.to(tdt), q_norms_rev.to(tdt), q_lens[:, None].to(tdt),
-         k_ed[:, None].to(tdt), q_first_lower[:, None].to(tdt)],
-        1,
-    )
-    qg = q_tab[pq]
-    ql = qg[:, 2 * L].to(i32)
+    pos = torch.arange(L, dtype=i32, device=q_norms.device)
+    # reversed query strings; columns past the length are masked below
+    rev = torch.gather(q_norms, 1, (q_lens[:, None] - 1 - pos).clamp_(min=0)
+                       .long())
+    cg = torch.cat(
+        [index.norms2.to(i32), index.norm_lens[:, None],
+         index.first_lower[:, None].to(i32)], 1,
+    )[pc]
+    qg = torch.cat(
+        [q_norms.to(i32), rev.to(i32), q_lens[:, None], k_ed[:, None],
+         q_first_lower[:, None].to(i32)], 1,
+    )[pq]
+    ql = torch.where(valid, qg[:, 2 * L], 0)
+    cl = torch.where(valid, cg[:, 2 * L], 0)
     q_in = pos < ql[:, None]
     c_in = pos < cl[:, None]
     return PairInputs(
-        a=torch.where(q_in, qg[:, :L].to(i32), PAD_A).contiguous(),
+        a=torch.where(q_in, qg[:, :L], PAD_A),
         ql=ql,
-        b=torch.where(c_in, cg[:, :L].to(i32), PAD_B).contiguous(),
+        b=torch.where(c_in, cg[:, :L], PAD_B),
         cl=cl,
-        a_rev=torch.where(q_in, qg[:, L : 2 * L].to(i32), PAD_A),
-        b_rev=torch.where(c_in, cg[:, L : 2 * L].to(i32), PAD_B),
-        k_ed=qg[:, 2 * L + 1].to(i32),
-        c_first_lower=cg[:, 2 * L + 1].bool(),
-        q_first_lower=qg[:, 2 * L + 2].bool(),
+        a_rev=torch.where(q_in, qg[:, L : 2 * L], PAD_A),
+        b_rev=torch.where(c_in, cg[:, L : 2 * L], PAD_B),
+        k_ed=qg[:, 2 * L + 1],
+        same_first=cg[:, 2 * L + 1] == qg[:, 2 * L + 2],
     )
 
 
 class StageA(NamedTuple):
     packed_q: torch.Tensor  # uint8 [B, Nb / 8] hit bits
     exact_q: torch.Tensor  # uint8 [B, Nb / 8] exact-anagram bits
+    counts_t: torch.Tensor  # int32 [Nb / 128, B] hits per 128 band rows
     nmatch: torch.Tensor  # int32 [B] hits per query
     nexact: torch.Tensor  # int32 [B] exact anagrams per query
 
@@ -188,13 +277,11 @@ class StageA(NamedTuple):
 def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,
                   start_blk, nb_band: int) -> StageA:
     """Stage A of :func:`query_core`: banded retrieval (kernel K1) over
-    ``index``'s rows. The per-128-row counts fed the JAX core's radix
-    descent; ``nonzero`` over the unpacked bits needs no counts."""
-    packed_q, exact_q, _counts_t, nmatch, nexact = stage_a_masks(
+    ``index``'s rows."""
+    return StageA(*stage_a_masks(
         index.bins, index.cc, index.validrows, query_planes(index, q_counts),
         q_cc, k_ana, k_len, start_blk, nb_band,
-    )
-    return StageA(packed_q, exact_q, nmatch, nexact)
+    ))
 
 
 def query_core(
@@ -213,18 +300,21 @@ def query_core(
     score_threshold,  # float32 scalar tensor
     *,
     have_freq: bool,
+    P: int,  # candidate-pair slots
+    P2: int,  # survivor slots
     window: int,  # DL exactness window (>= every per-query edit distance)
     nb_band: int,  # band width in ROW_BLOCK blocks
     use_stop_exact: bool = True,
 ):
-    """One batch through stage A, pair compaction, stage B and the f32
+    """One batch through stage A, the slot resolve, stage B and the f32
     pre-filter. Survivors come back in (query, device row) order."""
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
                        nb_band)
     return query_stage_b(
         index, sa, stop_exact & (sa.nexact > 0), q_norms, q_lens,
         q_first_lower, k_ed, start_blk, weights, score_threshold,
-        have_freq=have_freq, window=window, use_stop_exact=use_stop_exact,
+        have_freq=have_freq, P=P, P2=P2, window=window,
+        use_stop_exact=use_stop_exact,
     )
 
 
@@ -236,20 +326,24 @@ def query_stage_b(
     score_threshold,
     *,
     have_freq: bool,
+    P: int,
+    P2: int,
     window: int,
     use_stop_exact: bool = True,
 ):
-    """Stage B of :func:`query_core` over stage A's hits in ``index``: pair
-    compaction, the gathers, DL + LCS (kernel K2), the affixes, the f32
-    score and survivor compaction. ``use_exact`` is separate because under
-    a sharded index it depends on every shard's exact count."""
-    packed_q, exact_q, nmatch = sa.packed_q, sa.exact_q, sa.nmatch
+    """Stage B of :func:`query_core` over stage A's hits in ``index``: the
+    slot resolve at ``P``, the gathers, DL + LCS (kernel K2), the affixes,
+    the f32 score and survivor compaction into ``P2`` slots. ``use_exact``
+    is separate because under a sharded index it depends on every shard's
+    exact count."""
+    packed_q = sa.packed_q
     dev = packed_q.device
     B = packed_q.shape[0]
-    i32 = torch.int32
-    total_match = nmatch.sum()
-    pq, pc_band, pc = compact_pairs(packed_q, start_blk, index.bins.shape[0])
-    pr = gather_pairs(index, q_norms, q_lens, k_ed, q_first_lower, pq, pc)
+    q, pc_band, pc, pvalid, total_match = resolve_pairs(
+        packed_q, sa.counts_t, start_blk, index.bins.shape[0], P
+    )
+    pr = gather_pairs(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
+                      pvalid)
     a, ql, b, cl = pr.a, pr.ql, pr.b, pr.cl
 
     # ---- stage B: DL + LCS (kernel K2), prefix/suffix as torch ops ----
@@ -261,9 +355,7 @@ def query_stage_b(
     lcs = torch.where(w_lcs > 0, lcs, 0)
     pf = torch.where(w_pf > 0, pf, 0)
     sf = torch.where(w_sf > 0, sf, 0)
-    samecase = torch.where(
-        w_case > 0, pr.c_first_lower == pr.q_first_lower, True
-    )
+    samecase = torch.where(w_case > 0, pr.same_first, True)
     qlen_f = ql.clamp(min=1).to(torch.float32)
     ds = torch.where(ld > ql, 0.0, 1.0 - ld.to(torch.float32) / qlen_f)
     score = (
@@ -274,48 +366,87 @@ def query_stage_b(
         + torch.where(samecase, w_case, 0.0)
     ) / w_sum
 
-    pass_ed = ld <= pr.k_ed
+    pass_ed = pvalid & (ld <= pr.k_ed)
     if use_stop_exact:
         # StopAtExactMatch (lib.rs:1158-1174): queries with an exact anagram
         # keep only their exact pairs
-        eb = exact_q[pq, pc_band // 8].to(i32)
-        pair_exact = ((eb >> (pc_band % 8).to(i32)) & 1) == 1
-        pass_ed = pass_ed & (~use_exact[pq] | pair_exact)
+        bit = _byte_tables(dev).bit[pc_band & 7]
+        pair_exact = (sa.exact_q[q, pc_band >> 3] & bit) != 0
+        pass_ed = pass_ed & (~use_exact[q] | pair_exact)
     keep = pass_ed & (score >= score_threshold - THRESHOLD_SLACK)
 
     # the normalization max runs over every pair within the edit threshold,
-    # also those below the score threshold (lib.rs:1455-1476); exact int64
+    # also those below the score threshold (lib.rs:1455-1476); exact int64.
+    # Slots outside ``pass_ed`` add 0, the initial value.
     if have_freq:
-        cf = index.freqs[pc]
         max_freq = torch.zeros(B, dtype=torch.int64, device=dev).scatter_reduce(
-            0, pq, torch.where(pass_ed, cf, 0), "amax"
+            0, q, torch.where(pass_ed, index.freqs[pc], 0), "amax"
         )
     else:
         max_freq = torch.ones(B, dtype=torch.int64, device=dev)
-    total_keep = keep.sum()
 
-    # ---- survivor compaction, order kept ----
-    kidx = torch.nonzero(keep).squeeze(1)
-    o_q = pq[kidx].to(i32)
-    o_c = pc[kidx].to(i32)
-    o_ld, o_lcs, o_pf, o_sf = (x[kidx] for x in (ld, lcs, pf, sf))
-    if a.shape[1] < 256:  # kept pairs: ld <= 12, lcs/prefix/suffix <= L
-        o_ld = o_ld.clamp(max=255).to(torch.uint8)
-        o_lcs, o_pf, o_sf = (x.to(torch.uint8) for x in (o_lcs, o_pf, o_sf))
-    o_case = samecase[kidx].to(torch.uint8)
-    return (
-        o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case,
-        max_freq, total_match, total_keep,
+    # ---- survivor compaction into P2 slots, order kept; unused slots hold
+    # query B and zeros ----
+    out, total_keep = compact_slots(
+        keep, torch.stack([q.to(torch.int32), pc.to(torch.int32), ld, lcs, pf,
+                           sf, samecase.to(torch.int32)]), P2, B,
     )
+    # kept pairs have ld <= 12 and lcs/prefix/suffix <= L: uint8 below L 256
+    met = out[2:].to(torch.uint8) if a.shape[1] < 256 else out[2:]
+    return (
+        out[0], out[1], *met.unbind(), max_freq, total_match, total_keep,
+    )
+
+
+def _pack(tensors):
+    """One flat byte tensor holding ``tensors``, widest dtype first so that
+    every piece stays aligned, and the layout :func:`_unpack` reads it
+    back with: one copy moves them all."""
+    order = sorted(range(len(tensors)),
+                   key=lambda i: -tensors[i].element_size())
+    flat = torch.cat([tensors[i].reshape(-1).view(torch.uint8)
+                      for i in order])
+    return flat, [(i, tensors[i].dtype, tuple(tensors[i].shape))
+                  for i in order]
+
+
+def _unpack(flat, layout) -> list:
+    """The tensors :func:`_pack` packed into ``flat``, as views of it."""
+    out = [None] * len(layout)
+    off = 0
+    for i, dtype, shape in layout:
+        n = int(np.prod(shape)) * dtype.itemsize
+        out[i] = flat[off : off + n].view(dtype).view(shape)
+        off += n
+    return out
+
+
+class Fetched(NamedTuple):
+    """A collected batch's outputs on the host."""
+
+    cols: tuple  # o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case: valid slots
+    max_freq: np.ndarray  # uint32 [B]
+    total_match: int  # stage-A hits (summed over shards)
+    total_keep: int  # f32-filter survivors (summed over shards)
+    peak_match: int  # the largest hit total of one core call: against P
+    peak_keep: int  # the largest survivor total of one core call: against P2
 
 
 class DevicePipeline:
     """A built model's index on one device, and the batched query over it."""
 
-    # Largest B x band rows of one query_core call: pair compaction unpacks
-    # every hit bit to a byte (1 GiB here), and torch.nonzero counts them
-    # in int32. Larger batches split (``prepare``).
+    # Largest B x band rows of one query_core call: stage A writes two
+    # bitmaps of that many bits (128 MiB each here) and the slot resolve a
+    # cumsum over its 128-row blocks (64 MiB of int64). Larger batches split
+    # (``prepare``).
     max_hit_bits = 1 << 30
+
+    # K2 and the gathers run over all P slots, so an escalated budget taxes
+    # every later batch. After DEESC_N collected batches of one batch size,
+    # budgets step down to the bucket of the window's largest totals with
+    # DEESC_MARGIN headroom where that is lower.
+    DEESC_N = 6
+    DEESC_MARGIN = 1.3
 
     def __init__(self, model, device):
         self.model = model
@@ -332,6 +463,8 @@ class DevicePipeline:
             lay.bins, lay.cc, lay.validrows, lay.norms2, lay.norm_lens,
             lay.freqs, lay.first_lower, self.device,
         )
+        self._init_async([self.device], model.index.size)
+        self._share_with_stream(self.index)
         self._refresh_variant_flags()
         self.stats = StageTimer()
         # stage-A hits and f32-filter survivors summed over collected batches
@@ -340,6 +473,34 @@ class DevicePipeline:
         # (text, params) -> oracle results for over-long queries; cleared
         # whenever frequencies refresh (freq_score is part of the results)
         self._oracle_memo: dict = {}
+
+    def _init_async(self, devices, budget_rows: int) -> None:
+        """The sticky budgets (sized from ``budget_rows`` index rows per
+        core call) and, on CUDA, one stream per device for the pipeline's
+        device work."""
+        self._budget_rows = budget_rows
+        self._P_by_B: dict = {}
+        self._P2_by_B: dict = {}
+        self._obs_max: dict = {}
+        self._obs_n: dict = {}
+        self._streams = {
+            d: torch.cuda.Stream(d) for d in set(devices) if d.type == "cuda"
+        }
+        self.stream = self._streams.get(self.device)
+
+    def _on(self, dev):
+        """The context that makes the pipeline's stream on ``dev`` current."""
+        s = self._streams.get(dev)
+        return torch.cuda.stream(s) if s is not None else contextlib.nullcontext()
+
+    def _share_with_stream(self, idx: DeviceIndex) -> None:
+        """Index tensors are made on the default stream and read on the
+        pipeline's: their memory is reused only after the pipeline's stream
+        is done with them."""
+        s = self._streams.get(idx.bins.device)
+        if s is not None:
+            for t in idx[:7]:
+                t.record_stream(s)
 
     def _refresh_variant_flags(self, linked=None) -> None:
         """Rows whose vocab entries carry variant links take the exact
@@ -383,6 +544,7 @@ class DevicePipeline:
         self.index = self.index._replace(
             freqs=torch.from_numpy(freqs).to(self.device)
         )
+        self._share_with_stream(self.index)
         self._refresh_variant_flags(linked)
         self._oracle_memo.clear()
 
@@ -398,12 +560,12 @@ class DevicePipeline:
         ranked: bool = False,
     ):
         """Yields one result list per input batch, in order, keeping up to
-        ``depth`` submitted batches ahead of the one being ranked.
-        :func:`query_core` synchronises with the card at its ``nonzero``
-        calls, so a submitted batch has run by the time ``submit`` returns:
-        the host tail does not yet overlap device work. With ``ranked``,
-        batches that complete through the native tail yield
-        :class:`RankedResults` instead of eager lists; callers handle both."""
+        ``depth`` submitted batches ahead of the one being ranked. On a CUDA
+        pipeline ``submit`` returns before the card has run its batch, so
+        from depth 1 the card runs the next batches while the host prepares
+        and ranks this one. With ``ranked``, batches that complete through
+        the native tail yield :class:`RankedResults` instead of eager lists;
+        callers handle both."""
         pending: List = []
         for batch in batches:
             st = self.submit(batch, params)
@@ -415,22 +577,122 @@ class DevicePipeline:
             yield self.collect(pending.pop(0))
 
     def submit(self, inputs: Sequence[str], params: SearchParameters):
-        """Host prep and the device call; pair with :meth:`collect`."""
+        """Host prep, then the device call enqueued at the batch size's
+        sticky budgets; on a CUDA pipeline nothing in it waits for the card.
+        Pair with :meth:`collect`."""
         state = self.prepare(inputs, params)
         if "args" in state:
-            with self.stats.stage("device"):
-                state["out"] = self._query(
-                    state["args"], state["window"], state["nb_band"],
-                    state["use_stop_exact"],
-                )
+            with self.stats.stage("dispatch"):
+                P, P2 = self._budgets(state["B"])
+                state["submit_P"], state["submit_P2"] = P, P2
+                state["out"] = self._dispatch(state, P, P2)
         return state
 
-    def _query(self, args, window: int, nb_band, use_stop_exact: bool):
-        """The device call of one prepared batch."""
-        return query_core(
-            self.index, *args, have_freq=bool(self.model.have_freq),
-            window=window, nb_band=nb_band, use_stop_exact=use_stop_exact,
+    def _dispatch(self, state, P: int, P2: int):
+        """Enqueue a prepared batch's device call at budgets (P, P2) and the
+        copies of its outputs to the host: ``(host outputs per core call,
+        events)``. On CUDA each device's work runs on the pipeline's stream
+        there, after what the caller's stream has enqueued (index uploads,
+        :meth:`refresh_freqs`); the outputs land in pinned buffers, and the
+        events fire once they have. On the CPU it runs at once."""
+        for dev, s in self._streams.items():
+            s.wait_stream(torch.cuda.current_stream(dev))
+        with self._on(self.device):
+            parts = self._query(
+                state["args"], state["window"], state["nb_band"],
+                state["use_stop_exact"], P, P2,
+            )
+            host = []
+            for dev, outs in parts:
+                with self._on(dev):
+                    flat, layout = _pack(outs)
+                    if dev.type == "cuda":
+                        flat = torch.empty(
+                            flat.shape, dtype=torch.uint8, pin_memory=True
+                        ).copy_(flat, non_blocking=True)
+                host.append((flat, layout))
+        streams = dict.fromkeys(
+            self._streams[dev] for dev, _ in parts if dev in self._streams
         )
+        return host, [s.record_event() for s in streams]
+
+    def _query(self, args, window: int, nb_band, use_stop_exact: bool,
+               P: int, P2: int):
+        """The device calls of one prepared batch: ``[(device, outputs)]``."""
+        return [(self.device, query_core(
+            self.index, *args, have_freq=bool(self.model.have_freq), P=P,
+            P2=P2, window=window, nb_band=nb_band,
+            use_stop_exact=use_stop_exact,
+        ))]
+
+    def _upload(self, arrays):
+        """The query arrays on the pipeline's device in one copy: packed
+        into one host buffer (pinned on CUDA, copied without waiting, on the
+        pipeline's stream; the caching host allocator reuses a pinned block
+        only after its copy has run), then viewed on the device."""
+        flat, layout = _pack([torch.from_numpy(x) for x in arrays])
+        if self.stream is not None:
+            flat = torch.empty(
+                flat.shape, dtype=torch.uint8, pin_memory=True
+            ).copy_(flat)
+        with self._on(self.device):
+            return tuple(_unpack(flat.to(self.device, non_blocking=True),
+                                 layout))
+
+    def _fetch(self, out, B: int, P2: int) -> Fetched:
+        """Wait for a dispatched batch (the ``device`` stage) and read its
+        outputs (``device_get``)."""
+        host, events = out
+        with self.stats.stage("device"):
+            for ev in events:
+                ev.synchronize()
+        with self.stats.stage("device_get"):
+            return self._finalize(
+                [_unpack(flat, layout) for flat, layout in host], B, P2
+            )
+
+    def _budgets(self, B: int) -> Tuple[int, int]:
+        """Sticky (P, P2) pair budgets for batch size ``B``, set at first
+        use: on the card from the index rows per core call, as the JAX
+        pipeline sizes them off the CPU; on the CPU at the smallest
+        buckets."""
+        if B not in self._P_by_B:
+            if self.device.type == "cuda":
+                scale = max(1, B // B_BASE)
+                self._P_by_B[B] = _bucket(
+                    max(P_BUCKETS[0], (self._budget_rows // 2) * scale),
+                    P_BUCKETS,
+                )
+                self._P2_by_B[B] = _bucket(12288 * scale, P2_BUCKETS)
+            else:
+                self._P_by_B[B] = P_BUCKETS[0]
+                self._P2_by_B[B] = P2_BUCKETS[0]
+        return self._P_by_B[B], self._P2_by_B[B]
+
+    def _deesc_reset(self, B: int) -> None:
+        self._obs_max[B] = (0, 0)
+        self._obs_n[B] = 0
+
+    def _observe_totals(self, B: int, total_match: int,
+                        total_keep: int) -> None:
+        """Count a collected batch into ``B``'s de-escalation window."""
+        m, k = self._obs_max.get(B, (0, 0))
+        self._obs_max[B] = (max(m, total_match), max(k, total_keep))
+        self._obs_n[B] = self._obs_n.get(B, 0) + 1
+        if self._obs_n[B] < self.DEESC_N:
+            return
+        m, k = self._obs_max[B]
+        self._deesc_reset(B)
+        P, P2 = self._budgets(B)
+        P_new = _bucket(
+            max(int(m * self.DEESC_MARGIN), P_BUCKETS[0]), P_BUCKETS
+        )
+        P2_new = _bucket(
+            max(int(k * self.DEESC_MARGIN), P2_BUCKETS[0]), P2_BUCKETS
+        )
+        if P_new < P or P2_new < P2:
+            self._P_by_B[B] = min(P, P_new)
+            self._P2_by_B[B] = min(P2, P2_new)
 
     def _batch_rows(self, n: int) -> int:
         """Padded batch size for ``n`` active queries."""
@@ -551,14 +813,11 @@ class DevicePipeline:
         )
         window = _bucket(int(k_ed.max(initial=0)), WINDOW_BUCKETS)
         use_se = params.stop_criterion is StopCriterion.STOP_AT_EXACT_MATCH
-        args = tuple(
-            torch.from_numpy(x).to(self.device)
-            for x in (
-                q_counts, q_cc, q_norms, q_lens, q_first_lower, k_ana, k_ed,
-                k_len, stop_exact, start_blk, weights_arr,
-                np.asarray(params.score_threshold, dtype=np.float32),
-            )
-        )
+        args = self._upload((
+            q_counts, q_cc, q_norms, q_lens, q_first_lower, k_ana, k_ed,
+            k_len, stop_exact, start_blk, weights_arr,
+            np.asarray(params.score_threshold, dtype=np.float32),
+        ))
         prep_cm.__exit__(None, None, None)
         return {
             "results": results, "active": active, "inputs": inputs,
@@ -605,15 +864,35 @@ class DevicePipeline:
         np.maximum(start, 0, out=start)
         return start, nb_band
 
-    def _finalize(self, out):
-        """Device outputs as numpy; ``max_freq`` as the uint32 floors the
-        native tail reads."""
-        (o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case,
-         max_freq, total_match, total_keep) = (t.cpu().numpy() for t in out)
-        return (
-            o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case,
-            max_freq.astype(np.uint32), int(total_match), int(total_keep),
+    def _finalize(self, host, B: int, P2: int) -> Fetched:
+        """A batch's outputs on the host as numpy, cut to the valid survivor
+        slots; ``max_freq`` as the uint32 floors the native tail reads."""
+        (*cols, max_freq, total_match, total_keep) = (
+            t.numpy() for t in host[0]
         )
+        m, k = int(total_match), int(total_keep)
+        n = min(k, P2)
+        return Fetched(tuple(x[:n] for x in cols), max_freq.astype(np.uint32),
+                       m, k, m, k)
+
+    def _collect_split(self, state) -> List[List[VariantResult]]:
+        """A batch over the top budgets: run it again in halves (each half
+        submitted and collected in turn), and a single query through the
+        host oracle, so that no candidate list is ever truncated."""
+        results = state["results"]
+        active = state["active"]
+        inputs = state["inputs"]
+        params = state["params"]
+        texts = [inputs[i] for i in active]
+        if len(active) == 1:
+            sub = [self.model._find_variants_oracle(texts[0], params)]
+        else:
+            mid = len(active) // 2
+            sub = self.collect(self.submit(texts[:mid], params))
+            sub += self.collect(self.submit(texts[mid:], params))
+        for i, r in zip(active, sub):
+            results[i] = r
+        return [r if r is not None else [] for r in results]
 
     def _native_obj_instances(
         self, row, perm, nbounds, o_c_dev, o_ld, o_lcs, o_pf, o_sf, o_case,
@@ -710,11 +989,43 @@ class DevicePipeline:
         q_lens = state["q_lens"]
         model = self.model
 
-        with self.stats.stage("device_get"):
-            (
-                o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case,
-                max_freq, total_match, total_keep,
-            ) = self._finalize(state["out"])
+        got = self._fetch(state["out"], B, state["submit_P2"])
+        # compare with the budgets THIS batch ran with: under a stream, a
+        # de-escalation between its submit and collect is no overflow
+        P, P2 = state["submit_P"], state["submit_P2"]
+        while True:
+            overflowed = False
+            if got.peak_match > P and P < P_BUCKETS[-1]:
+                self._P_by_B[B] = max(
+                    self._P_by_B[B], _bucket(got.peak_match, P_BUCKETS)
+                )
+                overflowed = True
+            if got.peak_keep > P2 and P2 < P2_BUCKETS[-1]:
+                self._P2_by_B[B] = max(
+                    self._P2_by_B[B], _bucket(got.peak_keep, P2_BUCKETS)
+                )
+                overflowed = True
+            if not overflowed:
+                if got.peak_match > P or got.peak_keep > P2:
+                    # over the top buckets: the outputs are truncated
+                    # query-major and are never ranked
+                    print(
+                        f"WARNING: pair budget overflow ({got.peak_match} "
+                        f"matches / {got.peak_keep} kept at P={P}/P2={P2}); "
+                        f"splitting batch",
+                        file=sys.stderr,
+                    )
+                    return self._collect_split(state)
+                break
+            self._deesc_reset(B)
+            P, P2 = self._budgets(B)
+            with self.stats.stage("dispatch"):
+                out = self._dispatch(state, P, P2)
+            got = self._fetch(out, B, P2)
+        self._observe_totals(B, got.peak_match, got.peak_keep)
+        o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case = got.cols
+        max_freq = got.max_freq
+        total_match, total_keep = got.total_match, got.total_keep
         self.candidates += total_match
         self.survivors += total_keep
 

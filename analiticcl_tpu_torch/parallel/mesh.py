@@ -20,17 +20,22 @@ shards' per-query exact-anagram counts, and then stage B
 global count. The JAX mesh runs the whole core per shard, so under
 StopAtExactMatch a shard without an exact anagram of a query keeps every
 pair within the edit threshold (ROADMAP F8); here the sum repairs that. The
-shards' survivors are merged on the host (device rows and query rows made
-global, the frequency maximum taken over the shards), and the ranking tails
-run unchanged. ``refresh_freqs`` also refreshes the variant flags, which
-the JAX mesh leaves stale.
+shards' survivors are merged on the host in ``collect`` (device rows and
+query rows made global, the frequency maximum taken over the shards), and
+the ranking tails run unchanged. ``refresh_freqs`` also refreshes the
+variant flags, which the JAX mesh leaves stale.
 
-What stays behind (ROADMAP P9): the ``_sharded_fn`` jit cache, the P/P2
-pair budgets with their hint keys, the band-width buckets, sticky widths
-and compile ceilings (each shard's band is exact here), the 2048-row pad
-unit, and the packed per-shard output buffer with its unpacking. Shard calls
-run one after another: ``query_stage_a``/``query_stage_b`` synchronise at
-their ``nonzero`` calls (ROADMAP P4).
+Budgets are the JAX mesh's: sticky (P, P2) per batch size for every shard
+call, sized on the card from the shard's rows, held against the largest
+shard's totals, and on overflow the whole mesh call runs again at the new
+budget (``DevicePipeline.collect``). Every shard call is enqueued on its
+device's stream without waiting for the card, and its outputs are copied
+into pinned host buffers there.
+
+What stays behind (ROADMAP P9): the ``_sharded_fn`` jit cache, the budget
+hint keys, the band-width buckets, sticky widths and compile ceilings (each
+shard's band is exact here), the 2048-row pad unit, and the packed
+per-shard output buffer with its unpacking.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
 from ..device import resolve_device
 from ..ops.pipeline import (
-    DevicePipeline, _batch_rows, query_stage_a, query_stage_b,
+    DevicePipeline, Fetched, _batch_rows, query_stage_a, query_stage_b,
 )
 from ..ops.stage_a import ROW_BLOCK, _b_tile
 from ..utils.profiling import StageTimer
@@ -133,6 +138,9 @@ class ShardedPipeline(DevicePipeline):
                     self._copies[key] = index_tensors_from_numpy(
                         *(c[s] for c in cols), key[1]
                     )
+        self._init_async(list(self.mesh.devices.flat), self.Ni_shard)
+        for idx in self._copies.values():
+            self._share_with_stream(idx)
         self._refresh_variant_flags()
         self.stats = StageTimer()
         self.candidates = 0
@@ -159,6 +167,7 @@ class ShardedPipeline(DevicePipeline):
             self._copies[(s, dev)] = idx._replace(
                 freqs=torch.from_numpy(freqs[s]).to(dev)
             )
+            self._share_with_stream(self._copies[(s, dev)])
         self._refresh_variant_flags(linked)
         self._oracle_memo.clear()
 
@@ -180,7 +189,7 @@ class ShardedPipeline(DevicePipeline):
         every row whose charcount is within their queries' bands (as
         :meth:`DevicePipeline._band_plan` does for one index) with windows
         of ``nb_band[d, s]`` blocks. The tile is ``_b_tile`` of the row's
-        batch and the shard's rows, as ``compact_pairs`` computes it."""
+        batch and the shard's rows, as ``resolve_pairs`` computes it."""
         B_local = B // self.n_dp
         bt = _b_tile(B_local, self.Ni_shard)
         nqt = B_local // bt
@@ -203,10 +212,12 @@ class ShardedPipeline(DevicePipeline):
             nb_band[:, s] = nb
         return starts, nb_band
 
-    def _query(self, args, window: int, nb_band, use_stop_exact: bool):
+    def _query(self, args, window: int, nb_band, use_stop_exact: bool,
+               P: int, P2: int):
         """Per mesh row: stage A on every shard, the shards' exact counts
-        summed, stage B on every shard. Returns the per-shard outputs,
-        ``[n_dp][n_lex]``, for :meth:`_finalize` to merge."""
+        summed, stage B on every shard at budgets (P, P2), each on its
+        device's stream. Returns ``[(device, outputs)]`` mesh row by mesh
+        row, shard by shard, for :meth:`_finalize` to merge."""
         (q_counts, q_cc, q_norms, q_lens, q_first_lower, k_ana, k_ed, k_len,
          stop_exact, start_blk, weights, score_threshold) = args
         have_freq = bool(self.model.have_freq)
@@ -218,56 +229,64 @@ class ShardedPipeline(DevicePipeline):
             for s in range(self.n_lex):
                 idx = self.shard(d, s)
                 dev = idx.bins.device
-                (qc, qcc, qn, ql, qf, ka, ke, kl, blk, w, thr) = (
-                    x.to(dev) for x in (
-                        q_counts[rows], q_cc[rows], q_norms[rows],
-                        q_lens[rows], q_first_lower[rows], k_ana[rows],
-                        k_ed[rows], k_len[rows], start_blk[d, s], weights,
-                        score_threshold,
+                with self._on(dev):
+                    (qc, qcc, qn, ql, qf, ka, ke, kl, blk, w, thr) = (
+                        x.to(dev, non_blocking=True) for x in (
+                            q_counts[rows], q_cc[rows], q_norms[rows],
+                            q_lens[rows], q_first_lower[rows], k_ana[rows],
+                            k_ed[rows], k_len[rows], start_blk[d, s],
+                            weights, score_threshold,
+                        )
                     )
-                )
-                shard_args.append((idx, qn, ql, qf, ke, blk, w, thr))
-                stage_a.append(query_stage_a(
-                    idx, qc, qcc, ka, kl, blk, int(nb_band[d, s])
-                ))
+                    shard_args.append((idx, qn, ql, qf, ke, blk, w, thr))
+                    stage_a.append(query_stage_a(
+                        idx, qc, qcc, ka, kl, blk, int(nb_band[d, s])
+                    ))
             # a query keeps only its exact anagrams when ANY shard holds one
-            nexact = sum(sa.nexact.to(self.device) for sa in stage_a)
+            nexact = sum(sa.nexact.to(self.device, non_blocking=True)
+                         for sa in stage_a)
             use_exact = stop_exact[rows] & (nexact > 0)
-            out.append([
-                query_stage_b(
-                    idx, sa, use_exact.to(idx.bins.device), qn, ql, qf, ke,
-                    blk, w, thr, have_freq=have_freq, window=window,
-                    use_stop_exact=use_stop_exact,
-                )
-                for (idx, qn, ql, qf, ke, blk, w, thr), sa
-                in zip(shard_args, stage_a)
-            ])
+            for (idx, qn, ql, qf, ke, blk, w, thr), sa in zip(shard_args,
+                                                              stage_a):
+                dev = idx.bins.device
+                with self._on(dev):
+                    out.append((dev, query_stage_b(
+                        idx, sa, use_exact.to(dev, non_blocking=True), qn, ql,
+                        qf, ke, blk, w, thr, have_freq=have_freq, P=P, P2=P2,
+                        window=window, use_stop_exact=use_stop_exact,
+                    )))
         return out
 
-    def _finalize(self, out):
+    def _finalize(self, host, B: int, P2: int) -> Fetched:
         """The shards' survivors as one set of host arrays: query rows
         offset by their mesh row's first query, device rows by their shard's
         first row (``_canon_of``'s shard-major layout); the frequency
-        maximum taken over the shards of a mesh row; the totals summed."""
+        maximum taken over the shards of a mesh row; the totals summed, and
+        their largest per shard call kept for the budgets."""
         parts, max_freq = [], []
-        total_match = total_keep = 0
-        for d, shards in enumerate(out):
-            mf = None
-            for s, res in enumerate(shards):
-                (o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case, m_f, n_m,
-                 n_k) = (t.cpu().numpy() for t in res)
-                o_q += d * m_f.shape[0]
-                o_c += s * self.Ni_shard
-                parts.append((o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case))
-                mf = m_f if mf is None else np.maximum(mf, m_f)
-                total_match += int(n_m)
-                total_keep += int(n_k)
-            max_freq.append(mf)
-        cols = [np.concatenate(c) for c in zip(*parts)]
-        return (
-            *cols, np.concatenate(max_freq).astype(np.uint32),
-            total_match, total_keep,
-        )
+        total_match = total_keep = peak_match = peak_keep = 0
+        B_local = B // self.n_dp
+        for k, res in enumerate(host):
+            d, s = divmod(k, self.n_lex)
+            (o_q, o_c, o_ld, o_lcs, o_pf, o_sf, o_case, m_f, n_m,
+             n_k) = (t.numpy() for t in res)
+            n_m, n_k = int(n_m), int(n_k)
+            n = min(n_k, P2)
+            o_q = o_q[:n] + d * B_local
+            o_c = o_c[:n] + s * self.Ni_shard
+            parts.append((o_q, o_c, *(x[:n] for x in (
+                o_ld, o_lcs, o_pf, o_sf, o_case))))
+            if s == 0:
+                max_freq.append(m_f)
+            else:
+                max_freq[-1] = np.maximum(max_freq[-1], m_f)
+            total_match += n_m
+            total_keep += n_k
+            peak_match = max(peak_match, n_m)
+            peak_keep = max(peak_keep, n_k)
+        cols = tuple(np.concatenate(c) for c in zip(*parts))
+        return Fetched(cols, np.concatenate(max_freq).astype(np.uint32),
+                       total_match, total_keep, peak_match, peak_keep)
 
 
 def get_sharded_pipeline(model, mesh: Optional[Mesh] = None) -> ShardedPipeline:

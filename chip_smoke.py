@@ -93,8 +93,10 @@ K1_DIRECT = ((8, 32_768, 4), (64, 32_768, 8), (8192, 32_768, 8),
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 FP32_OPS_PER_S = 67e12  # non-tensor 32-bit arithmetic
-STAGES = ("search_prepare", "host_prep", "device", "device_get", "host_tail",
-          "search_consolidate", "host_oracle_fallback")
+STAGES = ("search_prepare", "host_prep", "dispatch", "device", "device_get",
+          "host_tail", "search_consolidate", "host_oracle_fallback")
+BATCH_CUT = 1024  # batches of the cut-bucket run (one batch size, B=1024)
+N_LIGHT = 300  # queries of each light batch of the cut-bucket run
 
 
 def log(msg: str) -> None:
@@ -299,29 +301,56 @@ def k1_bound_ms(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
-def k2_main_pairs(pipe, queries, params):
-    """The (query, candidate) pairs of the main path's first batch of
-    ``queries`` (stage A on the card, then the pair compaction and gathers
-    of ``query_core``), repeated to TARGET_PAIRS: ``(a, al, b, bl)`` and
-    the number of distinct pairs."""
-    from analiticcl_tpu_torch.ops.pipeline import (
-        compact_pairs, gather_pairs, query_planes,
-    )
-    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+def prepared(pipe, lookups, params):
+    """``pipe.prepare`` of ``lookups``, its uploads finished: they run on
+    the pipeline's stream, and the caller reads them on the default one
+    (which the allocator is told, so their memory outlives that use)."""
+    import torch
 
-    st = pipe.prepare(queries[:BATCH], params)
+    st = pipe.prepare(lookups, params)
+    torch.cuda.synchronize()
+    for t in st.get("args", ()):
+        t.record_stream(torch.cuda.current_stream())
+    return st
+
+
+def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
+                  start_blk):
+    """K2's input as ``query_stage_b`` builds it from stage A's outputs
+    ``sa``: the slot resolve at the budget a batch of size ``B`` runs with
+    (the sticky budget, escalated to cover these hits as ``collect``
+    escalates it), then the gathers. Returns the pair inputs, P and the
+    valid slots."""
+    from analiticcl_tpu_torch.ops import pipeline as ppl
+
+    total = int(sa.nmatch.sum())
+    P = max(pipe._budgets(B)[0], ppl._bucket(total, ppl.P_BUCKETS))
+    q, _pcb, pc, valid, _total = ppl.resolve_pairs(
+        sa.packed_q, sa.counts_t, start_blk, idx.bins.shape[0], P)
+    pr = ppl.gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
+    return pr, P, min(total, P)
+
+
+def k2_main_pairs(pipe, queries, params):
+    """The main path's first batch of ``queries`` as K2 gets it (stage A on
+    the card, then the slot resolve and gathers of ``query_core`` at the
+    batch's budget): its P slots ``(a, al, b, bl)`` with the number of valid
+    ones, and its distinct pairs repeated to TARGET_PAIRS."""
+    from analiticcl_tpu_torch.ops.pipeline import query_stage_a
+
+    st = prepared(pipe, queries[:BATCH], params)
     (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
      start_blk, _w, _thr) = st["args"]
     idx = pipe.index
-    got = stage_a_masks(idx.bins, idx.cc, idx.validrows,
-                        query_planes(idx, q_counts), q_cc, k_ana, k_len,
-                        start_blk, st["nb_band"])
-    pq, _pcb, pc = compact_pairs(got[0], start_blk, pipe.Ni_pad)
-    pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
-    reps = -(-TARGET_PAIRS // max(1, pr.a.shape[0]))
-    pairs = tuple(x.repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
-                  .contiguous() for x in (pr.a, pr.ql, pr.b, pr.cl))
-    return pairs, pr.a.shape[0]
+    sa = query_stage_a(idx, q_counts, q_cc, k_ana, k_len, start_blk,
+                       st["nb_band"])
+    pr, P, n = stage_b_slots(pipe, idx, sa, st["B"], q_norms, q_lens, k_ed,
+                             q_fl, start_blk)
+    slots = tuple(x.contiguous() for x in (pr.a, pr.ql, pr.b, pr.cl))
+    reps = -(-TARGET_PAIRS // max(1, n))
+    pairs = tuple(x[:n].repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
+                  .contiguous() for x in slots)
+    return pairs, n, slots, P
 
 
 def k2_instance(L: int):
@@ -417,7 +446,8 @@ def profile_pass(fn) -> str:
                   reverse=True)
     top = "; ".join(f"{k[:60]} {v:.3f} ms" for v, k in rest[:8])
     return (f"profile: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms, "
-            f"idle share {1 - busy / (wall * 1e3):.4f}; K1 stage_a "
+            f"idle share {1 - busy / (wall * 1e3):.4f}, {len(spans)} device "
+            f"ops; K1 stage_a "
             f"{k1:.3f} ms, K2 dl_lcs {k2:.3f} ms, other device ops "
             f"{sum(v for v, _ in rest):.3f} ms in {len(rest)} kinds: {top}")
 
@@ -431,14 +461,12 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     import torch
 
     from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_metrics_windowed_plain
-    from analiticcl_tpu_torch.ops.pipeline import (
-        compact_pairs, gather_pairs, query_planes,
-    )
+    from analiticcl_tpu_torch.ops.pipeline import StageA, query_planes
     from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
     from analiticcl_tpu_torch.parallel.mesh import ShardedPipeline
 
     t0 = time.perf_counter()
-    st = pipe.prepare(lookups, params)
+    st = prepared(pipe, lookups, params)
     if "args" not in st:
         raise SystemExit(f"{name}: the kernel check batch did not form one "
                          "device batch")
@@ -460,9 +488,9 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     a_args = (idx.bins, idx.cc, idx.validrows, query_planes(idx, q_counts),
               q_cc, k_ana, k_len, start_blk, nb_band)
     hold_k1(*a_args)
-    got = stage_a_masks(*a_args)
-    pq, _pcb, pc = compact_pairs(got[0], start_blk, idx.bins.shape[0])
-    pr = gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, pq, pc)
+    sa = StageA(*stage_a_masks(*a_args))
+    pr, P, n_valid = stage_b_slots(pipe, idx, sa, st["B"], q_norms, q_lens,
+                                   k_ed, q_fl, start_blk)
     W = st["window"]
     ld, lcs = dl_lcs(pr.a, pr.ql, pr.b, pr.cl, pipe.L, W)
     ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(
@@ -475,8 +503,136 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     pipe._oracle_memo.clear()  # the timed run meets over-long segments anew
     log(f"{name} kernels: K1 bit-identical to plain on B={q_lens.shape[0]}"
         f"{where} ({len(st['active'])} device lookups of {len(lookups)}, "
-        f"band {nb_band * 1024} rows); K2 equal to plain at W={W} on "
-        f"{pr.a.shape[0]} pairs ({time.perf_counter() - t0:.2f} s)")
+        f"band {nb_band * 1024} rows); K2 equal to plain at W={W} on the "
+        f"budget's P={P} slots, {n_valid} valid "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def sync_free_submit(name: str, pipe, lookups, params, card: str) -> None:
+    """A warm ``submit`` of ``lookups`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at the first
+    operation that makes the host wait for the card; then its ``collect``.
+    Logs how long ``submit`` took and whether the card was still running the
+    batch when it returned."""
+    import torch
+
+    pipe.collect(pipe.submit(lookups, params))  # warm: budgets, allocators
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        st = pipe.submit(lookups, params)
+        dt = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    subs = [sub for _, sub in st["subs"]] if st.get("subs") else [st]
+    events = [ev for sub in subs if "out" in sub for ev in sub["out"][1]]
+    if not events:
+        raise SystemExit(f"{name}: the submit launched no device call")
+    running = not all(ev.query() for ev in events)
+    t0 = time.perf_counter()
+    pipe.collect(st)
+    log(f"{name} submit: no host sync under set_sync_debug_mode('error') "
+        f"({len(lookups)} lookups, {len(subs)} device call(s)); returned in "
+        f"{dt * 1e3:.3f} ms with the card "
+        f"{'still running the batch' if running else 'done'}, collect "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms | {card}")
+
+
+def async_line(stats, n_batches: int) -> str:
+    """The submit/collect stages of a pass: enqueue, wait and read."""
+    parts = [f"{k} {stats.totals.get(k, 0.0) * 1e3:.3f} ms "
+             f"({stats.counts.get(k, 0)} calls)"
+             for k in ("host_prep", "dispatch", "device", "device_get",
+                       "host_tail")]
+    return f"{', '.join(parts)} over {n_batches} batches"
+
+
+def cut_bucket_phase(model, queries, params, default, oracle, card) -> None:
+    """The 16,384 queries through a fresh pipeline whose pair-budget ladder
+    is cut to two buckets set from this run's stage-A totals, so that on the
+    card the budgets step down (six light batches), escalate and overflow
+    the top bucket (the heaviest batch, which splits in halves). The
+    results must equal the default run's tuple for tuple, and the oracle's
+    on the first 1,024."""
+    import torch
+
+    from analiticcl_tpu_torch.ops import pipeline as ppl
+
+    pipe = ppl.DevicePipeline(model, "cuda")
+    n_light = 6 * N_LIGHT
+    lights = [list(range(k, k + N_LIGHT)) for k in range(0, n_light,
+                                                          N_LIGHT)]
+    chunks = [list(range(k, min(k + BATCH_CUT, len(queries))))
+              for k in range(n_light, len(queries), BATCH_CUT)]
+
+    def hits(rows):
+        st = prepared(pipe, [queries[i] for i in rows], params)
+        (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se, start_blk,
+         _w, _thr) = st["args"]
+        sa = ppl.query_stage_a(pipe.index, q_counts, q_cc, k_ana, k_len,
+                               start_blk, st["nb_band"])
+        return int(sa.nmatch.sum()), st["B"]
+
+    light = [hits(r) for r in lights]
+    full = [hits(c) for c in chunks]
+    heavy = max(range(len(chunks)), key=lambda i: full[i][0])
+    rest = [t for i, (t, b) in enumerate(full) if i != heavy and b == 1024]
+    low = int(max(t for t, _ in light) * pipe.DEESC_MARGIN) + 1
+    top = max(rest)
+    # the first budget of a batch size is the bucket of half the index rows:
+    # it must be the top one, for the light batches to step it down
+    first = pipe._budget_rows // 2
+    if not (low < first <= top < full[heavy][0]
+            and all(b == 1024 for _, b in light)):
+        raise SystemExit(f"cut-bucket run: no ladder fits the totals "
+                         f"(light {light}, full {full})")
+    batches = [[queries[i] for i in r] for r in lights + chunks]
+    order = [i for r in lights + chunks for i in r]
+    seen, splits = [], []
+    collect, split = pipe.collect, pipe._collect_split
+
+    def counted_collect(state):
+        out = collect(state)
+        seen.append(pipe._P_by_B.get(1024))
+        return out
+
+    pipe.collect = counted_collect
+    pipe._collect_split = lambda state: splits.append(1) or split(state)
+    saved = ppl.P_BUCKETS
+    ppl.P_BUCKETS = (low, top)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [r for res in pipe.find_variants_stream(iter(batches), params)
+               for r in res]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        ppl.P_BUCKETS = saved
+    steps = [b for a, b in zip(seen, seen[1:]) if a is not None and b != a]
+    down = sum(b < a for a, b in zip(seen, seen[1:])
+               if a is not None and b is not None)
+    up = sum(b > a for a, b in zip(seen, seen[1:])
+             if a is not None and b is not None)
+    if not (down and up and splits):
+        raise SystemExit(f"cut-bucket run: budgets {seen}, {len(splits)} "
+                         "splits: no de-escalation, escalation or split")
+    by_query = dict(zip(order, got))
+    want = [default[i] for i in order]
+    require_equal("cut-bucket run", [by_query[i] for i in order], want,
+                  [queries[i] for i in order])
+    require_equal("cut-bucket run oracle", [by_query[i] for i in
+                                            range(len(oracle))], oracle,
+                  queries[:len(oracle)])
+    log(f"cut buckets: P ladder ({low}, {top}) from this run's totals (light "
+        f"batches {[t for t, _ in light]}, heaviest {full[heavy][0]}); "
+        f"{len(batches)} batches, {len(queries)} queries in {dt:.3f} s; "
+        f"budget steps {steps} ({down} down, {up} up), {len(splits)} "
+        f"top-bucket split(s); equal to the default run on {len(queries)} "
+        f"queries and to the oracle on {len(oracle)} | {card}")
+    log(f"cut buckets stages: {async_line(pipe.stats, len(batches))}")
+    del pipe
 
 
 def search_phase(name: str, model, texts, params, card: str) -> dict:
@@ -494,6 +650,7 @@ def search_phase(name: str, model, texts, params, card: str) -> dict:
     list(model.find_all_matches_stream(texts[:64], params))  # warm-up
     lookups = search_fast.prepare_unit(texts, params.max_ngram).all_texts
     hold_kernels(name, pipe, lookups[:SEARCH_BATCH], params)
+    sync_free_submit(name, pipe, lookups[:SEARCH_BATCH], params, card)
     reset_counts()
     pipe.stats.clear()
     torch.cuda.synchronize()
@@ -896,6 +1053,8 @@ def mesh_query_phase(words, queries, params, card: str) -> dict:
         pipe = model._device
         t_shard = time.perf_counter() - t0
         hold_kernels(name, pipe, queries[:BATCH], params)
+        if (n_dp, n_lex) == (1, 4):
+            sync_free_submit(name, pipe, queries[:BATCH], params, card)
         got, dt, counts = timed_stream(model, queries, params, BATCH)
         stages = stage_line(pipe.stats)
         cand, surv = pipe.candidates, pipe.survivors
@@ -917,6 +1076,8 @@ def mesh_query_phase(words, queries, params, card: str) -> dict:
             f"{N_QUERIES} queries, under StopAtExactMatch on {BATCH}, and "
             f"to the oracle on {N_MESH_ORACLE}; launches {counts} | {card}")
         log(f"{name} stages: {stages}")
+        log(f"{name} async: {async_line(pipe.stats, N_QUERIES // BATCH)} "
+            f"| {card}")
         if (n_dp, n_lex) == (1, 4):
             log(f"{name} {profile_pass(lambda: list(model.find_variants_stream(queries, params, BATCH)))} | {card}")
     return by_path
@@ -1038,7 +1199,7 @@ def mesh_1m_phase(card: str) -> dict:
                   queries[b:b + BATCH_1M], params)]
     torch.cuda.synchronize()
     dt_single = time.perf_counter() - t0
-    n_split = single_pipe.stats.counts.get("device", 0)
+    n_split = single_pipe.stats.counts.get("dispatch", 0)
     del single_pipe
     gc.collect()
     require_equal("mesh_1m vs single device", got, single, queries)
@@ -1163,7 +1324,7 @@ def main() -> int:
             raise SystemExit(f"K1 direct check at B={B} saw no exact hits")
         log(f"K1 stage_a direct: B={B} bt={bt} Ni={ni} nb_band={nb} "
             f"bit-identical to plain ({n_exact} exact hits)")
-    st = pipe.prepare(queries[:BATCH], params)
+    st = prepared(pipe, queries[:BATCH], params)
     (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se,
      start_blk, _w, _thr) = st["args"]
     qbin = query_planes(idx, q_counts)
@@ -1196,7 +1357,8 @@ def main() -> int:
     })
 
     # ---- 4. K2 against its plain version on the main path's pairs ----
-    (a, al, b, bl), n_distinct = k2_main_pairs(pipe, queries, params)
+    (a, al, b, bl), n_distinct, slots, P_main = k2_main_pairs(
+        pipe, queries, params)
     P, L = a.shape
     lmax, threads = k2_instance(L)
     k2_ptxas = dl_lcs_ptxas(_build.ptxas_report("dl_lcs"))
@@ -1227,6 +1389,27 @@ def main() -> int:
             f"{bound:.4f} ms ({by}); instance W={W} LMAX={lmax}: ptxas {px}, "
             f"dynamic shared memory {k2_smem_bytes(W, L)} bytes per block of "
             f"{threads} threads | {card}")
+    # K2 at the budget: the main path's first batch as the kernel gets it,
+    # P slots of which the valid ones lead and the rest are empty strings
+    W = 3
+    ld, lcs = dl_lcs(*slots, L, W)
+    ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(*slots, L, W)
+    torch.cuda.synchronize()
+    if not (torch.equal(ld.clamp(max=W + 1), ld_p.clamp(max=W + 1))
+            and torch.equal(lcs, lcs_p)):
+        raise SystemExit("dl_lcs kernel differs from plain at the budget")
+    budget = {
+        "P": P_main, "valid": n_distinct,
+        "ms": time_ms(lambda: dl_lcs(*slots, L, W), 10, inner=10),
+        "device_ms": device_ms(lambda: dl_lcs(*slots, L, W),
+                               "dl_lcs_kernel", 10),
+        "bound_ms": k2_bound_ms(slots[1], slots[3], L, W)[0],
+    }
+    log(f"K2 dl_lcs W={W} at the main path's budget: P={P_main} slots, "
+        f"{n_distinct} valid, equal to plain; kernel {budget['ms']:.3f} ms "
+        f"(CUDA events, 10 back-to-back calls; profiler device time "
+        f"{budget['device_ms']:.4f} ms), bound {budget['bound_ms']:.4f} ms "
+        f"| {card}")
     records.append({
         "name": "dl_lcs", "route": "cuda",
         "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
@@ -1238,10 +1421,12 @@ def main() -> int:
         "by_window": {W: {"ms": v[1], "device_ms": v[5], "plain_ms": v[2],
                           "bound_ms": v[3], "ptxas": v[6]}
                       for W, v in k2.items()},
+        "at_budget_w3": budget,
     })
 
     # ---- 5. the main path ----
     list(model.find_variants_stream(queries[:BATCH], params))  # warm-up
+    sync_free_submit("main path", pipe, queries[:BATCH], params, card)
     stage_a_masks.launches = 0
     dl_lcs.launches = 0
     pipe.candidates = pipe.survivors = 0
@@ -1255,6 +1440,8 @@ def main() -> int:
     cand, surv = pipe.candidates, pipe.survivors
     stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in sorted(
         pipe.stats.totals.items()))
+    async_stages = async_line(pipe.stats, N_QUERIES // BATCH)
+    budgets = {B: (pipe._P_by_B[B], pipe._P2_by_B[B]) for B in pipe._P_by_B}
 
     params_ratio = SearchParameters(
         max_anagram_distance=DistanceThreshold.ratio_with_limit(0.5, 6),
@@ -1280,8 +1467,10 @@ def main() -> int:
                  r.via) for r in res]
 
     t1 = time.perf_counter()
-    bad = [q for q, r in zip(queries[:N_ORACLE], results)
-           if tuples(r) != tuples(model._find_variants_oracle(q, params))]
+    oracle = [model._find_variants_oracle(q, params)
+              for q in queries[:N_ORACLE]]
+    bad = [q for q, r, o in zip(queries, results, oracle)
+           if tuples(r) != tuples(o)]
     bad += [q for q, r in zip(rq[:N_ORACLE_RATIO], ratio_results)
             if tuples(r) != tuples(model._find_variants_oracle(q, params_ratio))]
     if bad:
@@ -1292,12 +1481,15 @@ def main() -> int:
         f"{cand / N_QUERIES:.2f} candidates and {surv / N_QUERIES:.2f} "
         f"survivors per query, {n_found} with a result | {card}")
     log(f"main path host stages over the {N_QUERIES} queries: {stages}")
+    log(f"main path async: {async_stages}; budgets (P, P2) by batch size "
+        f"{budgets} | {card}")
     log(f"ratio thresholds: {N_RATIO} queries, {n_w12} at W=12, window split; "
         f"oracle parity exact on {N_ORACLE} + {N_ORACLE_RATIO} queries "
         f"({time.perf_counter() - t1:.1f} s); launches {launches}")
     # one profiler window over a warm pass of the same 16,384 queries
     # (after the path's launch counts were read)
     log(f"main path {profile_pass(lambda: list(model.find_variants_stream(queries, params, BATCH)))} | {card}")
+    cut_bucket_phase(model, queries, params, results, oracle, card)
 
     # ---- 6-8. search, search with a language model, learn ----
     by_path = {"query": launches}
