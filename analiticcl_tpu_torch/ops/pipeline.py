@@ -12,7 +12,9 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
   CUDA tensors; the glue between them is torch ops. It is the composition
   of :func:`query_stage_a` and :func:`query_stage_b`, which a sharded index
   (``parallel/mesh.py``) calls per shard, combining the shards' exact
-  counts between them.
+  counts between them. Its ``stop_stage`` prefixes (:data:`STOP_STAGES`)
+  end it after one stage with int32 checksums of that stage's outputs, as
+  the JAX core's do: ``tools/profile_device_stages_torch.py`` times them.
 * Pair compaction is the JAX core's slot resolve (:func:`resolve_pairs`):
   each of the P slots finds its 128-row block by a search over stage A's
   per-block hit counts, then its byte and bit by popcount prefix sums over
@@ -274,14 +276,58 @@ class StageA(NamedTuple):
     nexact: torch.Tensor  # int32 [B] exact anagrams per query
 
 
+# Profiling prefixes of query_core, in order: each returns int32 checksums
+# of its stage's outputs (:func:`probe`) in place of the rest of the core.
+# The JAX core's stops of the same names (analiticcl_tpu/ops/pipeline.py:385)
+# probe the same arrays.
+STAGE_A_STOPS = ("noop", "stageA")
+STAGE_B_STOPS = ("resolve", "gather_dl", "score", "compact_sum")
+STOP_STAGES = STAGE_A_STOPS + STAGE_B_STOPS
+
+
+def _check_stop(stop_stage: Optional[str], allowed: Tuple[str, ...]) -> None:
+    if stop_stage is None or stop_stage in allowed:
+        return
+    if stop_stage in ("resolve_pre", "resolve_tables"):
+        raise ValueError(
+            f"stop_stage {stop_stage!r} has no stage in the port: it resolves "
+            "a slot in one search over the query-major cumsum of stage A's "
+            "block counts (resolve_pairs), with no per-query search or radix "
+            "tables before it; stop at 'resolve' instead"
+        )
+    raise ValueError(f"stop_stage {stop_stage!r} is not one of {allowed}")
+
+
+def probe(*tensors) -> tuple:
+    """int32 checksums standing in for a stage's outputs: each tensor cast
+    to int32 and summed with int32 wrap-around, the JAX core's
+    ``jnp.sum(a.astype(jnp.int32))``."""
+    out = []
+    for t in tensors:
+        s = t.to(torch.int32).sum(dtype=torch.int64)
+        out.append(torch.remainder(s + 2**31, 2**32).sub_(2**31)
+                   .to(torch.int32))
+    return tuple(out)
+
+
 def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,
-                  start_blk, nb_band: int) -> StageA:
+                  start_blk, nb_band: int, *,
+                  stop_stage: Optional[str] = None):
     """Stage A of :func:`query_core`: banded retrieval (kernel K1) over
-    ``index``'s rows."""
-    return StageA(*stage_a_masks(
+    ``index``'s rows. ``stop_stage`` ``"noop"`` returns the probes of
+    ``(q_cc, k_ana)`` before any device work, ``"stageA"`` those of the
+    stage's outputs (every 64th byte column of the bits)."""
+    _check_stop(stop_stage, STAGE_A_STOPS)
+    if stop_stage == "noop":
+        return probe(q_cc, k_ana)
+    sa = StageA(*stage_a_masks(
         index.bins, index.cc, index.validrows, query_planes(index, q_counts),
         q_cc, k_ana, k_len, start_blk, nb_band,
     ))
+    if stop_stage == "stageA":
+        return probe(sa.packed_q[:, ::64], sa.exact_q[:, ::64], sa.counts_t,
+                     sa.nmatch, sa.nexact)
+    return sa
 
 
 def query_core(
@@ -305,16 +351,23 @@ def query_core(
     window: int,  # DL exactness window (>= every per-query edit distance)
     nb_band: int,  # band width in ROW_BLOCK blocks
     use_stop_exact: bool = True,
+    stop_stage: Optional[str] = None,  # profiling: one of STOP_STAGES
 ):
     """One batch through stage A, the slot resolve, stage B and the f32
-    pre-filter. Survivors come back in (query, device row) order."""
+    pre-filter. Survivors come back in (query, device row) order. With
+    ``stop_stage`` the core ends after that stage and returns its probes
+    (:func:`query_stage_a`, :func:`query_stage_b`)."""
+    _check_stop(stop_stage, STOP_STAGES)
+    stop_a = stop_stage if stop_stage in STAGE_A_STOPS else None
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
-                       nb_band)
+                       nb_band, stop_stage=stop_a)
+    if stop_a is not None:
+        return sa
     return query_stage_b(
         index, sa, stop_exact & (sa.nexact > 0), q_norms, q_lens,
         q_first_lower, k_ed, start_blk, weights, score_threshold,
         have_freq=have_freq, P=P, P2=P2, window=window,
-        use_stop_exact=use_stop_exact,
+        use_stop_exact=use_stop_exact, stop_stage=stop_stage,
     )
 
 
@@ -330,18 +383,26 @@ def query_stage_b(
     P2: int,
     window: int,
     use_stop_exact: bool = True,
+    stop_stage: Optional[str] = None,
 ):
     """Stage B of :func:`query_core` over stage A's hits in ``index``: the
     slot resolve at ``P``, the gathers, DL + LCS (kernel K2), the affixes,
     the f32 score and survivor compaction into ``P2`` slots. ``use_exact``
     is separate because under a sharded index it depends on every shard's
-    exact count."""
+    exact count. ``stop_stage`` (one of :data:`STAGE_B_STOPS`) ends it
+    after that stage with the probes the JAX core gives there."""
+    _check_stop(stop_stage, STAGE_B_STOPS)
     packed_q = sa.packed_q
     dev = packed_q.device
     B = packed_q.shape[0]
+    Ni_pad = index.bins.shape[0]
     q, pc_band, pc, pvalid, total_match = resolve_pairs(
-        packed_q, sa.counts_t, start_blk, index.bins.shape[0], P
+        packed_q, sa.counts_t, start_blk, Ni_pad, P
     )
+    if stop_stage == "resolve":
+        # the JAX core masks the slots past the total (query B, row 0)
+        return probe(torch.where(pvalid, q, B),
+                     torch.where(pvalid, pc.clamp(max=Ni_pad - 1), 0))
     pr = gather_pairs(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
                       pvalid)
     a, ql, b, cl = pr.a, pr.ql, pr.b, pr.cl
@@ -349,6 +410,8 @@ def query_stage_b(
     # ---- stage B: DL + LCS (kernel K2), prefix/suffix as torch ops ----
     ld, lcs = dl_lcs(a, ql, b, cl, a.shape[1], window)
     pf, sf = affix_metrics_aligned(a, ql, b, cl, pr.a_rev, pr.b_rev)
+    if stop_stage == "gather_dl":
+        return probe(ld, lcs, pf, sf)
 
     # ---- f32 pre-filter score, same operation order as the JAX core ----
     w_ld, w_lcs, w_pf, w_sf, w_case, w_sum = weights.unbind()
@@ -384,6 +447,8 @@ def query_stage_b(
         )
     else:
         max_freq = torch.ones(B, dtype=torch.int64, device=dev)
+    if stop_stage == "score":
+        return probe(keep, max_freq) + ((score * keep).sum(),)
 
     # ---- survivor compaction into P2 slots, order kept; unused slots hold
     # query B and zeros ----
@@ -393,6 +458,8 @@ def query_stage_b(
     )
     # kept pairs have ld <= 12 and lcs/prefix/suffix <= L: uint8 below L 256
     met = out[2:].to(torch.uint8) if a.shape[1] < 256 else out[2:]
+    if stop_stage == "compact_sum":
+        return probe(out[0], out[1], *met)
     return (
         out[0], out[1], *met.unbind(), max_freq, total_match, total_keep,
     )

@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .editscript import script_to_str, shortest_edit_script
 from .vocab import VocabParams, VocabType
 
 # 26 case-folded letters plus punctuation, like the reference's test alphabet
@@ -147,6 +148,30 @@ def synthetic_text(words: Sequence[str], seed: int, n_lines: int,
             sep = _SEPARATORS[int(rng.integers(len(_SEPARATORS)))]
             line += (" " if pair else sep) + w
         lines.append(line + (".", "!", "")[int(rng.integers(3))])
+    return lines
+
+
+def synthetic_confusables(words: Sequence[str], seed: int) -> List[str]:
+    """Lines of a weighted confusable list (``pattern<TAB>weight``): the
+    changed part of the edit script from a corrupted word to its lexicon
+    word, for the first six distinct two-instruction scripts, and one
+    pattern anchored at the word's start."""
+    rng = np.random.default_rng(seed)
+    seen, out = set(), []
+    for w in (words[int(k)] for k in rng.integers(len(words), size=400)):
+        bad = corrupt_queries([w], int(rng.integers(1 << 30)), 1)[0]
+        core = [ins for ins in shortest_edit_script(bad, w)
+                if ins.op.value != "="]
+        pat = script_to_str(core)
+        if (len(core) == 2 and core[0].text != core[1].text
+                and pat not in seen):
+            seen.add(pat)
+            out.append(pat)
+        if len(out) == 6:
+            break
+    weights = (1.2, 0.8, 1.1, 1.05, 0.9, 1.3)
+    lines = [f"{p}\t{wt}" for p, wt in zip(out, weights)]
+    lines.append(f"^=[{words[0][0].lower()}]-[e]\t1.15")
     return lines
 
 

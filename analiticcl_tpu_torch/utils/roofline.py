@@ -1,0 +1,227 @@
+"""The least time of one query batch on the card, counted from its shapes.
+
+Whatever implements it, a batch must read every input byte once and write
+every output byte once, and do the operations its inputs need; the larger
+of the bytes over the memory rate and the operations over the peak rate of
+their type is its bound. Work that depends on the data (the hit total, the
+pairs' lengths, the candidate rows the pairs touch) is counted on the
+batch's own inputs, and planes at the alphabet's true width ``A * T``, not
+at the zero columns the device layout pads them to. The parts:
+
+* **K1** (stage A): the int8 multiply-adds of the binarized planes,
+  ``2 * B * Nb * AT`` operations, against the band rows, the query planes
+  and the hit bits, counts and totals;
+* **K2** (DL + LCS): about 10 32-bit operations per banded DL cell and 3 per
+  LCS cell of each valid pair, against the pairs' strings and lengths in and
+  both metrics out; at the valid pairs and at the budget's P slots;
+* **the glue** (slot resolve, gathers, affixes, score, compaction): bytes
+  only: the hit bits and block counts read once, the query rows and the
+  candidate rows the pairs touch read once, the ``[P2]`` survivor columns,
+  the ``[B]`` frequency maxima and the two totals written once.
+
+The parts' floors count the data that passes between them (K1's bits and
+counts, the pair strings) as memory traffic. **The program** does not: it
+reads only its own inputs (the batch's arguments, the band rows' planes and
+charcounts, the candidate rows the pairs touch) and writes only its
+outputs, and does K1's and K2's operations.
+
+``chip_smoke.py`` and ``tools/roofline_torch.py`` both count here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops.stage_a import ROW_BLOCK
+
+
+class Peaks(NamedTuple):
+    name: str
+    int8_ops_per_s: float  # dense int8 tensor-core operations
+    hbm_bytes_per_s: float
+    int32_ops_per_s: float  # 32-bit arithmetic outside the tensor cores
+
+
+# NVIDIA H100 SXM data sheet, dense, at 700 W
+H100_SXM = Peaks("NVIDIA H100 SXM data sheet (dense, 700 W)", 1.979e15,
+                 3.35e12, 67e12)
+
+
+def peaks_for(card: str, int8: Optional[float] = None,
+              hbm: Optional[float] = None,
+              int32: Optional[float] = None) -> Peaks:
+    """The peaks to bound a run on the card named ``card``
+    (``torch.cuda.get_device_name``): the ones given, else the H100 SXM
+    data sheet's for an H100 SXM (HBM3) card; any other card raises."""
+    if None not in (int8, hbm, int32):
+        return Peaks(f"given for {card}", int8, hbm, int32)
+    if "H100" in card and ("HBM3" in card or "SXM" in card):
+        return H100_SXM
+    raise ValueError(f"no data-sheet peaks for {card!r}: give --peak-int8, "
+                     "--peak-hbm and --peak-int32")
+
+
+class Work(NamedTuple):
+    """Bytes to move, and operations to do by type."""
+
+    nbytes: float
+    int8_ops: float = 0.0  # on the tensor cores
+    int32_ops: float = 0.0  # outside them
+
+    def bound_ms(self, peaks: Peaks = H100_SXM) -> Tuple[float, str]:
+        """The least time in ms, and which of bytes and operations bounds
+        it. The tensor cores and the other units may run at once, so the
+        operations take the longer of their two types' times."""
+        t_bytes = self.nbytes / peaks.hbm_bytes_per_s * 1e3
+        t_ops = max(self.int8_ops / peaks.int8_ops_per_s,
+                    self.int32_ops / peaks.int32_ops_per_s) * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def band_rows(start_blk, nb_band: int) -> int:
+    """Index rows in the union of the query tiles' bands."""
+    blocks = set()
+    for s in start_blk.tolist():
+        blocks.update(range(s, s + nb_band))
+    return len(blocks) * ROW_BLOCK
+
+
+def k1_work(at: int, B: int, start_blk, nb_band: int) -> Work:
+    """Stage A on these inputs, at the true plane width ``at``: the int8
+    multiply-adds (2 operations each) and the bytes: the band rows' planes,
+    charcounts and valid flags, the queries' planes and scalars and the
+    tiles' band starts read once; the hit and exact bits, the block counts
+    and the two totals written once."""
+    Nb = nb_band * ROW_BLOCK
+    nbytes = (band_rows(start_blk, nb_band) * (at + 4 + 1) + B * (at + 12)
+              + 4 * start_blk.numel() + 2 * B * Nb // 8
+              + 4 * (Nb // 128) * B + 8 * B)
+    return Work(nbytes, int8_ops=2 * B * Nb * at)
+
+
+def k1_bound_ms(at: int, B: int, start_blk, nb_band: int,
+                peaks: Peaks = H100_SXM):
+    """The least time of stage A for ``B`` queries over the bands
+    ``start_blk`` of ``nb_band`` blocks, and its bound."""
+    return k1_work(at, B, start_blk, nb_band).bound_ms(peaks)
+
+
+def k2_work(a_len, b_len, L: int, W: int) -> Work:
+    """DL + LCS on these pairs: both int32 strings, both lengths and both
+    outputs per pair; about 10 operations per banded DL cell (``a_len *
+    (2W + 3)`` cells) and 3 per LCS cell (``a_len * b_len``). Empty slots
+    cost their bytes and no operations."""
+    P = a_len.shape[0]
+    al = a_len.clamp(max=L).double()
+    ops = float((10 * al * (2 * W + 3) + 3 * al * b_len.clamp(max=L)).sum())
+    return Work(P * (8 * L + 16), int32_ops=ops)
+
+
+def k2_bound_ms(a_len, b_len, L: int, W: int, peaks: Peaks = H100_SXM):
+    """The least time of the DL + LCS kernel on these pairs, and its bound."""
+    return k2_work(a_len, b_len, L, W).bound_ms(peaks)
+
+
+def _cand_row_bytes(L: int, norm_bytes: int, have_freq: bool) -> int:
+    """One candidate row as the pairs read it: string, length, case flag,
+    and frequency when the model has them."""
+    return L * norm_bytes + 5 + (8 if have_freq else 0)
+
+
+def _output_bytes(B: int, P2: int) -> int:
+    """The core's outputs: the survivor columns (two int32, five uint8 per
+    slot), the int64 frequency maxima and the two int64 totals."""
+    return P2 * 13 + 8 * B + 16
+
+
+def glue_work(B: int, Nb: int, P2: int, L: int, norm_bytes: int,
+              cand_rows: int, have_freq: bool, exact_bits: bool) -> Work:
+    """The least bytes of the torch ops between and after the kernels:
+    stage A's hit bits (and exact bits under StopAtExactMatch) and block
+    counts read once; each query row (string, length, threshold, case flag)
+    and each candidate row the pairs touch read once; the core's outputs
+    written once."""
+    bits = B * Nb // 8 * (2 if exact_bits else 1)
+    reads = (bits + 4 * (Nb // 128) * B + B * (L * norm_bytes + 9)
+             + cand_rows * _cand_row_bytes(L, norm_bytes, have_freq))
+    return Work(reads + _output_bytes(B, P2))
+
+
+def program_work(args: Sequence[torch.Tensor], at: int, rows: int,
+                 cand_rows: int, L: int, norm_bytes: int, have_freq: bool,
+                 P2: int, k1: Work, k2: Work) -> Work:
+    """The whole core on one batch: its arguments ``args`` and, of the
+    index, the ``rows`` band rows' planes, charcounts and valid flags and
+    the candidate rows the pairs touch read once; its outputs written once;
+    K1's int8 and K2's 32-bit operations. Nothing that passes between the
+    stages counts."""
+    B = args[0].shape[0]
+    reads = (sum(t.numel() * t.element_size() for t in args)
+             + rows * (at + 4 + 1)
+             + cand_rows * _cand_row_bytes(L, norm_bytes, have_freq))
+    return Work(reads + _output_bytes(B, P2), int8_ops=k1.int8_ops,
+                int32_ops=k2.int32_ops)
+
+
+class BatchFloor(NamedTuple):
+    """One batch's parts and the program, as work."""
+
+    k1: Work
+    k2_valid: Work
+    k2_slots: Work
+    glue: Work
+    program: Work
+    n_valid: int
+    cand_rows: int
+    peaks: Peaks
+
+    def ms(self, part: str) -> Tuple[float, str]:
+        return getattr(self, part).bound_ms(self.peaks)
+
+    @property
+    def program_ms(self) -> float:
+        return self.ms("program")[0]
+
+    @property
+    def parts_ms(self) -> float:
+        """K1 + K2 at the valid pairs + glue: the program with the data
+        between its stages counted as memory traffic."""
+        return sum(self.ms(p)[0] for p in ("k1", "k2_valid", "glue"))
+
+
+def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
+                use_stop_exact: bool, have_freq: bool,
+                peaks: Peaks = H100_SXM) -> BatchFloor:
+    """Count one batch of ``query_core`` (its arguments ``args`` on the
+    index ``index``, at budgets P and P2): stage A runs once and the slot
+    resolve and gathers once, to find the valid pairs, their lengths and the
+    candidate rows they touch."""
+    from ..ops.pipeline import gather_pairs, query_stage_a, resolve_pairs
+
+    (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
+     start_blk, _w, _thr) = args
+    sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
+                       nb_band)
+    q, _pcb, pc, valid, total = resolve_pairs(
+        sa.packed_q, sa.counts_t, start_blk, index.bins.shape[0], P)
+    pr = gather_pairs(index, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
+    n_valid = min(int(total), P)
+    cand_rows = int(torch.unique(pc[:n_valid]).numel())
+    L = pr.a.shape[1]
+    B = q_lens.shape[0]
+    nbytes = q_norms.element_size()
+    k1 = k1_work(index.at, B, start_blk, nb_band)
+    k2_valid = k2_work(pr.ql[:n_valid], pr.cl[:n_valid], L, window)
+    return BatchFloor(
+        k1=k1,
+        k2_valid=k2_valid,
+        k2_slots=k2_work(pr.ql, pr.cl, L, window),
+        glue=glue_work(B, nb_band * ROW_BLOCK, P2, L, nbytes, cand_rows,
+                       have_freq, use_stop_exact),
+        program=program_work(args, index.at, band_rows(start_blk, nb_band),
+                             cand_rows, L, nbytes, have_freq, P2, k1,
+                             k2_valid),
+        n_valid=n_valid, cand_rows=cand_rows, peaks=peaks,
+    )

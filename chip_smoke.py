@@ -26,10 +26,10 @@ plain versions on its own first lookup batch, and each required to launch
 both kernels. Then the CLI and the API (phase 9): the lexicon written to
 files under ``build/chip_smoke_cli/``, a model read and built from them as
 the CLI does it with both kernels held against their plain versions on its
-first query batch, and ``cli.main`` in this process for ``query`` (TSV and
-``--json``), ``search -N 2`` and ``learn --strict``, each required to
-launch both kernels, their output held byte for byte against the
-``--backend oracle`` output on prefixes and the JSON against
+first query batch, and ``cli.main`` in this process for ``query`` (TSV, ``--json`` and ``-C``
+with a seeded confusable list), ``search -N 2`` and ``learn --strict``,
+each required to launch both kernels, their output held byte for byte
+against the ``--backend oracle`` output on prefixes and the JSON against
 ``api.VariantModel.find_variants_par``. Then lexicon sharding (phase 10,
 ``parallel/mesh.py``, every mesh over ``cuda:0`` repeated): the main
 lexicon, built anew, on 1x1, 1x4 and 2x2 meshes, each pass of the 16,384 queries equal to the
@@ -41,8 +41,14 @@ after; and a seeded 1,000,000-entry lexicon on a 1x4 mesh: 4,096 queries
 in batches of 2,048 against its single-device pipeline and the oracle, a
 strict learn over 7,000 words, a re-shard and the oracle again. Each mesh
 path holds both kernels against their plain versions on its first batch's
-call of shard 0. The last two lines are the kernels' JSON record (stamped
-with the commit, launches per path) and ``{"ok": true, ...}``.
+call of shard 0. Then profiling (phase 11): the ``stop_stage`` ladder of
+``query_core`` on the main batch (enqueue, CUDA-event and profiler time and
+device ops per stop; the whole core after it equal to its outputs before),
+the batch's roofline (``utils/roofline.py``) beside the core's time by
+CUDA events and the main pass's wall time per batch, and one ``trace`` of two warm
+batches under ``build/chip_smoke_trace/`` that must name both kernels. The
+last two lines are the kernels' JSON record (stamped with the commit,
+launches per path) and ``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
 card is visible. Imports no JAX. Writes nothing outside the checkout's
@@ -89,10 +95,6 @@ N_1M_LEARN = 7000  # learn_1m's corpus
 # 64 and 1,024, and 256 from 262,144 index rows up
 K1_DIRECT = ((8, 32_768, 4), (64, 32_768, 8), (8192, 32_768, 8),
              (4096, 262_144, 16))
-# NVIDIA H100 SXM data sheet, dense, at 700 W
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-FP32_OPS_PER_S = 67e12  # non-tensor 32-bit arithmetic
 STAGES = ("search_prepare", "host_prep", "dispatch", "device", "device_get",
           "host_tail", "search_consolidate", "host_oracle_fallback")
 BATCH_CUT = 1024  # batches of the cut-bucket run (one batch size, B=1024)
@@ -280,27 +282,6 @@ def hold_k1(*args):
     return 0, _b_tile(B, args[0].shape[0]), int(want[4].sum())
 
 
-def k1_bound_ms(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
-                nb_band):
-    """The least time of stage A on these inputs: the larger of its int8
-    multiply-adds (2 operations each, padded plane width) at the dense int8
-    tensor-core rate and its bytes (the union of the tiles' band rows'
-    planes, charcounts and valid flags, the queries' planes and scalars read
-    once; the bits, counts and totals written once) at the memory rate."""
-    Ni, AT = bins.shape
-    B = qbin.shape[0]
-    Nb = nb_band * 1024
-    blocks = set()
-    for s in start_blk.tolist():
-        blocks.update(range(s, s + nb_band))
-    rows = len(blocks) * 1024
-    nbytes = (rows * (AT + 4 + 1) + B * (AT + 12) + 4 * start_blk.numel()
-              + 2 * B * Nb // 8 + 4 * (Nb // 128) * B + 8 * B)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * B * Nb * AT / INT8_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
-
-
 def prepared(pipe, lookups, params):
     """``pipe.prepare`` of ``lookups``, its uploads finished: they run on
     the pipeline's stream, and the caller reads them on the default one
@@ -391,63 +372,26 @@ def dl_lcs_ptxas(report: str) -> dict:
     return out
 
 
-def k2_bound_ms(a_len, b_len, L: int, W: int):
-    """The least time of the DL+LCS kernel on these pairs: the larger of its
-    bytes (both int32 strings, both lengths, both outputs) at the memory rate
-    and its 32-bit integer work (about 10 operations per banded DL cell,
-    a_len * (2W + 3) cells, and 3 per LCS cell, a_len * b_len) at the card's
-    non-tensor 32-bit rate."""
-    P = a_len.shape[0]
-    al = a_len.clamp(max=L).double()
-    ops = float((10 * al * (2 * W + 3) + 3 * al * b_len.clamp(max=L)).sum())
-    t_bytes = P * (8 * L + 16) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
-
-
 def profile_pass(fn) -> str:
     """One torch.profiler window over ``fn``: device time per kernel (the
     two CUDA kernels, then the other device ops by time) and the device's
     idle share of the window's wall time (1 - the union of device intervals
-    over the wall time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    over the wall time). Fails when the profiler saw no device time."""
+    from analiticcl_tpu_torch.utils.profiling import profile_window
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict = {}
-    spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        tr = e.time_range
-        spans.append((tr.start, tr.end))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (tr.end - tr.start) / 1e3
-    if not spans:
-        return "profile: the profiler saw no device time (not measured)"
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy = (busy + cur_e - cur_s) / 1e3  # ms
+    _, prof = profile_window(fn, cuda=True)
+    if not prof.n_ops:
+        raise SystemExit("profile: the profiler saw no device time")
+    by_name = prof.by_name
     k1 = sum(v for k, v in by_name.items() if "stage_a_kernel" in k)
     k2 = sum(v for k, v in by_name.items() if "dl_lcs_kernel" in k)
     rest = sorted(((v, k) for k, v in by_name.items()
                    if "stage_a_kernel" not in k and "dl_lcs_kernel" not in k),
                   reverse=True)
     top = "; ".join(f"{k[:60]} {v:.3f} ms" for v, k in rest[:8])
-    return (f"profile: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms, "
-            f"idle share {1 - busy / (wall * 1e3):.4f}, {len(spans)} device "
-            f"ops; K1 stage_a "
+    return (f"profile: wall {prof.wall_ms:.3f} ms, device busy "
+            f"{prof.busy_ms:.3f} ms, idle share {prof.idle_share:.4f}, "
+            f"{prof.n_ops} device ops; K1 stage_a "
             f"{k1:.3f} ms, K2 dl_lcs {k2:.3f} ms, other device ops "
             f"{sum(v for v, _ in rest):.3f} ms in {len(rest)} kinds: {top}")
 
@@ -849,7 +793,8 @@ def cli_phase(words, queries, texts, card: str) -> dict:
 
     from analiticcl_tpu_torch import api, cli
     from analiticcl_tpu_torch.testing import (
-        ALPHABET, corrupt_queries, synthetic_frequencies, synthetic_lexicon,
+        ALPHABET, corrupt_queries, synthetic_confusables,
+        synthetic_frequencies, synthetic_lexicon,
     )
 
     d = Path("build/chip_smoke_cli")
@@ -862,6 +807,8 @@ def cli_phase(words, queries, texts, card: str) -> dict:
     lexicon = write_lines(d / "lexicon.tsv",
                           [f"{w}\t{f}" for w, f in zip(words, freqs)])
     lexicon2 = write_lines(d / "other.tsv", [f"{w}\t3" for w in other])
+    confusables = write_lines(d / "confusables.tsv",
+                              synthetic_confusables(words, SEED + 43))
     learn_words = corrupt_queries(words, SEED + 42, N_LEARN_STRICT)
     inputs = {
         "queries": write_lines(d / "queries.txt", queries),
@@ -897,6 +844,9 @@ def cli_phase(words, queries, texts, card: str) -> dict:
                       "queries", len(queries)),
         "cli_query_json": (["query", *common, "--backend", "device", "--json"],
                            "queries", "queries", len(queries)),
+        "cli_query_confusables": (["query", *common, "--backend", "device",
+                                   "-C", str(confusables)],
+                                  "queries", "queries", len(queries)),
         "cli_search": (["search", *common, "--backend", "device", "-N", "2"],
                        "text", "tokens", sum(len(t.split()) for t in texts)),
         "cli_learn": (["learn", *common, "--backend", "device", "--strict"],
@@ -923,10 +873,16 @@ def cli_phase(words, queries, texts, card: str) -> dict:
     if len(query_out) != len(queries) + 1:
         raise SystemExit(f"cli_query: {len(query_out) - 1} lines for "
                          f"{len(queries)} queries")
+    conf_out = lines(out["cli_query_confusables"])
+    if len(conf_out) != len(query_out) or conf_out == query_out:
+        raise SystemExit("cli_query_confusables: the confusables changed no "
+                         "line, or the line count")
     checks = []
     for name, argv, src, want in (
         ("query", runs["cli_query"][0], "queries_head",
          query_out[:N_ORACLE]),
+        ("query -C", runs["cli_query_confusables"][0], "queries_head",
+         conf_out[:N_ORACLE]),
         ("search", runs["cli_search"][0], "text_head", None),
         ("learn", runs["cli_learn"][0], "learn_head", None),
     ):
@@ -935,7 +891,7 @@ def cli_phase(words, queries, texts, card: str) -> dict:
             path = d / f"{name}_head_device.out"
             run_cli(name, argv, inputs[src], path)
             want = lines(path)
-        path = d / f"{name}_head_oracle.out"
+        path = d / f"{name.replace(' -C', '_confusables')}_head_oracle.out"
         oracle = [a if a != "device" else "oracle" for a in argv]
         run_cli(name, oracle, inputs[src], path)
         got = lines(path)[:len(want)]
@@ -1251,6 +1207,106 @@ def mesh_1m_phase(card: str) -> dict:
     return {"mesh_1m_query": counts, "mesh_1m_learn": lcounts}
 
 
+def profiling_phase(words, queries, params, wall_ms: float,
+                    card: str) -> dict:
+    """Phase 11: the ``stop_stage`` ladder of ``query_core`` on the main
+    path's 4,096-query batch (a fresh model of the main lexicon, budgets
+    settled by two submit/collect rounds): per stop, the host's enqueue, the
+    card's time by CUDA events and its busy time and ops by the profiler,
+    over 10 back-to-back calls; the whole core after the ladder must equal
+    its outputs before it, and the ``compact_sum`` probes the probes of
+    those outputs. Then the batch's roofline beside the core's time by CUDA
+    events (the profiler's device records in this process can come back
+    short, PERF.md section 6) and the main pass's wall time per batch
+    (``wall_ms``), and one ``trace`` of
+    two warm batches under ``build/``, which must name both kernels."""
+    import shutil
+
+    import torch
+
+    from analiticcl_tpu_torch import VariantModel
+    from analiticcl_tpu_torch.ops.pipeline import probe, query_core
+    from analiticcl_tpu_torch.testing import ALPHABET, populate
+    from analiticcl_tpu_torch.utils.profiling import (
+        settled_batch, stop_ladder, trace,
+    )
+    from analiticcl_tpu_torch.utils.roofline import batch_floor, peaks_for
+
+    t0 = time.perf_counter()
+    model = populate(VariantModel(alphabet=ALPHABET, device="cuda"), words)
+    pipe = model._pipeline()
+    batch = queries[:BATCH]
+    st, static = settled_batch(pipe, batch, params)
+    P, P2 = static["P"], static["P2"]
+
+    def call(stop):
+        return query_core(pipe.index, *st["args"], **static, stop_stage=stop)
+
+    want = call(None)
+    torch.cuda.synchronize()
+    reset_counts()
+    rungs = stop_ladder(call, cuda=True)
+    full = rungs[-1]
+    if not all(torch.equal(g, w) for g, w in zip(full.out, want)):
+        raise SystemExit("profiling: the full core after the ladder differs "
+                         "from its outputs before it")
+    if [int(x) for x in rungs[-2].out] != [int(x) for x in probe(*want[:7])]:
+        raise SystemExit("profiling: the compact_sum probes differ from the "
+                         "probes of the full core's outputs")
+    prev = None
+    for r in rungs:
+        delta = "" if prev is None else (
+            f" (delta enqueue {r.enqueue_ms - prev.enqueue_ms:+.3f}, events "
+            f"{r.event_ms - prev.event_ms:+.3f}, busy "
+            f"{r.busy_ms - prev.busy_ms:+.4f}, ops "
+            f"{r.n_ops - prev.n_ops:+.1f})")
+        log(f"ladder {r.stop}: enqueue {r.enqueue_ms:.3f} ms, events "
+            f"{r.event_ms:.3f} ms, device busy {r.busy_ms:.4f} ms, "
+            f"{r.n_ops:.1f} device ops per call{delta}")
+        prev = r
+    floor = batch_floor(pipe.index, st["args"], **static,
+                        peaks=peaks_for(torch.cuda.get_device_name(0)))
+    prog, prog_by = floor.ms("program")
+    parts = ", ".join(
+        f"{name} {floor.ms(part)[0]:.4f} ms ({floor.ms(part)[1]})"
+        for name, part in (("K1", "k1"), ("K2 at valid pairs", "k2_valid"),
+                           ("K2 at P slots", "k2_slots"), ("glue", "glue")))
+    log(f"roofline: B={st['B']} band {st['nb_band'] * 1024} rows, AT "
+        f"{pipe.index.at}, P={P} ({floor.n_valid} valid pairs over "
+        f"{floor.cand_rows} candidate rows), P2={P2}: {parts}; the parts "
+        f"together {floor.parts_ms:.4f} ms; program floor {prog:.4f} ms "
+        f"({prog_by}; {floor.program.nbytes:.6g} bytes) per batch = "
+        f"{prog / full.event_ms:.4f} of the core's {full.event_ms:.4f} ms "
+        f"by CUDA events and {prog / wall_ms:.5f} of the main pass's "
+        f"wall {wall_ms:.3f} ms per batch ({floor.peaks.name}) | {card}")
+
+    # two warm batches: in this process, after the earlier phases, a
+    # profiler window comes back without some of its device records, and a
+    # one-batch trace has lacked K1 (PERF.md section 6); a fresh process
+    # keeps them all
+    d = Path("build/chip_smoke_trace")
+    shutil.rmtree(d, ignore_errors=True)
+    before = launch_counts()
+    with trace(str(d)):
+        list(pipe.find_variants_stream(iter([batch, batch]), params))
+    in_trace = {k: v - before[k] for k, v in launch_counts().items()}
+    launches = require_launches("profiling")
+    files = sorted(d.glob("*.json"))
+    events = (json.loads(files[0].read_text(encoding="utf-8"))["traceEvents"]
+              if len(files) == 1 else [])
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(f"{k}_kernel" in n for n in kernels) for k in in_trace}
+    if min(counts.values()) == 0:
+        raise SystemExit(f"profiling: the trace {files} names a kernel no "
+                         f"time: {counts}; its kernels: "
+                         f"{sorted(set(n[:60] for n in kernels))}")
+    log(f"profiling: trace {files[0]} of two warm batches: {len(kernels)} "
+        f"kernel records, {counts} for the launches {in_trace}; launches "
+        f"{launches} | {card}")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return {"profiling": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1272,6 +1328,7 @@ def main() -> int:
         synthetic_lexicon, synthetic_text,
     )
     from analiticcl_tpu_torch.utils.provenance import stamp
+    from analiticcl_tpu_torch.utils.roofline import k1_bound_ms, k2_bound_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # ---- 1. the card ----
@@ -1334,14 +1391,16 @@ def main() -> int:
     k1_ms = time_ms(lambda: stage_a_masks(*a_args), 10, inner=10)
     k1_dev = device_ms(lambda: stage_a_masks(*a_args), "stage_a_kernel", 10)
     k1_plain = time_ms(lambda: stage_a_masks_plain(*a_args), 5)
-    k1_bound, k1_by = k1_bound_ms(*a_args)
+    k1_bound, k1_by = k1_bound_ms(idx.at, qbin.shape[0], start_blk,
+                                  st["nb_band"])
     rs = idx.bins.shape[1] + 16  # csrc/stage_a.cu smem_bytes
     log(f"K1 stage_a: dynamic shared memory "
         f"{128 * rs + 3 * (64 * rs + 320) + 2 * 4 * 128 * 33} bytes per "
         f"block of 256 threads at AT {idx.bins.shape[1]}")
     log(f"K1 stage_a: B={BATCH} nb_band={st['nb_band']} "
-        f"(band {st['nb_band'] * 1024} rows of {pipe.Ni_pad}, AT "
-        f"{idx.bins.shape[1]}) bit-identical to plain; kernel {k1_ms:.3f} ms "
+        f"(band {st['nb_band'] * 1024} rows of {pipe.Ni_pad}, AT {idx.at} "
+        f"padded to {idx.bins.shape[1]}) bit-identical to plain; kernel "
+        f"{k1_ms:.3f} ms "
         f"(CUDA events, 10 back-to-back calls; profiler device time "
         f"{k1_dev:.4f} ms), "
         f"plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}) | {card}")
@@ -1528,6 +1587,11 @@ def main() -> int:
     gc.collect()
     by_path.update(mesh_1m_phase(card))
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+
+    # ---- 11. the stop ladder, the roofline and a trace ----
+    gc.collect()
+    by_path.update(profiling_phase(words, queries, params,
+                                   dt * 1e3 / (N_QUERIES // BATCH), card))
 
     for r in records:
         r["launches"] = launches[r["name"]]

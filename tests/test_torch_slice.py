@@ -294,12 +294,15 @@ def _imported_modules(path: Path):
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """No file of the port, and not chip_smoke.py, imports ``analiticcl_tpu``
-    or JAX, and no relative import climbs out of the port's package."""
+    """No file of the port, not chip_smoke.py and not the port's tools
+    (``tools/*_torch.py``) imports ``analiticcl_tpu`` or JAX, and no
+    relative import climbs out of the port's package."""
     root = Path(REPO)
     files = sorted((root / "analiticcl_tpu_torch").rglob("*.py"))
     files.append(root / "chip_smoke.py")
-    assert len(files) > 20
+    tools = sorted((root / "tools").glob("*_torch.py"))
+    assert len(files) > 20 and len(tools) >= 4
+    files += tools
     bad = []
     for path in files:
         depth = len(path.relative_to(root).parts) - 1  # package depth

@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Attribute the port's query core to its stages: the ``stop_stage`` ladder.
+
+The counterpart of ``tools/profile_device_stages.py`` for the PyTorch port.
+One batch of ``--batch`` corrupted queries (default 4,096) on the model
+(``tools/common_torch.py``), its pair budgets settled by two submit/collect
+rounds; then ``ops.pipeline.query_core`` on the batch's kept device
+arguments, stopped after each stage in turn (``noop``, ``stageA``,
+``resolve``, ``gather_dl``, ``score``, ``compact_sum``) and whole. For each,
+over 10 back-to-back calls: the host's time to enqueue one call
+(until it returns, no sync), the card's ms per call by CUDA events (the
+card held first, so the host is ahead), and the card's busy time and ops
+per call from one ``torch.profiler`` window; each column also as the
+difference from the stop before. A prefix returns int32 checksums, so each
+difference is one stage's cost.
+
+    python3 tools/profile_device_stages_torch.py [--batch 4096]
+        [--device cuda|cpu] [--lexicon FILE]
+
+``--device cpu`` runs the same code on the CPU and reads only the host
+clock.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+import common_torch  # noqa: E402
+
+
+def _fmt(value, prev, digits: int) -> str:
+    if value is None:
+        return "not measured"
+    delta = "" if prev is None else f" ({value - prev:+.{digits}f})"
+    return f"{value:.{digits}f}{delta}"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    common_torch.add_args(ap)
+    args = ap.parse_args(argv)
+
+    from analiticcl_tpu_torch.ops.pipeline import query_core
+    from analiticcl_tpu_torch.utils.profiling import (
+        REPS, settled_batch, stop_ladder,
+    )
+
+    model, _words, queries, params = common_torch.setup(args, args.batch)
+    pipe = model._pipeline()
+    st, static = settled_batch(pipe, queries, params)
+    cuda = pipe.device.type == "cuda"
+    print(common_torch.card_line(args.device))
+    print(f"batch: B={st['B']} ({len(st['active'])} queries), "
+          f"P={static['P']} P2={static['P2']} window={static['window']} "
+          f"nb_band={static['nb_band']} Ni_pad={pipe.Ni_pad}, "
+          f"{REPS} back-to-back calls per stop")
+    rungs = stop_ladder(
+        lambda stop: query_core(pipe.index, *st["args"], **static,
+                                stop_stage=stop),
+        cuda)
+    print("stop: enqueue ms | events ms | device busy ms | device ops, "
+          "per call (difference from the stop before)")
+    prev = None
+    for r in rungs:
+        print(f"{r.stop}: "
+              f"{_fmt(r.enqueue_ms, prev and prev.enqueue_ms, 3)} | "
+              f"{_fmt(r.event_ms, prev and prev.event_ms, 3)} | "
+              f"{_fmt(r.busy_ms, prev and prev.busy_ms, 4)} | "
+              f"{_fmt(r.n_ops, prev and prev.n_ops, 1)}")
+        prev = r
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
