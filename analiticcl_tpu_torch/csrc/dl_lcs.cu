@@ -42,6 +42,19 @@
 // Shared memory per thread is (W + 3)(L + 1) + L bytes (+ L for LMAX 64);
 // the registers (96-116 at LMAX 32) allow 4-5 blocks of 128 threads per
 // SM, and capping them to fit more blocks spills and runs slower.
+//
+// Two entries run this DP. `analiticcl_dl_lcs` takes int32 [P, L] pair
+// strings. The slot entry, `analiticcl_dl_lcs_slots`, which the query
+// core runs, also replaces the JAX core's XLA glue beside the Pallas call
+// (the per-pair gathers and the affixes, analiticcl_tpu/ops/pipeline.py:
+// 594-647): it takes stage B's slots (query, device row, valid) and each
+// thread reads its pair's two strings by row from the index's int8 or
+// int32 norms and the batch's query norms (both stay in L2), computes the
+// common prefix and suffix (the suffix from the ends of the forward
+// strings) and the case flag, and runs the DP on the rows as they are, so
+// no [P, L] strings are written. Bound the same way: its bytes are the
+// slots and the rows the pairs touch (and its outputs); its time is the
+// DP's.
 
 // With -DANALITICCL_HOST_TEST the per-pair DP compiles as plain C++ (for
 // checking its arithmetic on a machine without a card).
@@ -91,8 +104,14 @@ HDFN int state_init(int k, int L) {
 }
 
 // The DP of one pair over initialised state: element k at st[k * stride].
-template <typename Cell, int W, int LMAX>
-DEVFN void dl_lcs_pair(const int* ap, int al, const int* bp, int bl, int L,
+// The strings are read as elements of type Ch: int32 pair strings (the
+// `analiticcl_dl_lcs` entry), or int8/int32 rows of the index's and the
+// batch's tables (the slot entry). Only a[0 .. al) and b[0 .. L) are read,
+// and b's elements from bl on feed no cell of a column <= bl: the distance
+// (read at column bl) and the LCS (masked to j < bl) do not depend on
+// what the row holds past its length.
+template <typename Cell, int W, int LMAX, typename Ch = int>
+DEVFN void dl_lcs_pair(const Ch* ap, int al, const Ch* bp, int bl, int L,
                        Cell* st, int stride, int* ld_out, int* lcs_out) {
   constexpr int R = W + 3;   // ring depth: rows i+1 .. i-W-1
   constexpr int B1 = W + 1;  // band half-width
@@ -189,15 +208,66 @@ DEVFN void dl_lcs_pair(const int* ap, int al, const int* bp, int bl, int L,
   *lcs_out = best;
 }
 
+// The slot entry's inputs: stage B's pair slots and the tables their
+// strings and attributes are read from, by row. Ch is the tables' element
+// type (int8, or int32 for alphabets of 120 symbols or more).
+template <typename Ch>
+struct SlotTables {
+  const int* q;                        // [P] the slot's query
+  const int* pc;                       // [P] the slot's device row
+  const unsigned char* valid;          // [P]
+  const Ch* norms2;                    // [Ni, 2L] forward | reversed norms
+  const int* norm_lens;                // [Ni]
+  const unsigned char* first_lower;    // [Ni]
+  const Ch* q_norms;                   // [B, L]
+  const int* q_lens;                   // [B]
+  const unsigned char* q_first_lower;  // [B]
+  const int* k_ed;                     // [B]
+};
+
+// The slot entry's outputs: rows of one int32 [6, P] block (ld, lcs,
+// prefix, suffix, the query length (0 for an invalid slot) and the query's
+// edit threshold) and same_first [P].
+struct SlotOut {
+  int* metrics;
+  unsigned char* same_first;
+};
+
+// Slot p: its query's and candidate's strings read by row from the tables
+// (empty for an invalid slot), the common prefix and suffix (the suffix
+// from the ends of the forward strings), the case flags compared, and the
+// DP on the rows as they are; what gather_pairs, affix_metrics_aligned and
+// the DL+LCS of the pair strings give.
+template <typename Cell, int W, int LMAX, typename Ch>
+DEVFN void slot_pair(int p, int P, int L, const SlotTables<Ch>& t, Cell* st,
+                     int stride, SlotOut out) {
+  const int qi = t.q[p], ci = t.pc[p];
+  const bool v = t.valid[p] != 0;
+  const Ch* const ap = t.q_norms + (size_t)qi * L;
+  const Ch* const bp = t.norms2 + (size_t)ci * 2 * L;
+  const int ql = v ? t.q_lens[qi] : 0;
+  // a length above L is invalid input; clamping keeps every read in the row
+  const int al = min(ql, L), bl = min(v ? t.norm_lens[ci] : 0, L);
+  const int n = min(al, bl);
+  int pf = 0;
+  while (pf < n && ap[pf] == bp[pf]) ++pf;
+  int sf = 0;
+  while (sf < n && ap[al - 1 - sf] == bp[bl - 1 - sf]) ++sf;
+  int* const m = out.metrics;
+  m[2 * (size_t)P + p] = pf;
+  m[3 * (size_t)P + p] = sf;
+  m[4 * (size_t)P + p] = ql;
+  m[5 * (size_t)P + p] = t.k_ed[qi];
+  out.same_first[p] = (t.first_lower[ci] != 0) == (t.q_first_lower[qi] != 0);
+  dl_lcs_pair<Cell, W, LMAX, Ch>(ap, al, bp, bl, L, st, stride, m + p,
+                                 m + (size_t)P + p);
+}
+
 #ifndef ANALITICCL_HOST_TEST
+// Element k of every thread is one row of THREADS equal bytes: the block
+// fills the rows with 16-byte stores.
 template <int W, int LMAX, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-dl_lcs_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
-              const int* __restrict__ b, const int* __restrict__ b_len,
-              int* __restrict__ ld, int* __restrict__ lcs, int P, int L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // element k of every thread is one row of THREADS equal bytes: the block
-  // fills the rows with 16-byte stores
+__device__ __forceinline__ void init_state(unsigned char* smem, int L) {
   constexpr int PER_ROW = THREADS / 16;
   const int nwords = state_elems<W, LMAX>(L) * PER_ROW;
   uint4* const words = reinterpret_cast<uint4*>(smem);
@@ -206,6 +276,15 @@ dl_lcs_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
     words[w] = make_uint4(v, v, v, v);
   }
   __syncthreads();
+}
+
+template <int W, int LMAX, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+dl_lcs_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
+              const int* __restrict__ b, const int* __restrict__ b_len,
+              int* __restrict__ ld, int* __restrict__ lcs, int P, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  init_state<W, LMAX, THREADS>(smem, L);
   const int p = blockIdx.x * THREADS + threadIdx.x;
   if (p >= P) return;
   // a length above L is invalid input; clamping keeps every read in the row
@@ -214,23 +293,41 @@ dl_lcs_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
       min(b_len[p], L), L, smem + threadIdx.x, THREADS, ld + p, lcs + p);
 }
 
+// The slot entry: one thread per slot, the same state and DP as
+// dl_lcs_kernel, the strings read from the tables (both stay in L2: about
+// 200 KB of queries and 6 MB of candidate rows at the main batch).
+template <int W, int LMAX, int THREADS, typename Ch>
+__global__ void __launch_bounds__(THREADS)
+dl_lcs_slots_kernel(SlotTables<Ch> t, SlotOut out, int P, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  init_state<W, LMAX, THREADS>(smem, L);
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= P) return;
+  slot_pair<unsigned char, W, LMAX, Ch>(p, P, L, t, smem + threadIdx.x,
+                                        THREADS, out);
+}
+
+// Above 48 KB a block's dynamic shared memory needs the attribute; it is
+// set once per kernel instance and device, for the instance's largest L.
+template <int W, int LMAX, int THREADS, typename Kernel>
+cudaError_t allow_smem(Kernel kernel, unsigned long long& attr_set) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (attr_set >> dev & 1)) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           state_elems<W, LMAX>(LMAX) * THREADS);
+  if (e == cudaSuccess) attr_set |= 1ull << dev;
+  return e;
+}
+
 template <int W, int LMAX, int THREADS>
 int launch(const int* a, const int* al, const int* b, const int* bl, int* ld,
            int* lcs, int P, int L, cudaStream_t st) {
   static_assert(THREADS % 16 == 0, "rows of whole 16-byte words");
-  // above 48 KB a block's dynamic shared memory needs the attribute; it is
-  // set once per instance and device, for the instance's largest L
   static unsigned long long attr_set = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = allow_smem<W, LMAX, THREADS>(dl_lcs_kernel<W, LMAX, THREADS>,
+                                               attr_set);
   if (e != cudaSuccess) return (int)e;
-  if (!(attr_set >> dev & 1)) {
-    e = cudaFuncSetAttribute(dl_lcs_kernel<W, LMAX, THREADS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             state_elems<W, LMAX>(LMAX) * THREADS);
-    if (e != cudaSuccess) return (int)e;
-    attr_set |= 1ull << dev;
-  }
   const size_t smem = (size_t)state_elems<W, LMAX>(L) * THREADS;
   dl_lcs_kernel<W, LMAX, THREADS><<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(
       a, al, b, bl, ld, lcs, P, L);
@@ -246,7 +343,53 @@ int launch_w(const int* a, const int* al, const int* b, const int* bl, int* ld,
   if (L <= 32) return launch<W, 32, 128>(a, al, b, bl, ld, lcs, P, L, st);
   return launch<W, 64, 64>(a, al, b, bl, ld, lcs, P, L, st);
 }
+
+template <int W, int LMAX, int THREADS, typename Ch>
+int launch_slots(const SlotTables<Ch>& t, SlotOut out, int P, int L,
+                 cudaStream_t st) {
+  static unsigned long long attr_set = 0;
+  cudaError_t e = allow_smem<W, LMAX, THREADS>(
+      dl_lcs_slots_kernel<W, LMAX, THREADS, Ch>, attr_set);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)state_elems<W, LMAX>(L) * THREADS;
+  dl_lcs_slots_kernel<W, LMAX, THREADS, Ch>
+      <<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(t, out, P, L);
+  return (int)cudaGetLastError();
+}
+
+template <int W, typename Ch>
+int launch_slots_w(const SlotTables<Ch>& t, SlotOut out, int P, int L,
+                   cudaStream_t st) {
+  // the instances of launch_w
+  if (L <= 32) return launch_slots<W, 32, 128, Ch>(t, out, P, L, st);
+  return launch_slots<W, 64, 64, Ch>(t, out, P, L, st);
+}
+
+template <typename Ch>
+int launch_slots_all(const SlotTables<Ch>& t, SlotOut out, int P, int L,
+                     int W, cudaStream_t st) {
+  switch (W) {
+    case 3: return launch_slots_w<3, Ch>(t, out, P, L, st);
+    case 6: return launch_slots_w<6, Ch>(t, out, P, L, st);
+    case 12: return launch_slots_w<12, Ch>(t, out, P, L, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 #endif
+
+template <typename Ch>
+SlotTables<Ch> slot_tables(const void* q, const void* pc, const void* valid,
+                           const void* norms2, const void* norm_lens,
+                           const void* first_lower, const void* q_norms,
+                           const void* q_lens, const void* q_first_lower,
+                           const void* k_ed) {
+  return SlotTables<Ch>{
+      (const int*)q, (const int*)pc, (const unsigned char*)valid,
+      (const Ch*)norms2, (const int*)norm_lens,
+      (const unsigned char*)first_lower, (const Ch*)q_norms,
+      (const int*)q_lens, (const unsigned char*)q_first_lower,
+      (const int*)k_ed};
+}
 
 }  // namespace
 
@@ -269,6 +412,35 @@ extern "C" int analiticcl_dl_lcs(const void* a, const void* a_len,
     case 12: return launch_w<12>(A, AL, B, BL, LD, LCS, P, L, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The slot entry. q, pc: int32 [P]; valid: bool [P]; norms2: [Ni, 2L] and
+// q_norms: [B, L], both int8 (elem_bytes 1) or both int32 (4); norm_lens:
+// int32 [Ni]; first_lower: bool [Ni]; q_lens, k_ed: int32 [B];
+// q_first_lower: bool [B]. metrics: int32 [6, P] out (ld, lcs, prefix,
+// suffix, query length, edit threshold); same_first: bool [P] out.
+// W in {3, 6, 12}, 1 <= L <= 64.
+extern "C" int analiticcl_dl_lcs_slots(
+    const void* q, const void* pc, const void* valid, const void* norms2,
+    const void* norm_lens, const void* first_lower, const void* q_norms,
+    const void* q_lens, const void* q_first_lower, const void* k_ed,
+    int elem_bytes, void* metrics, void* same_first, int P, int L, int W,
+    void* stream) {
+  if (P <= 0) return 0;
+  if (L < 1 || L > KERNEL_MAX_L) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  SlotOut out{(int*)metrics, (unsigned char*)same_first};
+  if (elem_bytes == 1)
+    return launch_slots_all(
+        slot_tables<signed char>(q, pc, valid, norms2, norm_lens, first_lower,
+                                 q_norms, q_lens, q_first_lower, k_ed),
+        out, P, L, W, st);
+  if (elem_bytes == 4)
+    return launch_slots_all(
+        slot_tables<int>(q, pc, valid, norms2, norm_lens, first_lower,
+                         q_norms, q_lens, q_first_lower, k_ed),
+        out, P, L, W, st);
+  return (int)cudaErrorInvalidValue;
 }
 #else
 namespace {
@@ -308,6 +480,52 @@ extern "C" void analiticcl_dl_lcs_host(const int* a, const int* a_len,
                                        const int* b, const int* b_len, int* ld,
                                        int* lcs, int P, int L, int W) {
   host_all<unsigned char>(a, a_len, b, b_len, ld, lcs, P, L, W);
+}
+
+namespace {
+// The slot entry's per-slot work (loads, affixes, DP) on the host, one
+// slot at a time over byte cells of stride 1.
+template <typename Ch, int W, int LMAX>
+void host_slots_pairs(const SlotTables<Ch>& t, SlotOut out, int P, int L) {
+  std::vector<unsigned char> st(state_elems<W, LMAX>(L));
+  for (int p = 0; p < P; ++p) {
+    for (size_t k = 0; k < st.size(); ++k)
+      st[k] = (unsigned char)state_init<W>((int)k, L);
+    slot_pair<unsigned char, W, LMAX, Ch>(p, P, L, t, st.data(), 1, out);
+  }
+}
+
+template <typename Ch, int W>
+void host_slots_w(const SlotTables<Ch>& t, SlotOut out, int P, int L) {
+  if (L <= 32) host_slots_pairs<Ch, W, 32>(t, out, P, L);
+  else host_slots_pairs<Ch, W, 64>(t, out, P, L);
+}
+
+template <typename Ch>
+void host_slots(const SlotTables<Ch>& t, SlotOut out, int P, int L, int W) {
+  if (L < 1 || L > KERNEL_MAX_L) return;
+  if (W == 3) host_slots_w<Ch, 3>(t, out, P, L);
+  if (W == 6) host_slots_w<Ch, 6>(t, out, P, L);
+  if (W == 12) host_slots_w<Ch, 12>(t, out, P, L);
+}
+}  // namespace
+
+// the slot entry on the host, arguments as analiticcl_dl_lcs_slots's
+extern "C" void analiticcl_dl_lcs_slots_host(
+    const void* q, const void* pc, const void* valid, const void* norms2,
+    const void* norm_lens, const void* first_lower, const void* q_norms,
+    const void* q_lens, const void* q_first_lower, const void* k_ed,
+    int elem_bytes, void* metrics, void* same_first, int P, int L, int W) {
+  SlotOut out{(int*)metrics, (unsigned char*)same_first};
+  if (elem_bytes == 1)
+    host_slots(slot_tables<signed char>(q, pc, valid, norms2, norm_lens,
+                                        first_lower, q_norms, q_lens,
+                                        q_first_lower, k_ed),
+               out, P, L, W);
+  if (elem_bytes == 4)
+    host_slots(slot_tables<int>(q, pc, valid, norms2, norm_lens, first_lower,
+                                q_norms, q_lens, q_first_lower, k_ed),
+               out, P, L, W);
 }
 
 // the same DP on int cells

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds, not minutes)::
+seconds, not minutes; :func:`load_all` runs one ``nvcc`` per source at
+once)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>_<hash>.so csrc/<name>.cu
@@ -44,6 +45,18 @@ _I = ctypes.c_int
 SIGNATURES = {
     "dl_lcs": {
         "analiticcl_dl_lcs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "analiticcl_dl_lcs_slots": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # slots and tables
+            _I, _P, _P,  # table element bytes, outputs
+            _I, _I, _I, _P,  # P, L, W, stream
+        ],
+    },
+    "resolve": {
+        "analiticcl_resolve": [
+            _P, _P, _P, _P,  # inputs
+            _P, _P, _P, _P, _P, _P,  # outputs, scratch
+            _I, _I, _I, _I, _P,  # B, M_band, bt, P, stream
+        ],
     },
     "stage_a": {
         "analiticcl_stage_a": [
@@ -111,6 +124,16 @@ def load(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     _libs[name] = lib
     return lib
+
+
+def load_all(names) -> None:
+    """Load the kernel libraries ``names``, building those not yet built
+    at once: one ``nvcc`` per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        list(pool.map(load, names))
 
 
 def ptxas_report(name: str) -> str:

@@ -1,6 +1,6 @@
 """Stage B metrics: windowed Damerau-Levenshtein + LCS, prefix and suffix.
 
-Three functions:
+On pair strings, three functions:
 
 * :func:`dl_metrics_windowed_plain` is the plain PyTorch version, a port of
   the JAX row-vectorized DP (``analiticcl_tpu/ops/dl_jax.py``,
@@ -20,9 +20,23 @@ Exactness contract (shared with the JAX package): where the true unrestricted
 DL is <= ``window`` the value is exact; otherwise it is some value > ``window``.
 The kernel and the plain version may differ above ``window``; a comparison
 clips both at ``window + 1``. The LCS is exact everywhere.
+
+On stage B's pair slots (the query and device row of each slot, from the
+slot resolve), the main path's entry:
+
+* :func:`dl_lcs_slots` launches the kernel's slot entry for CUDA tensors:
+  each thread reads its slot's two strings by row from the index's and the
+  batch's tables and gives DL + LCS, prefix, suffix and the per-pair
+  attributes stage B scores with, with no ``[P, L]`` strings in between.
+  For CPU tensors it takes :func:`dl_lcs_slots_plain`, the composition of
+  :func:`gather_pairs`, :func:`dl_metrics_windowed_plain` and
+  :func:`affix_metrics_aligned`. Both agree exactly, above ``window`` too:
+  the slot entry runs the same DP on the same strings.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -182,3 +196,155 @@ def dl_lcs(a, a_len, b, b_len, max_len: int, window: int):
 
 
 dl_lcs.launches = 0
+
+
+class PairInputs(NamedTuple):
+    a: torch.Tensor  # int32 [P, L] query strings, PAD_A padded
+    ql: torch.Tensor  # int32 [P]
+    b: torch.Tensor  # int32 [P, L] candidate strings, PAD_B padded
+    cl: torch.Tensor  # int32 [P]
+    a_rev: torch.Tensor  # reversed, left-aligned query strings
+    b_rev: torch.Tensor  # reversed, left-aligned candidate strings
+    k_ed: torch.Tensor  # int32 [P] the pair's query edit threshold
+    same_first: torch.Tensor  # bool [P]: both first letters lowercase, or neither
+
+
+def gather_pairs(index, q_norms, q_lens, k_ed, q_first_lower, pq, pc,
+                 valid) -> PairInputs:
+    """Per-pair strings and attributes from the index's tables (``index`` a
+    ``convert.DeviceIndex``) and the batch's, one gather per side: each
+    side's columns are concatenated into one int32 table first
+    (``analiticcl_tpu/ops/pipeline.py:594-639``). Slots outside ``valid``
+    get empty strings, as in the JAX core."""
+    i32 = torch.int32
+    L = index.norms2.shape[1] // 2
+    pos = torch.arange(L, dtype=i32, device=q_norms.device)
+    # reversed query strings; columns past the length are masked below
+    rev = torch.gather(q_norms, 1, (q_lens[:, None] - 1 - pos).clamp_(min=0)
+                       .long())
+    cg = torch.cat(
+        [index.norms2.to(i32), index.norm_lens[:, None],
+         index.first_lower[:, None].to(i32)], 1,
+    )[pc]
+    qg = torch.cat(
+        [q_norms.to(i32), rev.to(i32), q_lens[:, None], k_ed[:, None],
+         q_first_lower[:, None].to(i32)], 1,
+    )[pq]
+    ql = torch.where(valid, qg[:, 2 * L], 0)
+    cl = torch.where(valid, cg[:, 2 * L], 0)
+    q_in = pos < ql[:, None]
+    c_in = pos < cl[:, None]
+    return PairInputs(
+        a=torch.where(q_in, qg[:, :L], PAD_A),
+        ql=ql,
+        b=torch.where(c_in, cg[:, :L], PAD_B),
+        cl=cl,
+        a_rev=torch.where(q_in, qg[:, L : 2 * L], PAD_A),
+        b_rev=torch.where(c_in, cg[:, L : 2 * L], PAD_B),
+        k_ed=qg[:, 2 * L + 1],
+        same_first=cg[:, 2 * L + 1] == qg[:, 2 * L + 2],
+    )
+
+
+class SlotMetrics(NamedTuple):
+    """Stage B's per-slot inputs to the score, int32 ``[P]`` but
+    ``same_first``."""
+
+    ld: torch.Tensor
+    lcs: torch.Tensor
+    pf: torch.Tensor  # common prefix length
+    sf: torch.Tensor  # common suffix length
+    ql: torch.Tensor  # the query's length, 0 for an invalid slot
+    k_ed: torch.Tensor  # the query's edit threshold
+    same_first: torch.Tensor  # bool: both first letters lowercase, or neither
+
+
+def dl_lcs_slots_plain(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
+                       valid, window: int) -> SlotMetrics:
+    """The slot entry's plain version: the pair strings gathered
+    (:func:`gather_pairs`), then DL + LCS and the affixes on them."""
+    pr = gather_pairs(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
+                      valid)
+    L = pr.a.shape[1]
+    ld, lcs, _, _ = dl_metrics_windowed_plain(pr.a, pr.ql, pr.b, pr.cl, L,
+                                              window)
+    pf, sf = affix_metrics_aligned(pr.a, pr.ql, pr.b, pr.cl, pr.a_rev,
+                                   pr.b_rev)
+    return SlotMetrics(ld.to(torch.int32), lcs, pf, sf, pr.ql, pr.k_ed,
+                       pr.same_first)
+
+
+def _check_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid):
+    Ni, L2 = index.norms2.shape
+    B, L = q_norms.shape
+    P = q.shape[0]
+    want = {
+        "q": (q, torch.int32, (P,)), "pc": (pc, torch.int32, (P,)),
+        "valid": (valid, torch.bool, (P,)),
+        "norms2": (index.norms2, q_norms.dtype, (Ni, 2 * L)),
+        "norm_lens": (index.norm_lens, torch.int32, (Ni,)),
+        "first_lower": (index.first_lower, torch.bool, (Ni,)),
+        "q_lens": (q_lens, torch.int32, (B,)),
+        "k_ed": (k_ed, torch.int32, (B,)),
+        "q_first_lower": (q_first_lower, torch.bool, (B,)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"dl_lcs_slots: {name} is {t.dtype} {tuple(t.shape)}, "
+                f"wants contiguous {dtype} {shape}"
+            )
+        if t.device != q.device:
+            raise ValueError(f"dl_lcs_slots: {name} on {t.device}, q on "
+                             f"{q.device}")
+    if q_norms.dtype not in (torch.int8, torch.int32) \
+            or not q_norms.is_contiguous() or q_norms.device != q.device:
+        raise ValueError(f"dl_lcs_slots: q_norms is {q_norms.dtype} on "
+                         f"{q_norms.device}, wants contiguous int8 or int32 "
+                         f"on {q.device}")
+    return P, L
+
+
+def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
+                 window: int) -> SlotMetrics:
+    """Stage B's metrics of the ``P`` slots ``(q, pc, valid)`` over the
+    index's rows (``index.norms2``, ``norm_lens``, ``first_lower``) and the
+    batch's (``q_norms``, ``q_lens``, ``k_ed``, ``q_first_lower``): the
+    kernel's slot entry for CUDA tensors, :func:`dl_lcs_slots_plain` for
+    CPU tensors. A launch adds to :func:`dl_lcs`'s count as well: it is the
+    same kernel's DP."""
+    P, L = _check_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
+                        valid)
+    dev = q.device
+    if dev.type == "cpu":
+        return dl_lcs_slots_plain(index, q_norms, q_lens, k_ed,
+                                  q_first_lower, q, pc, valid, window)
+    if dev.type != "cuda":
+        raise ValueError(f"dl_lcs_slots: unsupported device {dev}")
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"dl_lcs_slots kernel: window {window} not in "
+                         f"{KERNEL_WINDOWS}")
+    if L > KERNEL_MAX_LEN:
+        raise ValueError(f"dl_lcs_slots kernel: L={L} above the cap "
+                         f"{KERNEL_MAX_LEN}")
+    metrics = torch.empty((6, P), dtype=torch.int32, device=dev)
+    same_first = torch.empty(P, dtype=torch.bool, device=dev)
+    if P:
+        lib = _build.load("dl_lcs")
+        with torch.cuda.device(dev):
+            err = lib.analiticcl_dl_lcs_slots(
+                q.data_ptr(), pc.data_ptr(), valid.data_ptr(),
+                index.norms2.data_ptr(), index.norm_lens.data_ptr(),
+                index.first_lower.data_ptr(), q_norms.data_ptr(),
+                q_lens.data_ptr(), q_first_lower.data_ptr(), k_ed.data_ptr(),
+                q_norms.element_size(), metrics.data_ptr(),
+                same_first.data_ptr(), P, L, window,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        dl_lcs_slots.launches += 1
+        dl_lcs.launches += 1
+        _build.check(err, "dl_lcs_slots kernel launch")
+    return SlotMetrics(*metrics.unbind(), same_first)
+
+
+dl_lcs_slots.launches = 0

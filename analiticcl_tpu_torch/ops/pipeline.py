@@ -7,18 +7,22 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
   per-batch query arrays), the same pair budgets ``P`` (candidate-pair slots)
   and ``P2`` (survivor slots), and the same outputs ``o_q, o_c, o_ld, o_lcs,
   o_pf, o_sf, o_case`` (``[P2]``, unused slots filled with query ``B`` and
-  zeros), ``max_freq, total_match, total_keep``. Stage A and the DL+LCS DP
-  run in the hand-written kernels (``ops/stage_a.py``, ``ops/dl.py``) on
-  CUDA tensors; the glue between them is torch ops. It is the composition
+  zeros), ``max_freq, total_match, total_keep``. On CUDA tensors stage A
+  (K1, ``ops/stage_a.py``), the slot resolve (K3, :func:`resolve_pairs`)
+  and the pair loading with DL+LCS and the affixes (K2's slot entry,
+  ``ops/dl.py``) run in hand-written kernels; the score and the survivor
+  compaction after them are torch ops. It is the composition
   of :func:`query_stage_a` and :func:`query_stage_b`, which a sharded index
   (``parallel/mesh.py``) calls per shard, combining the shards' exact
   counts between them. Its ``stop_stage`` prefixes (:data:`STOP_STAGES`)
   end it after one stage with int32 checksums of that stage's outputs, as
   the JAX core's do: ``tools/profile_device_stages_torch.py`` times them.
 * Pair compaction is the JAX core's slot resolve (:func:`resolve_pairs`):
-  each of the P slots finds its 128-row block by a search over stage A's
-  per-block hit counts, then its byte and bit by popcount prefix sums over
-  the block's 16 bytes of hit bits. Survivors move into the P2 slots by a
+  slot ``p`` holds the ``p + 1``-th stage-A hit in query-major, then
+  band-row order. The kernel expands each query's hit bits into its slots
+  from an exclusive scan of the per-query totals; the plain version
+  (:func:`resolve_pairs_plain`) searches each slot's block and ranks its
+  bit. Survivors move into the P2 slots by a
   cumsum and a search (:func:`compact_slots`). A batch whose totals pass
   its budgets comes back truncated query-major, as in JAX, and is re-run.
   Nothing between ``submit``'s entry and its return waits for the card.
@@ -40,7 +44,7 @@ leaves out:
 * the cross-process budget-hint file: it saved TPU compiles, and PyTorch
   compiles nothing per budget;
 * the radix descents of the resolve (``_searchsorted_radix`` and the block
-  descent): ``torch.searchsorted`` is the same search on the card;
+  descent): the kernel expands the hits instead of searching for them;
 * the packed output buffer's int32 bitcasts and run-length query bounds
   (``_pack_query_out``): the port packs the outputs' bytes as they are;
 * the ``max_B`` batch ceiling, the band-width compile ceiling with its
@@ -76,7 +80,8 @@ from ..utils.native import fastemit_build_result_lists, rank_tail_native
 from ..utils.profiling import StageTimer
 from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
 from ..device import resolve_device
-from .dl import PAD_A, PAD_B, affix_metrics_aligned, dl_lcs
+from . import _build
+from .dl import dl_lcs_slots
 from .rank_batch import rank_fast_batch
 from .ranked import RankedResults
 from .stage_a import ROW_BLOCK, _b_tile, stage_a_masks
@@ -166,17 +171,16 @@ def _byte_tables(dev) -> _ByteTables:
     return tabs
 
 
-def resolve_pairs(packed_q, counts_t, start_blk, Ni_pad: int, P: int):
-    """The (query, band row, device row) of each of ``P`` pair slots, the
-    validity of each slot, and the hit total: slot ``p`` holds the
-    ``p + 1``-th stage-A hit in query-major, then band-row order, the
-    reference's gather order (the JAX core's resolve,
-    ``analiticcl_tpu/ops/pipeline.py:450-592``).
+def resolve_pairs_plain(packed_q, counts_t, nmatch, start_blk, Ni_pad: int,
+                        P: int):
+    """:func:`resolve_pairs` as torch ops, one search per slot: the
+    kernel's plain version.
 
     The JAX core finds a slot's query by a search over the per-query totals,
     then its block by a search over that query's block counts. Both collapse
     into one search over the query-major cumsum of ``counts_t``, whose row
-    ends are the per-query totals. In the block's 16 bytes of hit bits, a
+    ends are the per-query totals (``nmatch``, which only the kernel reads).
+    In the block's 16 bytes of hit bits, a
     matrix product with a triangular matrix gives the popcount prefix sums
     (exact: small integers), which locate the byte; a table gives the bit.
     Slots past the total read the last block and are invalid: the JAX core
@@ -201,7 +205,71 @@ def resolve_pairs(packed_q, counts_t, start_blk, Ni_pad: int, P: int):
     q = fb // M_band
     pc_band = (fb % M_band) * HIT_BLOCK + byte * 8 + bit
     row0 = (start_blk.long() * ROW_BLOCK)[q // _b_tile(B, Ni_pad)]
-    return q, pc_band, row0 + pc_band, slot <= total, total
+    i32 = torch.int32
+    return (q.to(i32), pc_band.to(i32), (row0 + pc_band).to(i32),
+            slot <= total, total)
+
+
+def _check_resolve(packed_q, counts_t, nmatch, start_blk, Ni_pad):
+    B, nbytes = packed_q.shape
+    M_band = counts_t.shape[0]
+    bt = _b_tile(B, Ni_pad)
+    want = {
+        "packed_q": (packed_q, torch.uint8, (B, M_band * HIT_BLOCK // 8)),
+        "counts_t": (counts_t, torch.int32, (M_band, B)),
+        "nmatch": (nmatch, torch.int32, (B,)),
+        "start_blk": (start_blk, torch.int32, (B // bt,)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"resolve_pairs: {name} is {t.dtype} {tuple(t.shape)}, "
+                f"wants contiguous {dtype} {shape}"
+            )
+        if t.device != packed_q.device:
+            raise ValueError(f"resolve_pairs: {name} on {t.device}, "
+                             f"packed_q on {packed_q.device}")
+    return B, M_band, bt
+
+
+def resolve_pairs(packed_q, counts_t, nmatch, start_blk, Ni_pad: int,
+                  P: int):
+    """The (query, band row, device row) of each of ``P`` pair slots, int32,
+    the validity of each slot, and the int64 hit total: slot ``p`` holds the
+    ``p + 1``-th stage-A hit in query-major, then band-row order, the
+    reference's gather order (the JAX core's resolve,
+    ``analiticcl_tpu/ops/pipeline.py:450-592``). Hits past ``P`` are
+    dropped; the total counts them. Slots past the total hold the last
+    query and the last row of its band. Kernel K3 (``csrc/resolve.cu``, two
+    launches) for CUDA tensors, :func:`resolve_pairs_plain` for CPU
+    tensors; both give the same slots."""
+    B, M_band, bt = _check_resolve(packed_q, counts_t, nmatch, start_blk,
+                                   Ni_pad)
+    dev = packed_q.device
+    if dev.type == "cpu":
+        return resolve_pairs_plain(packed_q, counts_t, nmatch, start_blk,
+                                   Ni_pad, P)
+    if dev.type != "cuda":
+        raise ValueError(f"resolve_pairs: unsupported device {dev}")
+    slots = torch.empty((3, P), dtype=torch.int32, device=dev)
+    valid = torch.empty(P, dtype=torch.bool, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    base = torch.empty(B, dtype=torch.int64, device=dev)  # scratch
+    lib = _build.load("resolve")
+    with torch.cuda.device(dev):
+        err = lib.analiticcl_resolve(
+            packed_q.data_ptr(), counts_t.data_ptr(), nmatch.data_ptr(),
+            start_blk.data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
+            slots[2].data_ptr(), valid.data_ptr(), total.data_ptr(),
+            base.data_ptr(), B, M_band, bt, P,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    resolve_pairs.launches += 1
+    _build.check(err, "resolve kernel launch")
+    return slots[0], slots[1], slots[2], valid, total
+
+
+resolve_pairs.launches = 0
 
 
 def compact_slots(keep, payload, P2: int, fill: int):
@@ -219,53 +287,6 @@ def compact_slots(keep, payload, P2: int, fill: int):
     out = torch.where(valid, payload[:, idx.clamp_(max=n - 1)], 0)
     out[0] = torch.where(valid, out[0], fill)
     return out, csum[-1]
-
-
-class PairInputs(NamedTuple):
-    a: torch.Tensor  # int32 [P, L] query strings, PAD_A padded
-    ql: torch.Tensor  # int32 [P]
-    b: torch.Tensor  # int32 [P, L] candidate strings, PAD_B padded
-    cl: torch.Tensor  # int32 [P]
-    a_rev: torch.Tensor  # reversed, left-aligned query strings
-    b_rev: torch.Tensor  # reversed, left-aligned candidate strings
-    k_ed: torch.Tensor  # int32 [P] the pair's query edit threshold
-    same_first: torch.Tensor  # bool [P]: both first letters lowercase, or neither
-
-
-def gather_pairs(index: DeviceIndex, q_norms, q_lens, k_ed, q_first_lower,
-                 pq, pc, valid) -> PairInputs:
-    """Per-pair strings and attributes, one gather per side: each side's
-    columns are concatenated into one int32 table first
-    (ops/pipeline.py:594-639). Slots outside ``valid`` get empty strings, as
-    in the JAX core."""
-    i32 = torch.int32
-    L = index.norms2.shape[1] // 2
-    pos = torch.arange(L, dtype=i32, device=q_norms.device)
-    # reversed query strings; columns past the length are masked below
-    rev = torch.gather(q_norms, 1, (q_lens[:, None] - 1 - pos).clamp_(min=0)
-                       .long())
-    cg = torch.cat(
-        [index.norms2.to(i32), index.norm_lens[:, None],
-         index.first_lower[:, None].to(i32)], 1,
-    )[pc]
-    qg = torch.cat(
-        [q_norms.to(i32), rev.to(i32), q_lens[:, None], k_ed[:, None],
-         q_first_lower[:, None].to(i32)], 1,
-    )[pq]
-    ql = torch.where(valid, qg[:, 2 * L], 0)
-    cl = torch.where(valid, cg[:, 2 * L], 0)
-    q_in = pos < ql[:, None]
-    c_in = pos < cl[:, None]
-    return PairInputs(
-        a=torch.where(q_in, qg[:, :L], PAD_A),
-        ql=ql,
-        b=torch.where(c_in, cg[:, :L], PAD_B),
-        cl=cl,
-        a_rev=torch.where(q_in, qg[:, L : 2 * L], PAD_A),
-        b_rev=torch.where(c_in, cg[:, L : 2 * L], PAD_B),
-        k_ed=qg[:, 2 * L + 1],
-        same_first=cg[:, 2 * L + 1] == qg[:, 2 * L + 2],
-    )
 
 
 class StageA(NamedTuple):
@@ -290,10 +311,10 @@ def _check_stop(stop_stage: Optional[str], allowed: Tuple[str, ...]) -> None:
         return
     if stop_stage in ("resolve_pre", "resolve_tables"):
         raise ValueError(
-            f"stop_stage {stop_stage!r} has no stage in the port: it resolves "
-            "a slot in one search over the query-major cumsum of stage A's "
-            "block counts (resolve_pairs), with no per-query search or radix "
-            "tables before it; stop at 'resolve' instead"
+            f"stop_stage {stop_stage!r} has no stage in the port: it "
+            "expands stage A's hits into their slots from a scan of the "
+            "per-query totals (resolve_pairs), with no per-query search or "
+            "radix tables before it; stop at 'resolve' instead"
         )
     raise ValueError(f"stop_stage {stop_stage!r} is not one of {allowed}")
 
@@ -301,13 +322,15 @@ def _check_stop(stop_stage: Optional[str], allowed: Tuple[str, ...]) -> None:
 def probe(*tensors) -> tuple:
     """int32 checksums standing in for a stage's outputs: each tensor cast
     to int32 and summed with int32 wrap-around, the JAX core's
-    ``jnp.sum(a.astype(jnp.int32))``."""
-    out = []
-    for t in tensors:
-        s = t.to(torch.int32).sum(dtype=torch.int64)
-        out.append(torch.remainder(s + 2**31, 2**32).sub_(2**31)
-                   .to(torch.int32))
-    return tuple(out)
+    ``jnp.sum(a.astype(jnp.int32))``. A tensor of at most 32-bit integers
+    (or bools) is summed as it is, which gives the same sum; the sums wrap
+    together, so a probe costs one reduction per tensor and five more ops
+    on the card, whatever its tensors' count."""
+    sums = torch.stack([
+        (t.to(torch.int32) if t.dtype.itemsize > 4 or t.dtype.is_floating_point
+         else t).sum(dtype=torch.int64) for t in tensors])
+    return tuple(torch.remainder(sums + 2**31, 2**32).sub_(2**31)
+                 .to(torch.int32).unbind())
 
 
 def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,
@@ -386,30 +409,30 @@ def query_stage_b(
     stop_stage: Optional[str] = None,
 ):
     """Stage B of :func:`query_core` over stage A's hits in ``index``: the
-    slot resolve at ``P``, the gathers, DL + LCS (kernel K2), the affixes,
-    the f32 score and survivor compaction into ``P2`` slots. ``use_exact``
-    is separate because under a sharded index it depends on every shard's
-    exact count. ``stop_stage`` (one of :data:`STAGE_B_STOPS`) ends it
-    after that stage with the probes the JAX core gives there."""
+    slot resolve at ``P`` (kernel K3), the pair loading, DL + LCS and the
+    affixes (K2's slot entry), the f32 score and survivor compaction into
+    ``P2`` slots. ``use_exact`` is separate because under a sharded index it
+    depends on every shard's exact count. ``stop_stage`` (one of
+    :data:`STAGE_B_STOPS`) ends it after that stage with the probes the JAX
+    core gives there."""
     _check_stop(stop_stage, STAGE_B_STOPS)
     packed_q = sa.packed_q
     dev = packed_q.device
     B = packed_q.shape[0]
+    L = q_norms.shape[1]
     Ni_pad = index.bins.shape[0]
     q, pc_band, pc, pvalid, total_match = resolve_pairs(
-        packed_q, sa.counts_t, start_blk, Ni_pad, P
+        packed_q, sa.counts_t, sa.nmatch, start_blk, Ni_pad, P
     )
     if stop_stage == "resolve":
         # the JAX core masks the slots past the total (query B, row 0)
         return probe(torch.where(pvalid, q, B),
                      torch.where(pvalid, pc.clamp(max=Ni_pad - 1), 0))
-    pr = gather_pairs(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
-                      pvalid)
-    a, ql, b, cl = pr.a, pr.ql, pr.b, pr.cl
 
-    # ---- stage B: DL + LCS (kernel K2), prefix/suffix as torch ops ----
-    ld, lcs = dl_lcs(a, ql, b, cl, a.shape[1], window)
-    pf, sf = affix_metrics_aligned(a, ql, b, cl, pr.a_rev, pr.b_rev)
+    # ---- stage B: the pairs' strings, DL + LCS and the affixes (K2) ----
+    m = dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
+                     pvalid, window)
+    ld, lcs, pf, sf, ql = m.ld, m.lcs, m.pf, m.sf, m.ql
     if stop_stage == "gather_dl":
         return probe(ld, lcs, pf, sf)
 
@@ -418,7 +441,7 @@ def query_stage_b(
     lcs = torch.where(w_lcs > 0, lcs, 0)
     pf = torch.where(w_pf > 0, pf, 0)
     sf = torch.where(w_sf > 0, sf, 0)
-    samecase = torch.where(w_case > 0, pr.same_first, True)
+    samecase = torch.where(w_case > 0, m.same_first, True)
     qlen_f = ql.clamp(min=1).to(torch.float32)
     ds = torch.where(ld > ql, 0.0, 1.0 - ld.to(torch.float32) / qlen_f)
     score = (
@@ -429,7 +452,7 @@ def query_stage_b(
         + torch.where(samecase, w_case, 0.0)
     ) / w_sum
 
-    pass_ed = pvalid & (ld <= pr.k_ed)
+    pass_ed = pvalid & (ld <= m.k_ed)
     if use_stop_exact:
         # StopAtExactMatch (lib.rs:1158-1174): queries with an exact anagram
         # keep only their exact pairs
@@ -443,7 +466,7 @@ def query_stage_b(
     # Slots outside ``pass_ed`` add 0, the initial value.
     if have_freq:
         max_freq = torch.zeros(B, dtype=torch.int64, device=dev).scatter_reduce(
-            0, q, torch.where(pass_ed, index.freqs[pc], 0), "amax"
+            0, q.long(), torch.where(pass_ed, index.freqs[pc], 0), "amax"
         )
     else:
         max_freq = torch.ones(B, dtype=torch.int64, device=dev)
@@ -453,11 +476,11 @@ def query_stage_b(
     # ---- survivor compaction into P2 slots, order kept; unused slots hold
     # query B and zeros ----
     out, total_keep = compact_slots(
-        keep, torch.stack([q.to(torch.int32), pc.to(torch.int32), ld, lcs, pf,
-                           sf, samecase.to(torch.int32)]), P2, B,
+        keep, torch.stack([q, pc, ld, lcs, pf, sf,
+                           samecase.to(torch.int32)]), P2, B,
     )
     # kept pairs have ld <= 12 and lcs/prefix/suffix <= L: uint8 below L 256
-    met = out[2:].to(torch.uint8) if a.shape[1] < 256 else out[2:]
+    met = out[2:].to(torch.uint8) if L < 256 else out[2:]
     if stop_stage == "compact_sum":
         return probe(out[0], out[1], *met)
     return (

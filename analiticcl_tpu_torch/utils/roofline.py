@@ -11,13 +11,21 @@ at the zero columns the device layout pads them to. The parts:
 * **K1** (stage A): the int8 multiply-adds of the binarized planes,
   ``2 * B * Nb * AT`` operations, against the band rows, the query planes
   and the hit bits, counts and totals;
+* **K3** (the slot resolve): bytes only: the per-query totals, the band
+  starts and the block counts read once, the hit bits of the blocks that
+  reach a slot read once, and the P slots (query, band row, device row,
+  validity) and the total written once;
 * **K2** (DL + LCS): about 10 32-bit operations per banded DL cell and 3 per
-  LCS cell of each valid pair, against the pairs' strings and lengths in and
-  both metrics out; at the valid pairs and at the budget's P slots;
-* **the glue** (slot resolve, gathers, affixes, score, compaction): bytes
-  only: the hit bits and block counts read once, the query rows and the
-  candidate rows the pairs touch read once, the ``[P2]`` survivor columns,
-  the ``[B]`` frequency maxima and the two totals written once.
+  LCS cell of each valid pair. ``k2_valid`` is the pair-string entry at the
+  valid pairs (the strings and lengths in, both metrics out); ``k2_slots``
+  the slot entry the main path runs at the budget's P slots: the slots in,
+  the query rows and the candidate rows the valid pairs touch read once,
+  the six int32 metrics and the case flag of every slot out;
+* **the glue** (the score and the survivor compaction, torch ops): bytes
+  only: K3's slots and K2's metrics read once, the exact bits under
+  StopAtExactMatch and the touched rows' frequencies read once, the
+  ``[P2]`` survivor columns, the ``[B]`` frequency maxima and the two
+  totals written once.
 
 The parts' floors count the data that passes between them (K1's bits and
 counts, the pair strings) as memory traffic. **The program** does not: it
@@ -108,20 +116,62 @@ def k1_bound_ms(at: int, B: int, start_blk, nb_band: int,
     return k1_work(at, B, start_blk, nb_band).bound_ms(peaks)
 
 
+def _dl_ops(a_len, b_len, L: int, W: int) -> float:
+    """About 10 operations per banded DL cell (``a_len * (2W + 3)`` cells)
+    and 3 per LCS cell (``a_len * b_len``); empty pairs cost none."""
+    al = a_len.clamp(max=L).double()
+    return float((10 * al * (2 * W + 3) + 3 * al * b_len.clamp(max=L)).sum())
+
+
 def k2_work(a_len, b_len, L: int, W: int) -> Work:
     """DL + LCS on these pairs: both int32 strings, both lengths and both
-    outputs per pair; about 10 operations per banded DL cell (``a_len *
-    (2W + 3)`` cells) and 3 per LCS cell (``a_len * b_len``). Empty slots
-    cost their bytes and no operations."""
+    outputs per pair, and :func:`_dl_ops`. Empty slots cost their bytes and
+    no operations."""
     P = a_len.shape[0]
-    al = a_len.clamp(max=L).double()
-    ops = float((10 * al * (2 * W + 3) + 3 * al * b_len.clamp(max=L)).sum())
-    return Work(P * (8 * L + 16), int32_ops=ops)
+    return Work(P * (8 * L + 16), int32_ops=_dl_ops(a_len, b_len, L, W))
 
 
 def k2_bound_ms(a_len, b_len, L: int, W: int, peaks: Peaks = H100_SXM):
     """The least time of the DL + LCS kernel on these pairs, and its bound."""
     return k2_work(a_len, b_len, L, W).bound_ms(peaks)
+
+
+# bytes per slot: K3 writes query, band row and device row (int32) and the
+# validity; the slot entry writes six int32 metrics and the case flag
+SLOT_BYTES = 13
+METRIC_BYTES = 25
+
+
+def k3_work(counts_t, nmatch, start_blk, P: int) -> Work:
+    """The slot resolve on these inputs: ``nmatch``, ``start_blk`` and
+    ``counts_t`` read once, the 16 bytes of hit bits of each non-empty
+    128-row block whose first slot is below ``P`` (the blocks the kernel
+    expands), the ``P`` slots and the int64 total written once."""
+    counts = counts_t.t().reshape(-1).long()  # query-major
+    first = torch.cumsum(counts, 0) - counts
+    blocks = int(((counts > 0) & (first < P)).sum())
+    nbytes = (4 * nmatch.numel() + 4 * start_blk.numel()
+              + 4 * counts_t.numel() + 16 * blocks + SLOT_BYTES * P + 8)
+    return Work(nbytes)
+
+
+def k3_bound_ms(counts_t, nmatch, start_blk, P: int,
+                peaks: Peaks = H100_SXM):
+    """The least time of the slot resolve on these inputs, and its bound."""
+    return k3_work(counts_t, nmatch, start_blk, P).bound_ms(peaks)
+
+
+def k2_slots_work(ql, cl, P: int, L: int, W: int, norm_bytes: int,
+                  n_queries: int, cand_rows: int) -> Work:
+    """K2's slot entry at ``P`` slots whose valid ones have the lengths
+    ``ql``, ``cl``: each slot's query, row and validity in; each of the
+    ``n_queries`` query rows (string, length, threshold, case flag) and
+    ``cand_rows`` candidate rows (string, length, case flag) the valid
+    pairs touch read once; every slot's metrics written once; and
+    :func:`_dl_ops` on the valid pairs."""
+    nbytes = (P * (9 + METRIC_BYTES) + n_queries * (L * norm_bytes + 9)
+              + cand_rows * (L * norm_bytes + 5))
+    return Work(nbytes, int32_ops=_dl_ops(ql, cl, L, W))
 
 
 def _cand_row_bytes(L: int, norm_bytes: int, have_freq: bool) -> int:
@@ -136,16 +186,16 @@ def _output_bytes(B: int, P2: int) -> int:
     return P2 * 13 + 8 * B + 16
 
 
-def glue_work(B: int, Nb: int, P2: int, L: int, norm_bytes: int,
-              cand_rows: int, have_freq: bool, exact_bits: bool) -> Work:
-    """The least bytes of the torch ops between and after the kernels:
-    stage A's hit bits (and exact bits under StopAtExactMatch) and block
-    counts read once; each query row (string, length, threshold, case flag)
-    and each candidate row the pairs touch read once; the core's outputs
-    written once."""
-    bits = B * Nb // 8 * (2 if exact_bits else 1)
-    reads = (bits + 4 * (Nb // 128) * B + B * (L * norm_bytes + 9)
-             + cand_rows * _cand_row_bytes(L, norm_bytes, have_freq))
+def glue_work(B: int, Nb: int, P: int, P2: int, cand_rows: int,
+              have_freq: bool, exact_bits: bool) -> Work:
+    """The least bytes of the torch ops after the kernels (the score and
+    the survivor compaction): K3's ``P`` slots and the slot entry's metrics
+    read once; under StopAtExactMatch stage A's exact bits and the
+    per-query flags, and with frequencies those of the ``cand_rows`` rows
+    the pairs touch, read once; the core's outputs written once."""
+    reads = (P * (SLOT_BYTES + METRIC_BYTES)
+             + ((B * Nb // 8 + B) if exact_bits else 0)
+             + (8 * cand_rows if have_freq else 0))
     return Work(reads + _output_bytes(B, P2))
 
 
@@ -169,8 +219,9 @@ class BatchFloor(NamedTuple):
     """One batch's parts and the program, as work."""
 
     k1: Work
-    k2_valid: Work
-    k2_slots: Work
+    k3: Work
+    k2_valid: Work  # the pair-string entry at the valid pairs
+    k2_slots: Work  # the slot entry at the budget's P slots
     glue: Work
     program: Work
     n_valid: int
@@ -186,40 +237,46 @@ class BatchFloor(NamedTuple):
 
     @property
     def parts_ms(self) -> float:
-        """K1 + K2 at the valid pairs + glue: the program with the data
-        between its stages counted as memory traffic."""
-        return sum(self.ms(p)[0] for p in ("k1", "k2_valid", "glue"))
+        """K1 + K3 + K2's slot entry + glue, the main path's parts: the
+        program with the data between its stages counted as memory
+        traffic."""
+        return sum(self.ms(p)[0] for p in ("k1", "k3", "k2_slots", "glue"))
 
 
 def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
                 use_stop_exact: bool, have_freq: bool,
                 peaks: Peaks = H100_SXM) -> BatchFloor:
     """Count one batch of ``query_core`` (its arguments ``args`` on the
-    index ``index``, at budgets P and P2): stage A runs once and the slot
-    resolve and gathers once, to find the valid pairs, their lengths and the
+    index ``index``, at budgets P and P2): stage A and the slot resolve run
+    once, to find the valid pairs, their lengths, and the query and
     candidate rows they touch."""
-    from ..ops.pipeline import gather_pairs, query_stage_a, resolve_pairs
+    from ..ops.pipeline import query_stage_a, resolve_pairs
 
-    (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
+    (q_counts, q_cc, q_norms, q_lens, _q_fl, k_ana, _k_ed, k_len, _se,
      start_blk, _w, _thr) = args
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
                        nb_band)
-    q, _pcb, pc, valid, total = resolve_pairs(
-        sa.packed_q, sa.counts_t, start_blk, index.bins.shape[0], P)
-    pr = gather_pairs(index, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
+    q, _pcb, pc, _valid, total = resolve_pairs(
+        sa.packed_q, sa.counts_t, sa.nmatch, start_blk, index.bins.shape[0],
+        P)
     n_valid = min(int(total), P)
     cand_rows = int(torch.unique(pc[:n_valid]).numel())
-    L = pr.a.shape[1]
+    n_queries = int(torch.unique(q[:n_valid]).numel())
+    ql = q_lens[q[:n_valid].long()]
+    cl = index.norm_lens[pc[:n_valid].long()]
+    L = q_norms.shape[1]
     B = q_lens.shape[0]
     nbytes = q_norms.element_size()
     k1 = k1_work(index.at, B, start_blk, nb_band)
-    k2_valid = k2_work(pr.ql[:n_valid], pr.cl[:n_valid], L, window)
+    k2_valid = k2_work(ql, cl, L, window)
     return BatchFloor(
         k1=k1,
+        k3=k3_work(sa.counts_t, sa.nmatch, start_blk, P),
         k2_valid=k2_valid,
-        k2_slots=k2_work(pr.ql, pr.cl, L, window),
-        glue=glue_work(B, nb_band * ROW_BLOCK, P2, L, nbytes, cand_rows,
-                       have_freq, use_stop_exact),
+        k2_slots=k2_slots_work(ql, cl, P, L, window, nbytes, n_queries,
+                               cand_rows),
+        glue=glue_work(B, nb_band * ROW_BLOCK, P, P2, cand_rows, have_freq,
+                       use_stop_exact),
         program=program_work(args, index.at, band_rows(start_blk, nb_band),
                              cand_rows, L, nbytes, have_freq, P2, k1,
                              k2_valid),

@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line: the card; the build of both CUDA kernels
-from ``analiticcl_tpu_torch/csrc`` (with ptxas's registers, shared memory
-and spills); the stage-A kernel against its plain PyTorch version (bit for
-bit) on seeded inputs with query tiles of 8, 64, 1,024 and (from 262,144
-index rows) 256, and at the main path's shapes; the DL+LCS kernel against
-its plain version (DL clipped at window + 1) on the main path's pairs at
-windows 3, 6 and 12, with the ptxas summary and the shared memory per block
-of each window's instance; CUDA-event and profiler times of both beside
-their bounds. Then the main path:
+Phases, each printing one line: the card; the build of the three CUDA
+sources in ``analiticcl_tpu_torch/csrc`` (one ``nvcc`` each, all at once;
+with ptxas's registers, shared memory and spills); the stage-A kernel (K1)
+against its plain PyTorch version (bit for bit) on seeded inputs with query
+tiles of 8, 64, 1,024 and (from 262,144 index rows) 256, and at the main
+path's shapes; on the main path's first batch the slot resolve (K3,
+``csrc/resolve.cu``) bit for bit and the DL+LCS kernel's slot entry (K2
+reading the pairs' strings from the tables) against their plain versions,
+at the batch's budget and at one below its hit total (the overflow); the
+DL+LCS kernel's pair-string entry against its plain version (DL clipped at
+window + 1) on the main path's pairs at windows 3, 6 and 12, with the
+ptxas summary and the shared memory per block of each window's instance;
+CUDA-event and profiler times of the four beside their bounds. Then the
+main path:
 ``VariantModel(device="cuda")`` over a seeded synthetic lexicon of
 eng.aspell's size, ``find_variants_stream`` over 16,384 corrupted queries,
 and 1,024 ratio-threshold queries that reach the W=12 window and the window
@@ -21,14 +26,14 @@ search mode over 4,096 lines of running text (``find_all_matches_stream``,
 bigram segments), the same with a seeded bigram language model whose
 bigrams the text holds, and learn mode (strict over 4,096 corrupted words,
 then over 512 lines, five corpora each), each held against the object-path
-consolidation or the host oracle, each holding both kernels against their
-plain versions on its own first lookup batch, and each required to launch
-both kernels. Then the CLI and the API (phase 9): the lexicon written to
+consolidation or the host oracle, each holding every kernel against its
+plain version on its own first lookup batch, and each required to launch
+every kernel. Then the CLI and the API (phase 9): the lexicon written to
 files under ``build/chip_smoke_cli/``, a model read and built from them as
-the CLI does it with both kernels held against their plain versions on its
+the CLI does it with every kernel held against its plain version on its
 first query batch, and ``cli.main`` in this process for ``query`` (TSV, ``--json`` and ``-C``
 with a seeded confusable list), ``search -N 2`` and ``learn --strict``,
-each required to launch both kernels, their output held byte for byte
+each required to launch every kernel, their output held byte for byte
 against the ``--backend oracle`` output on prefixes and the JSON against
 ``api.VariantModel.find_variants_par``. Then lexicon sharding (phase 10,
 ``parallel/mesh.py``, every mesh over ``cuda:0`` repeated): the main
@@ -40,13 +45,13 @@ a single-device 120k model, with equal links, frequencies and lookups
 after; and a seeded 1,000,000-entry lexicon on a 1x4 mesh: 4,096 queries
 in batches of 2,048 against its single-device pipeline and the oracle, a
 strict learn over 7,000 words, a re-shard and the oracle again. Each mesh
-path holds both kernels against their plain versions on its first batch's
+path holds every kernel against its plain version on its first batch's
 call of shard 0. Then profiling (phase 11): the ``stop_stage`` ladder of
 ``query_core`` on the main batch (enqueue, CUDA-event and profiler time and
 device ops per stop; the whole core after it equal to its outputs before),
 the batch's roofline (``utils/roofline.py``) beside the core's time by
 CUDA events and the main pass's wall time per batch, and one ``trace`` of two warm
-batches under ``build/chip_smoke_trace/`` that must name both kernels. The
+batches under ``build/chip_smoke_trace/`` that must name every kernel. The
 last two lines are the kernels' JSON record (stamped with the commit,
 launches per path) and ``{"ok": true, ...}``.
 
@@ -67,6 +72,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 SEED = 0
 N_LEXICON = 120_000  # eng.aspell holds 119,773 entries
@@ -98,6 +104,7 @@ K1_DIRECT = ((8, 32_768, 4), (64, 32_768, 8), (8192, 32_768, 8),
 STAGES = ("search_prepare", "host_prep", "dispatch", "device", "device_get",
           "host_tail", "search_consolidate", "host_oracle_fallback")
 BATCH_CUT = 1024  # batches of the cut-bucket run (one batch size, B=1024)
+KERNEL_SOURCES = ("stage_a", "dl_lcs", "resolve")  # csrc/<name>.cu
 N_LIGHT = 300  # queries of each light batch of the cut-bucket run
 
 
@@ -134,10 +141,11 @@ def time_ms(fn, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
-    """The device time per launch of the CUDA kernel whose name contains
-    ``kernel``, from one torch.profiler window over ``reps`` calls of
-    ``fn`` (the kernel alone, without its wrapper's host work)."""
+def device_ms(fn, kernel: str, reps: int, per_call: int = 1) -> float:
+    """The device time per call of ``fn`` in the CUDA kernels whose names
+    contain ``kernel`` (``per_call`` launches of them per call), from one
+    torch.profiler window over ``reps`` calls of ``fn`` (the kernels alone,
+    without their wrapper's host work)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,30 +161,44 @@ def device_ms(fn, kernel: str, reps: int) -> float:
     # the trace can miss a launch's record (9 of 10 seen on an H100 with
     # torch 2.11), never add one: the mean over the records it kept is the
     # time per launch
-    if not reps // 2 <= len(spans) <= reps:
+    if not reps * per_call // 2 <= len(spans) <= reps * per_call:
         raise SystemExit(f"profiler saw {len(spans)} launches of {kernel}, "
-                         f"not {reps}")
-    return sum(tr.end - tr.start for tr in spans) / len(spans) / 1e3
+                         f"not {reps * per_call}")
+    return (sum(tr.end - tr.start for tr in spans) / len(spans) * per_call
+            / 1e3)
+
+
+def counted_wrappers() -> dict:
+    """Each kernel's name in the ``kernels`` record and the wrapper that
+    counts its launches: K1, K2 (either entry; the main path runs the slot
+    entry, which adds to both its own count and K2's), K3 and K2's slot
+    entry."""
+    from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_lcs_slots
+    from analiticcl_tpu_torch.ops.pipeline import resolve_pairs
+    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+
+    return {"stage_a": stage_a_masks, "dl_lcs": dl_lcs,
+            "resolve": resolve_pairs, "dl_lcs_slots": dl_lcs_slots}
+
+
+# the device kernel name (a part of it) each count's launches run under
+TRACE_NAMES = {"stage_a": "stage_a_kernel", "dl_lcs": "dl_lcs",
+               "resolve": "resolve_expand_kernel",
+               "dl_lcs_slots": "dl_lcs_slots_kernel"}
 
 
 def launch_counts() -> dict:
-    from analiticcl_tpu_torch.ops.dl import dl_lcs
-    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
-
-    return {"stage_a": stage_a_masks.launches, "dl_lcs": dl_lcs.launches}
+    return {k: fn.launches for k, fn in counted_wrappers().items()}
 
 
 def reset_counts() -> None:
-    from analiticcl_tpu_torch.ops.dl import dl_lcs
-    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
-
-    stage_a_masks.launches = 0
-    dl_lcs.launches = 0
+    for fn in counted_wrappers().values():
+        fn.launches = 0
 
 
 def require_launches(phase: str) -> dict:
-    """The launch counts since the last reset; fails unless both kernels
-    were launched."""
+    """The launch counts since the last reset; fails unless every kernel
+    was launched."""
     counts = launch_counts()
     if min(counts.values()) <= 0:
         raise SystemExit(f"{phase}: a kernel was not launched: {counts}")
@@ -295,28 +317,80 @@ def prepared(pipe, lookups, params):
     return st
 
 
-def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
-                  start_blk):
-    """K2's input as ``query_stage_b`` builds it from stage A's outputs
-    ``sa``: the slot resolve at the budget a batch of size ``B`` runs with
-    (the sticky budget, escalated to cover these hits as ``collect``
-    escalates it), then the gathers. Returns the pair inputs, P and the
-    valid slots."""
+def stage_b_budget(pipe, B: int, sa) -> tuple:
+    """The pair budget a batch of size ``B`` with stage-A outputs ``sa``
+    runs with (the sticky budget, escalated to cover these hits as
+    ``collect`` escalates it), and the batch's hit total."""
     from analiticcl_tpu_torch.ops import pipeline as ppl
 
     total = int(sa.nmatch.sum())
-    P = max(pipe._budgets(B)[0], ppl._bucket(total, ppl.P_BUCKETS))
-    q, _pcb, pc, valid, _total = ppl.resolve_pairs(
-        sa.packed_q, sa.counts_t, start_blk, idx.bins.shape[0], P)
-    pr = ppl.gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
-    return pr, P, min(total, P)
+    return max(pipe._budgets(B)[0], ppl._bucket(total, ppl.P_BUCKETS)), total
+
+
+def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
+              q_fl, W: int):
+    """Hold K3 (the slot resolve) against its plain version on stage A's
+    outputs ``sa`` at budget ``P``, all five outputs bit for bit; then K2's
+    slot entry against its plain version (the gathers, the plain DL and
+    the affixes) on K3's slots: LCS, prefix, suffix, query length,
+    threshold and case flag bit for bit, DL clipped at ``W + 1`` (the
+    kernel's contract), and DL and LCS bit for bit against K2's
+    pair-string entry on the gathered strings (the same DP on the same
+    strings). Returns K3's slots, the pair strings and the valid count."""
+    import torch
+
+    from analiticcl_tpu_torch.ops import dl as tdl
+    from analiticcl_tpu_torch.ops import pipeline as ppl
+
+    r_args = (sa.packed_q, sa.counts_t, sa.nmatch, start_blk,
+              idx.bins.shape[0], P)
+    got = ppl.resolve_pairs(*r_args)
+    want = ppl.resolve_pairs_plain(*r_args)
+    torch.cuda.synchronize()
+    for n, g, w in zip(("q", "pc_band", "pc", "valid", "total"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise SystemExit(f"{name}: resolve kernel differs from plain in "
+                             f"{n} at P={P}")
+    q, _pcb, pc, valid, total = got
+    s_args = (idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W)
+    m = tdl.dl_lcs_slots(*s_args)
+    mp = tdl.dl_lcs_slots_plain(*s_args)
+    pr = tdl.gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
+    ld_k2, lcs_k2 = tdl.dl_lcs(pr.a, pr.ql, pr.b, pr.cl, q_norms.shape[1], W)
+    torch.cuda.synchronize()
+    bad = [f for f, g, w in zip(tdl.SlotMetrics._fields[1:], m[1:], mp[1:])
+           if g.dtype != w.dtype or not torch.equal(g, w)]
+    if not torch.equal(m.ld.clamp(max=W + 1), mp.ld.clamp(max=W + 1)):
+        bad.append("ld")
+    if not (torch.equal(m.ld, ld_k2) and torch.equal(m.lcs, lcs_k2)):
+        bad.append("ld/lcs against the pair-string entry")
+    if bad:
+        raise SystemExit(f"{name}: dl_lcs slot entry differs from plain in "
+                         f"{bad} at P={P}, W={W}")
+    return got, pr, min(int(total), P)
+
+
+def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
+                  start_blk, W: int, name: str):
+    """K3's and K2's work as ``query_stage_b`` gives it from stage A's
+    outputs ``sa`` at the budget of a batch of size ``B``
+    (:func:`stage_b_budget`), both kernels held against their plain
+    versions on it (:func:`hold_glue`). Returns the gathered pair strings
+    (the pair-string entry's input), P, the valid slots and K3's slots."""
+    P, _total = stage_b_budget(pipe, B, sa)
+    slots, pr, n = hold_glue(name, idx, sa, start_blk, P, q_norms, q_lens,
+                             k_ed, q_fl, W)
+    return pr, P, n, slots
 
 
 def k2_main_pairs(pipe, queries, params):
-    """The main path's first batch of ``queries`` as K2 gets it (stage A on
-    the card, then the slot resolve and gathers of ``query_core`` at the
-    batch's budget): its P slots ``(a, al, b, bl)`` with the number of valid
-    ones, and its distinct pairs repeated to TARGET_PAIRS."""
+    """The main path's first batch of ``queries`` through stage A on the
+    card, then K3 and K2's slot entry held against their plain versions at
+    the batch's budget (W=3), and once more at a budget below its hit total
+    (the overflow). Returns K2's pair-string input: its P slots ``(a, al,
+    b, bl)``, the valid ones, and the distinct pairs repeated to
+    TARGET_PAIRS; and the batch (stage A's outputs, its arrays, P) for
+    timing K3 and the slot entry."""
     from analiticcl_tpu_torch.ops.pipeline import query_stage_a
 
     st = prepared(pipe, queries[:BATCH], params)
@@ -325,13 +399,104 @@ def k2_main_pairs(pipe, queries, params):
     idx = pipe.index
     sa = query_stage_a(idx, q_counts, q_cc, k_ana, k_len, start_blk,
                        st["nb_band"])
-    pr, P, n = stage_b_slots(pipe, idx, sa, st["B"], q_norms, q_lens, k_ed,
-                             q_fl, start_blk)
+    pr, P, n, _slots = stage_b_slots(pipe, idx, sa, st["B"], q_norms,
+                                     q_lens, k_ed, q_fl, start_blk, 3,
+                                     "main batch")
+    P_over = max(1, n // 2)
+    _s, _p, n_over = hold_glue("main batch overflow", idx, sa, start_blk,
+                               P_over, q_norms, q_lens, k_ed, q_fl, 3)
+    if n_over != P_over or n <= P_over:
+        raise SystemExit(f"overflow check: {n_over} valid of {P_over} slots "
+                         f"for {n} hits")
     slots = tuple(x.contiguous() for x in (pr.a, pr.ql, pr.b, pr.cl))
     reps = -(-TARGET_PAIRS // max(1, n))
     pairs = tuple(x[:n].repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
                   .contiguous() for x in slots)
-    return pairs, n, slots, P
+    main = dict(idx=idx, sa=sa, start_blk=start_blk, P=P, P_over=P_over,
+                batch=(q_norms, q_lens, k_ed, q_fl))
+    return pairs, n, slots, P, main
+
+
+def glue_records(main: dict, n_valid: int, card: str) -> list:
+    """K3 and K2's slot entry on the main path's first batch (held against
+    their plain versions in :func:`k2_main_pairs`): CUDA-event and profiler
+    times of the kernels, the plain versions' times and the bounds
+    (``utils/roofline.py``). Their ``kernels`` records."""
+    import torch
+
+    from analiticcl_tpu_torch.ops import dl as tdl
+    from analiticcl_tpu_torch.ops import pipeline as ppl
+    from analiticcl_tpu_torch.utils.roofline import (
+        k2_slots_work, k3_bound_ms,
+    )
+
+    idx, sa, start_blk, P = (main[k] for k in ("idx", "sa", "start_blk",
+                                                "P"))
+    q_norms, q_lens, k_ed, q_fl = main["batch"]
+    r_args = (sa.packed_q, sa.counts_t, sa.nmatch, start_blk,
+              idx.bins.shape[0], P)
+    k3 = {
+        "ms": time_ms(lambda: ppl.resolve_pairs(*r_args), 10, inner=10),
+        "device_ms": device_ms(lambda: ppl.resolve_pairs(*r_args),
+                               "resolve_", 10, per_call=2),
+        "plain_ms": time_ms(lambda: ppl.resolve_pairs_plain(*r_args), 5),
+    }
+    k3["bound_ms"], k3["bound_by"] = k3_bound_ms(sa.counts_t, sa.nmatch,
+                                                 start_blk, P)
+    q, _pcb, pc, valid, _total = ppl.resolve_pairs(*r_args)
+    W = 3
+    s_args = (idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W)
+    se = {
+        "ms": time_ms(lambda: tdl.dl_lcs_slots(*s_args), 10, inner=10),
+        "device_ms": device_ms(lambda: tdl.dl_lcs_slots(*s_args),
+                               "dl_lcs_slots_kernel", 10),
+        "plain_ms": time_ms(lambda: tdl.dl_lcs_slots_plain(*s_args), 3),
+    }
+    # the int32 instance (alphabets of 120 symbols or more) on the same
+    # strings gives the same metrics
+    idx32 = SimpleNamespace(norms2=idx.norms2.int(), norm_lens=idx.norm_lens,
+                            first_lower=idx.first_lower)
+    m8 = tdl.dl_lcs_slots(*s_args)
+    m32 = tdl.dl_lcs_slots(idx32, q_norms.int(), *s_args[2:])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(m8, m32)):
+        raise SystemExit("dl_lcs slot entry: int32 tables differ from int8")
+    qv, pv = q[:n_valid].long(), pc[:n_valid].long()
+    L = q_norms.shape[1]
+    se["bound_ms"], se["bound_by"] = k2_slots_work(
+        q_lens[qv], idx.norm_lens[pv], P, L, W, q_norms.element_size(),
+        int(torch.unique(qv).numel()), int(torch.unique(pv).numel()),
+    ).bound_ms()
+    B = q_lens.shape[0]
+    log(f"K3 resolve: B={B}, {sa.counts_t.shape[0]} blocks of 128 band rows "
+        f"per query, P={P} ({n_valid} valid), bit-identical to plain, and at "
+        f"P={main['P_over']} below the hit total; kernel {k3['ms']:.4f} ms "
+        f"(CUDA events, 10 back-to-back calls; profiler device time "
+        f"{k3['device_ms']:.4f} ms over its 2 launches), plain "
+        f"{k3['plain_ms']:.3f} ms, bound {k3['bound_ms']:.4f} ms "
+        f"({k3['bound_by']}) | {card}")
+    log(f"K2 slot entry W={W}: P={P} slots ({n_valid} valid) from K3's "
+        f"slots, {q_norms.dtype} tables (int32 tables give the same "
+        f"metrics), equal to plain (DL clipped at W+1) and to the "
+        f"pair-string entry (DL exact); kernel {se['ms']:.4f} ms "
+        f"(CUDA events, 10 back-to-back calls; profiler device time "
+        f"{se['device_ms']:.4f} ms), plain (gathers + plain DL + affixes) "
+        f"{se['plain_ms']:.3f} ms, bound {se['bound_ms']:.4f} ms "
+        f"({se['bound_by']}) | {card}")
+    note = ("no single PyTorch call computes it: the plain version is a "
+            "sequence of torch ops")
+    return [
+        {"name": "resolve", "route": "cuda",
+         "source": "analiticcl_tpu_torch/csrc/resolve.cu",
+         "replaces": "analiticcl_tpu/ops/pipeline.py:450-592",
+         "max_abs_err": 0, **k3, "library_ms": None, "library_note": note,
+         "P": P, "valid": n_valid, "P_overflow_held": main["P_over"]},
+        {"name": "dl_lcs_slots", "route": "cuda",
+         "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
+         "replaces": "analiticcl_tpu/ops/pipeline.py:594-647",
+         "max_abs_err": 0, **se, "library_ms": None, "library_note": note,
+         "P": P, "valid": n_valid, "window": W},
+    ]
 
 
 def k2_instance(L: int):
@@ -383,24 +548,29 @@ def profile_pass(fn) -> str:
     if not prof.n_ops:
         raise SystemExit("profile: the profiler saw no device time")
     by_name = prof.by_name
-    k1 = sum(v for k, v in by_name.items() if "stage_a_kernel" in k)
-    k2 = sum(v for k, v in by_name.items() if "dl_lcs_kernel" in k)
+    ours = {"K1 stage_a": "stage_a_kernel", "K3 resolve": "resolve_",
+            "K2 dl_lcs": "dl_lcs"}
+    mine = {label: sum(v for k, v in by_name.items() if part in k)
+            for label, part in ours.items()}
     rest = sorted(((v, k) for k, v in by_name.items()
-                   if "stage_a_kernel" not in k and "dl_lcs_kernel" not in k),
+                   if not any(part in k for part in ours.values())),
                   reverse=True)
     top = "; ".join(f"{k[:60]} {v:.3f} ms" for v, k in rest[:8])
     return (f"profile: wall {prof.wall_ms:.3f} ms, device busy "
             f"{prof.busy_ms:.3f} ms, idle share {prof.idle_share:.4f}, "
-            f"{prof.n_ops} device ops; K1 stage_a "
-            f"{k1:.3f} ms, K2 dl_lcs {k2:.3f} ms, other device ops "
-            f"{sum(v for v, _ in rest):.3f} ms in {len(rest)} kinds: {top}")
+            f"{prof.n_ops} device ops; "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in mine.items())
+            + f", other device ops {sum(v for v, _ in rest):.3f} ms in "
+            f"{len(rest)} kinds: {top}")
 
 
 def hold_kernels(name: str, pipe, lookups, params) -> None:
     """Prepare ``lookups`` as one device batch, as the path does, and hold
-    the stage-A kernel (bit for bit) and the DL+LCS kernel (DL clipped at
-    the batch's window + 1, LCS exact) against their plain versions on it;
-    on a sharded pipeline, on the call of mesh row 0 and lex shard 0.
+    the stage-A kernel (bit for bit), the slot resolve and K2's slot entry
+    (:func:`hold_glue`) and the DL+LCS kernel's pair-string entry (DL
+    clipped at the batch's window + 1, LCS exact) against their plain
+    versions on it; on a sharded pipeline, on the call of mesh row 0 and
+    lex shard 0.
     Its launches count, so call it before the path's counts are reset."""
     import torch
 
@@ -433,9 +603,10 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
               q_cc, k_ana, k_len, start_blk, nb_band)
     hold_k1(*a_args)
     sa = StageA(*stage_a_masks(*a_args))
-    pr, P, n_valid = stage_b_slots(pipe, idx, sa, st["B"], q_norms, q_lens,
-                                   k_ed, q_fl, start_blk)
     W = st["window"]
+    pr, P, n_valid, _slots = stage_b_slots(
+        pipe, idx, sa, st["B"], q_norms, q_lens, k_ed, q_fl, start_blk, W,
+        name)
     ld, lcs = dl_lcs(pr.a, pr.ql, pr.b, pr.cl, pipe.L, W)
     ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(
         pr.a, pr.ql, pr.b, pr.cl, pipe.L, W
@@ -447,9 +618,9 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     pipe._oracle_memo.clear()  # the timed run meets over-long segments anew
     log(f"{name} kernels: K1 bit-identical to plain on B={q_lens.shape[0]}"
         f"{where} ({len(st['active'])} device lookups of {len(lookups)}, "
-        f"band {nb_band * 1024} rows); K2 equal to plain at W={W} on the "
-        f"budget's P={P} slots, {n_valid} valid "
-        f"({time.perf_counter() - t0:.2f} s)")
+        f"band {nb_band * 1024} rows); K3 bit-identical to plain and K2 "
+        f"(both entries) equal to plain at W={W} on the budget's P={P} "
+        f"slots, {n_valid} valid ({time.perf_counter() - t0:.2f} s)")
 
 
 def sync_free_submit(name: str, pipe, lookups, params, card: str) -> None:
@@ -582,8 +753,8 @@ def cut_bucket_phase(model, queries, params, default, oracle, card) -> None:
 def search_phase(name: str, model, texts, params, card: str) -> dict:
     """Search ``texts`` through the device path; hold the array-native
     consolidation against the object path and the first lines against a
-    host-only search with the oracle's lookups, and both kernels against
-    their plain versions on the path's first lookup batch."""
+    host-only search with the oracle's lookups, and every kernel against
+    its plain version on the path's first lookup batch."""
     import torch
 
     from analiticcl_tpu_torch.models import search_fast
@@ -784,9 +955,9 @@ def write_lines(path: Path, lines) -> Path:
 
 def cli_phase(words, queries, texts, card: str) -> dict:
     """The CLI and the API on the card: a model built from lexicon files as
-    the CLI builds it, both kernels held against their plain versions on
+    the CLI builds it, every kernel held against its plain version on
     the CLI's first query batch, then ``cli.main`` for query (TSV and
-    JSON), search and strict learn, each required to launch both kernels;
+    JSON), search and strict learn, each required to launch every kernel;
     the device output against the oracle backend's on prefixes, and
     ``api.VariantModel.find_variants_par`` against the JSON run."""
     import torch
@@ -822,7 +993,7 @@ def cli_phase(words, queries, texts, card: str) -> dict:
     common = ["-a", str(alphabet), "-l", str(lexicon), "-l", str(lexicon2),
               "--device", "cuda"]
 
-    # the model as the CLI builds it, and both kernels on its first batch
+    # the model as the CLI builds it, and every kernel on its first batch
     t0 = time.perf_counter()
     args = cli.build_argparser().parse_args(
         ["query", *common, "--backend", "device"])
@@ -1219,7 +1390,7 @@ def profiling_phase(words, queries, params, wall_ms: float,
     events (the profiler's device records in this process can come back
     short, PERF.md section 6) and the main pass's wall time per batch
     (``wall_ms``), and one ``trace`` of
-    two warm batches under ``build/``, which must name both kernels."""
+    two warm batches under ``build/``, which must name every kernel."""
     import shutil
 
     import torch
@@ -1269,8 +1440,10 @@ def profiling_phase(words, queries, params, wall_ms: float,
     prog, prog_by = floor.ms("program")
     parts = ", ".join(
         f"{name} {floor.ms(part)[0]:.4f} ms ({floor.ms(part)[1]})"
-        for name, part in (("K1", "k1"), ("K2 at valid pairs", "k2_valid"),
-                           ("K2 at P slots", "k2_slots"), ("glue", "glue")))
+        for name, part in (("K1", "k1"), ("K3", "k3"),
+                           ("K2 at valid pairs", "k2_valid"),
+                           ("K2's slot entry at P slots", "k2_slots"),
+                           ("glue", "glue")))
     log(f"roofline: B={st['B']} band {st['nb_band'] * 1024} rows, AT "
         f"{pipe.index.at}, P={P} ({floor.n_valid} valid pairs over "
         f"{floor.cand_rows} candidate rows), P2={P2}: {parts}; the parts "
@@ -1295,7 +1468,7 @@ def profiling_phase(words, queries, params, wall_ms: float,
     events = (json.loads(files[0].read_text(encoding="utf-8"))["traceEvents"]
               if len(files) == 1 else [])
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    counts = {k: sum(f"{k}_kernel" in n for n in kernels) for k in in_trace}
+    counts = {k: sum(TRACE_NAMES[k] in n for n in kernels) for k in in_trace}
     if min(counts.values()) == 0:
         raise SystemExit(f"profiling: the trace {files} names a kernel no "
                          f"time: {counts}; its kernels: "
@@ -1343,12 +1516,12 @@ def main() -> int:
 
     # ---- 2. the build ----
     t0 = time.perf_counter()
-    for name in ("stage_a", "dl_lcs"):
-        _build.load(name)
+    _build.load_all(KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
-    log(f"build: {build_s:.2f} s for stage_a.cu + dl_lcs.cu "
+    log(f"build: {build_s:.2f} s for "
+        f"{' + '.join(f'{n}.cu' for n in KERNEL_SOURCES)} in parallel "
         f"(nvcc per file: {_build.build_seconds})")
-    for name in ("stage_a", "dl_lcs"):
+    for name in KERNEL_SOURCES:
         for line in _build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
@@ -1415,9 +1588,12 @@ def main() -> int:
                         "of the bits, and no call fuses the tests",
     })
 
-    # ---- 4. K2 against its plain version on the main path's pairs ----
-    (a, al, b, bl), n_distinct, slots, P_main = k2_main_pairs(
+    # ---- 4. K3 and K2's slot entry against their plain versions on the
+    # main path's first batch (and at a budget below its hits), then K2's
+    # pair-string entry on its pairs ----
+    (a, al, b, bl), n_distinct, slots, P_main, main = k2_main_pairs(
         pipe, queries, params)
+    records += glue_records(main, n_distinct, card)
     P, L = a.shape
     lmax, threads = k2_instance(L)
     k2_ptxas = dl_lcs_ptxas(_build.ptxas_report("dl_lcs"))
@@ -1457,18 +1633,24 @@ def main() -> int:
     if not (torch.equal(ld.clamp(max=W + 1), ld_p.clamp(max=W + 1))
             and torch.equal(lcs, lcs_p)):
         raise SystemExit("dl_lcs kernel differs from plain at the budget")
+    entry = next(r for r in records if r["name"] == "dl_lcs_slots")
     budget = {
         "P": P_main, "valid": n_distinct,
         "ms": time_ms(lambda: dl_lcs(*slots, L, W), 10, inner=10),
         "device_ms": device_ms(lambda: dl_lcs(*slots, L, W),
                                "dl_lcs_kernel", 10),
         "bound_ms": k2_bound_ms(slots[1], slots[3], L, W)[0],
+        "slot_entry_ms": entry["ms"],
+        "slot_entry_device_ms": entry["device_ms"],
+        "slot_entry_bound_ms": entry["bound_ms"],
     }
     log(f"K2 dl_lcs W={W} at the main path's budget: P={P_main} slots, "
-        f"{n_distinct} valid, equal to plain; kernel {budget['ms']:.3f} ms "
-        f"(CUDA events, 10 back-to-back calls; profiler device time "
-        f"{budget['device_ms']:.4f} ms), bound {budget['bound_ms']:.4f} ms "
-        f"| {card}")
+        f"{n_distinct} valid, equal to plain; pair-string entry "
+        f"{budget['ms']:.3f} ms (CUDA events, 10 back-to-back calls; "
+        f"profiler device time {budget['device_ms']:.4f} ms), bound "
+        f"{budget['bound_ms']:.4f} ms; slot entry {entry['ms']:.3f} ms "
+        f"(device {entry['device_ms']:.4f} ms), bound "
+        f"{entry['bound_ms']:.4f} ms | {card}")
     records.append({
         "name": "dl_lcs", "route": "cuda",
         "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
@@ -1486,8 +1668,7 @@ def main() -> int:
     # ---- 5. the main path ----
     list(model.find_variants_stream(queries[:BATCH], params))  # warm-up
     sync_free_submit("main path", pipe, queries[:BATCH], params, card)
-    stage_a_masks.launches = 0
-    dl_lcs.launches = 0
+    reset_counts()
     pipe.candidates = pipe.survivors = 0
     pipe.stats.clear()
     torch.cuda.synchronize()
@@ -1495,7 +1676,7 @@ def main() -> int:
     results = list(model.find_variants_stream(queries, params, BATCH))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"stage_a": stage_a_masks.launches, "dl_lcs": dl_lcs.launches}
+    launches = launch_counts()
     cand, surv = pipe.candidates, pipe.survivors
     stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in sorted(
         pipe.stats.totals.items()))
@@ -1511,7 +1692,7 @@ def main() -> int:
     long_words = [w for w in words if len(w) >= 9]
     rq = corrupt_queries(long_words, SEED + 2, N_RATIO)
     ratio_results = list(model.find_variants_stream(rq, params_ratio, BATCH))
-    launches = {"stage_a": stage_a_masks.launches, "dl_lcs": dl_lcs.launches}
+    launches = launch_counts()
     if len(results) != N_QUERIES or len(ratio_results) != N_RATIO:
         raise SystemExit("main path returned the wrong number of results")
     if min(launches.values()) <= 0:

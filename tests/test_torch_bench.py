@@ -31,7 +31,7 @@ import torch
 
 from analiticcl_tpu_torch import VariantModel
 from analiticcl_tpu_torch.ops import pipeline as pipeline_mod
-from analiticcl_tpu_torch.ops.dl import dl_lcs
+from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_lcs_slots
 from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
 from analiticcl_tpu_torch.types import VariantResult
 
@@ -66,12 +66,14 @@ def _bench(**sizes):
 @pytest.fixture
 def counted(monkeypatch):
     """Each call of a kernel wrapper from the pipeline adds one to the
-    wrapper's launch count, as a launch on the card does."""
-    for fn in (stage_a_masks, dl_lcs):
-        monkeypatch.setattr(fn, "launches", 0)
+    kernel's launch count, as a launch on the card does: K1's wrapper to
+    its own, K2's slot entry to K2's (``dl_lcs``)."""
+    for fn, counter in ((stage_a_masks, stage_a_masks),
+                        (dl_lcs_slots, dl_lcs)):
+        monkeypatch.setattr(counter, "launches", 0)
 
-        def counting(*args, _fn=fn, **kwargs):
-            _fn.launches += 1
+        def counting(*args, _fn=fn, _counter=counter, **kwargs):
+            _counter.launches += 1
             return _fn(*args, **kwargs)
 
         monkeypatch.setattr(pipeline_mod, fn.__name__, counting)

@@ -11,6 +11,7 @@ import ctypes
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -247,3 +248,172 @@ def test_kernel_pair_dp_on_host(tmp_path):
     # same banded DP as the Pallas kernel: equal even above the window
     np.testing.assert_array_equal(ld, np.asarray(ld_p))
     np.testing.assert_array_equal(lcs, np.asarray(lcs_p))
+
+
+# ---- K2's slot entry: the pair strings read by row from the tables ----
+
+def host_slots_fn(build_dir):
+    """K2's slot entry (``analiticcl_dl_lcs_slots_host``: the kernel's
+    per-slot loads, affixes and byte-cell DP) built for the host, as a
+    function with ``dl_lcs_slots``'s arguments; returns its seven outputs
+    as tensors."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    src = Path(tdl.__file__).resolve().parent.parent / "csrc" / "dl_lcs.cu"
+    so = Path(build_dir) / "libdlslots.so"
+    if not so.exists():
+        subprocess.run(
+            [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST", "-shared",
+             "-fPIC", "-o", str(so), str(src)],
+            check=True, capture_output=True,
+        )
+    fn = ctypes.CDLL(str(so)).analiticcl_dl_lcs_slots_host
+    ptr = ctypes.c_void_p
+
+    def host(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
+             window):
+        P, L = q.shape[0], q_norms.shape[1]
+        metrics = torch.full((6, P), -7, dtype=torch.int32)
+        same_first = torch.zeros(P, dtype=torch.bool)
+        ins = [t.contiguous() for t in (
+            q, pc, valid, index.norms2, index.norm_lens, index.first_lower,
+            q_norms, q_lens, q_first_lower, k_ed)]
+        fn(*[ptr(t.data_ptr()) for t in ins],
+           ctypes.c_int(q_norms.element_size()), ptr(metrics.data_ptr()),
+           ptr(same_first.data_ptr()), ctypes.c_int(P), ctypes.c_int(L),
+           ctypes.c_int(window))
+        return (*metrics.unbind(), same_first)
+
+    return host
+
+
+@pytest.fixture(scope="module")
+def host_slots(tmp_path_factory):
+    return host_slots_fn(tmp_path_factory.mktemp("dlslots"))
+
+
+def _slot_tables(seed: int, L: int, dtype, B: int = 48, P: int = 240):
+    """Seeded tables laid out as ``convert.py`` lays out the index
+    (forward | reversed norms, zero past each length) and as the pipeline
+    lays out a batch, and ``P`` slots: most pair a query with a row made
+    from it by a few edits (distances on both sides of the window), the
+    rest with a random row; about one in seven is invalid, the last four
+    too. int32 tables take symbols from 110 to 149, across the 120 at
+    which ``convert.py`` stops using int8."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (110, 150) if dtype == np.int32 else (0, 40)
+
+    def word(n):
+        return list(rng.integers(lo, hi, n))
+
+    def edited(s):
+        s = list(s)
+        for _ in range(rng.integers(0, 6)):
+            op = rng.integers(0, 4)
+            k = int(rng.integers(0, len(s) + 1))
+            if op == 0 and k < len(s):
+                s[k] = int(rng.integers(lo, hi))
+            elif op == 1 and k + 1 < len(s):
+                s[k], s[k + 1] = s[k + 1], s[k]
+            elif op == 2 and k < len(s):
+                del s[k]
+            elif op == 3:
+                s.insert(k, int(rng.integers(lo, hi)))
+        return s[:L]
+
+    lens = rng.integers(0, L + 1, size=B)
+    lens[:3] = (0, 1, L)
+    qs = [word(n) for n in lens]
+    rows = [edited(s) for s in qs] + [word(rng.integers(0, L + 1))
+                                      for _ in range(B)]
+    Ni = len(rows)
+    norms2 = np.zeros((Ni, 2 * L), dtype)
+    norm_lens = np.zeros(Ni, np.int32)
+    for i, s in enumerate(rows):
+        norm_lens[i] = len(s)
+        norms2[i, :len(s)] = s
+        norms2[i, L:L + len(s)] = s[::-1]
+    q_norms = np.zeros((B, L), dtype)
+    for i, s in enumerate(qs):
+        q_norms[i, :len(s)] = s
+    q = rng.integers(0, B, size=P)
+    pc = np.where(rng.random(P) < 0.7, q, rng.integers(0, Ni, size=P))
+    valid = rng.random(P) < 6 / 7
+    valid[-4:] = False
+    index = _slot_index(norms2, norm_lens, rng.random(Ni) < 0.5)
+    batch = _t(q_norms, lens.astype(np.int32),
+               rng.integers(0, 13, size=B).astype(np.int32),
+               rng.random(B) < 0.5)
+    return index, batch, _t(q.astype(np.int32), pc.astype(np.int32), valid)
+
+
+def _slot_index(norms2, norm_lens, first_lower):
+    """The index tables the slot entry reads, as a ``DeviceIndex`` holds
+    them."""
+    n2, nl, fl = _t(norms2, norm_lens, first_lower)
+    return SimpleNamespace(norms2=n2, norm_lens=nl, first_lower=fl)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32], ids=["int8", "int32"])
+@pytest.mark.parametrize("window", [3, 6, 12])
+@pytest.mark.parametrize("L", [8, 25, 32, 64])
+def test_host_slot_entry_equals_plain(host_slots, host_dp_lib, L, window,
+                                      dtype):
+    """The slot entry's host build against the plain composition (the
+    gathers, the plain DL and the affixes): LCS, prefix, suffix, query
+    length, threshold and case flag exactly, DL clipped at window + 1 (the
+    kernel's contract); and DL exactly against the kernel's DP on the
+    gathered pair strings (the old entry's host build): the same DP on the
+    same strings."""
+    index, (q_norms, q_lens, k_ed, q_fl), (q, pc, valid) = _slot_tables(
+        7 * L + window, L, dtype)
+    got = host_slots(index, q_norms, q_lens, k_ed, q_fl, q, pc, valid,
+                     window)
+    want = tdl.dl_lcs_slots_plain(index, q_norms, q_lens, k_ed, q_fl, q, pc,
+                                  valid, window)
+    for name, g, w in zip(tdl.SlotMetrics._fields[1:], got[1:], want[1:]):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    clip = window + 1
+    assert torch.equal(got[0].clamp(max=clip), want.ld.clamp(max=clip))
+    pr = tdl.gather_pairs(index, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
+    ld_dp, lcs_dp = host_dp_lib[0](*(x.numpy() for x in (pr.a, pr.ql, pr.b,
+                                                          pr.cl)), L, window)
+    np.testing.assert_array_equal(got[0].numpy(), ld_dp)
+    np.testing.assert_array_equal(got[1].numpy(), lcs_dp)
+    v = valid.numpy()
+    assert (got[0].numpy()[v] <= window).any()
+    assert (got[0].numpy()[v] > window).any() or window >= L
+    assert (got[0].numpy()[~v] == 0).all() and (got[4].numpy()[~v] == 0).all()
+
+
+def test_slot_entry_cpu_takes_the_plain_version():
+    index, (q_norms, q_lens, k_ed, q_fl), (q, pc, valid) = _slot_tables(
+        2, 16, np.int8)
+    before = (tdl.dl_lcs.launches, tdl.dl_lcs_slots.launches)
+    got = tdl.dl_lcs_slots(index, q_norms, q_lens, k_ed, q_fl, q, pc, valid, 6)
+    want = tdl.dl_lcs_slots_plain(index, q_norms, q_lens, k_ed, q_fl, q, pc,
+                                  valid, 6)
+    assert (tdl.dl_lcs.launches, tdl.dl_lcs_slots.launches) == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    good = dict(index=index, q_norms=q_norms, q_lens=q_lens, k_ed=k_ed,
+                q_first_lower=q_fl, q=q, pc=pc, valid=valid)
+    bad = [
+        dict(q=q.long()), dict(pc=pc[:-1]), dict(valid=valid.int()),
+        dict(q_norms=q_norms.int()),  # not the index's element type
+        dict(q_lens=q_lens[:-1]), dict(k_ed=k_ed.long()),
+        dict(index=_slot_index(index.norms2[:, :-2].numpy(),
+                             index.norm_lens.numpy(),
+                             index.first_lower.numpy())),
+    ]
+    for change in bad:
+        with pytest.raises(ValueError, match="dl_lcs_slots"):
+            tdl.dl_lcs_slots(**{**good, **change}, window=6)
+    # a tensor on neither the CPU nor a card raises: no fallback
+    meta = {k: (v.to("meta") if torch.is_tensor(v) else v)
+            for k, v in good.items() if k != "index"}
+    meta_index = SimpleNamespace(**{k: getattr(index, k).to("meta") for k in (
+        "norms2", "norm_lens", "first_lower")})
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdl.dl_lcs_slots(index=meta_index, **meta, window=6)
+    assert (tdl.dl_lcs.launches, tdl.dl_lcs_slots.launches) == before

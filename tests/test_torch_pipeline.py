@@ -257,8 +257,8 @@ def test_resolve_pairs_enumerates_hits(B, nb_band, density, budget):
     total = len(q_ref)
     assert total > 16
     P = total + 37 if budget == "above" else total // 3
-    q, pc_band, pc, valid, got_total = resolve_pairs(packed, counts_t, start,
-                                                     Ni_pad, P)
+    q, pc_band, pc, valid, got_total = resolve_pairs(packed, counts_t, nmatch,
+                                                     start, Ni_pad, P)
     n = min(P, total)
     assert int(got_total) == total == int(nmatch.sum())
     assert valid.numpy().tolist() == [True] * n + [False] * (P - n)

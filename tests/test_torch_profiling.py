@@ -281,14 +281,36 @@ def test_k2_and_glue_counts():
     assert w.int8_ops == 0
     assert w.nbytes == 3 * (8 * 25 + 16)
     assert roofline.k2_bound_ms(a_len, b_len, 25, 3)[1] == "bytes"
-    g = roofline.glue_work(B=8, Nb=2048, P2=64, L=25, norm_bytes=1,
-                           cand_rows=10, have_freq=True, exact_bits=False)
-    assert g.nbytes == (8 * 256 + 4 * 16 * 8 + 8 * 34 + 10 * 38
-                        + 64 * 13 + 64 + 16)
+    # the slot entry at 100 slots whose three valid ones touch two query
+    # rows and three candidate rows: the same operations, its own bytes
+    s = roofline.k2_slots_work(a_len, b_len, P=100, L=25, W=3, norm_bytes=1,
+                               n_queries=2, cand_rows=3)
+    assert s.int32_ops == w.int32_ops
+    assert s.nbytes == 100 * (9 + 25) + 2 * (25 + 9) + 3 * (25 + 5)
+    # the glue after the kernels: K3's slots and K2's metrics in
+    g = roofline.glue_work(B=8, Nb=2048, P=100, P2=64, cand_rows=10,
+                           have_freq=True, exact_bits=False)
+    assert g.nbytes == 100 * (13 + 25) + 10 * 8 + 64 * 13 + 64 + 16
     assert g.int8_ops == g.int32_ops == 0
-    g2 = roofline.glue_work(B=8, Nb=2048, P2=64, L=25, norm_bytes=1,
-                            cand_rows=10, have_freq=False, exact_bits=True)
-    assert g2.nbytes == g.nbytes + 8 * 256 - 10 * 8
+    g2 = roofline.glue_work(B=8, Nb=2048, P=100, P2=64, cand_rows=10,
+                            have_freq=False, exact_bits=True)
+    assert g2.nbytes == g.nbytes + 8 * 256 + 8 - 10 * 8
+
+
+def test_k3_counts_the_blocks_it_expands():
+    """Two queries over three 128-row blocks: counts (query-major) 5, 0, 2
+    and 0, 7, 1. At P 9 the blocks of the first slots 0, 5 and 7 reach a
+    slot and the one starting at 14 does not."""
+    counts_t = torch.tensor([[5, 0], [0, 7], [2, 1]], dtype=torch.int32)
+    nmatch = torch.tensor([7, 8], dtype=torch.int32)
+    start_blk = torch.tensor([0], dtype=torch.int32)
+    w = roofline.k3_work(counts_t, nmatch, start_blk, P=9)
+    assert w.nbytes == 2 * 4 + 4 + 6 * 4 + 3 * 16 + 9 * 13 + 8
+    assert w.int8_ops == w.int32_ops == 0
+    assert roofline.k3_work(counts_t, nmatch, start_blk, P=15).nbytes == \
+        w.nbytes + 16 + 6 * 13
+    assert roofline.k3_bound_ms(counts_t, nmatch, start_blk, 9) == (
+        pytest.approx(w.nbytes / 3.35e12 * 1e3), "bytes")
 
 
 def test_program_counts_its_inputs_and_outputs_only():
@@ -333,14 +355,19 @@ def test_batch_floor_counts_this_batch(batch):
     assert f.n_valid == total_match
     assert 0 < f.cand_rows <= total_match
     assert f.k2_valid.int32_ops == f.k2_slots.int32_ops > 0
-    assert f.k2_slots.nbytes == P_BUDGET / total_match * f.k2_valid.nbytes
+    L = args[2].shape[1]
+    assert f.k2_valid.nbytes == total_match * (8 * L + 16)
+    assert f.k2_slots.nbytes > P_BUDGET * 34
+    assert f.k3.nbytes > P_BUDGET * 13 and f.k3.int32_ops == 0
     assert f.parts_ms == pytest.approx(
-        f.ms("k1")[0] + f.ms("k2_valid")[0] + f.ms("glue")[0])
+        f.ms("k1")[0] + f.ms("k3")[0] + f.ms("k2_slots")[0]
+        + f.ms("glue")[0])
     assert f.program.int8_ops == f.k1.int8_ops > 0
     assert f.program.int32_ops == f.k2_valid.int32_ops
-    # the program moves less than its parts: K1's bits and counts and the
-    # pair strings stay between its stages
-    assert f.program.nbytes < f.k1.nbytes + f.k2_valid.nbytes + f.glue.nbytes
+    # the program moves less than its parts: K1's bits and counts, the
+    # slots and the metrics stay between its stages
+    assert f.program.nbytes < (f.k1.nbytes + f.k3.nbytes + f.k2_slots.nbytes
+                               + f.glue.nbytes)
     assert f.program_ms == f.ms("program")[0] <= f.parts_ms
 
 
@@ -392,8 +419,9 @@ def test_profile_query_tool_learn(capsys):
 def test_roofline_tool(capsys):
     assert _tool("roofline_torch").main(SMALL) == 0
     out = capsys.readouterr().out
-    for part in ("K1:", "K2 at the valid pairs:", "K2 at the P slots:",
-                 "glue:", "program floor", "measured: not measured"):
+    for part in ("K1:", "K3 (slot resolve):", "K2 at the valid pairs:",
+                 "K2 at the P slots:", "glue:", "program floor",
+                 "measured: not measured"):
         assert part in out
 
 
