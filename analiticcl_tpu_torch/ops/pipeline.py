@@ -322,15 +322,13 @@ def _check_stop(stop_stage: Optional[str], allowed: Tuple[str, ...]) -> None:
 def probe(*tensors) -> tuple:
     """int32 checksums standing in for a stage's outputs: each tensor cast
     to int32 and summed with int32 wrap-around, the JAX core's
-    ``jnp.sum(a.astype(jnp.int32))``. A tensor of at most 32-bit integers
-    (or bools) is summed as it is, which gives the same sum; the sums wrap
-    together, so a probe costs one reduction per tensor and five more ops
-    on the card, whatever its tensors' count."""
-    sums = torch.stack([
-        (t.to(torch.int32) if t.dtype.itemsize > 4 or t.dtype.is_floating_point
-         else t).sum(dtype=torch.int64) for t in tensors])
-    return tuple(torch.remainder(sums + 2**31, 2**32).sub_(2**31)
-                 .to(torch.int32).unbind())
+    ``jnp.sum(a.astype(jnp.int32))``."""
+    out = []
+    for t in tensors:
+        s = t.to(torch.int32).sum(dtype=torch.int64)
+        out.append(torch.remainder(s + 2**31, 2**32).sub_(2**31)
+                   .to(torch.int32))
+    return tuple(out)
 
 
 def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,

@@ -124,6 +124,7 @@ class DeviceProfile(NamedTuple):
     n_ops: Optional[int]  # the card's ops (kernels, copies, sets)
     by_name: Dict[str, float]  # device ms per op name
     runtime: Dict[str, float]  # host ms per CUDA runtime call name
+    n_by_name: Dict[str, int]  # device ops per op name
 
     @property
     def idle_share(self) -> Optional[float]:
@@ -149,8 +150,9 @@ def profile_window(fn: Callable, cuda: bool):
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     if not cuda:
-        return out, DeviceProfile(wall, None, None, {}, {})
+        return out, DeviceProfile(wall, None, None, {}, {}, {})
     by_name: Dict[str, float] = {}
+    n_by_name: Dict[str, int] = {}
     runtime: Dict[str, float] = {}
     spans = []
     for e in prof.events():
@@ -159,6 +161,7 @@ def profile_window(fn: Callable, cuda: bool):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((tr.start, tr.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
         elif e.name.startswith("cuda"):
             runtime[e.name] = runtime.get(e.name, 0.0) + ms
     busy = 0.0
@@ -173,7 +176,7 @@ def profile_window(fn: Callable, cuda: bool):
                 cur_e = max(cur_e, e)
         busy += cur_e - cur_s
     return out, DeviceProfile(wall, busy / 1e3, len(spans), by_name,
-                              runtime)
+                              runtime, n_by_name)
 
 
 def settled_batch(pipe, queries, params):
@@ -216,6 +219,7 @@ class Rung(NamedTuple):
     busy_ms: Optional[float]  # profiler: the card's busy time
     n_ops: Optional[float]  # profiler: the card's ops
     out: tuple  # the last call's outputs
+    n_by_name: Optional[Dict[str, float]] = None  # profiler: ops per name
 
 
 def _sleep_cycles_per_ms() -> float:
@@ -249,7 +253,7 @@ def stop_ladder(call: Callable, cuda: bool):
         for _ in range(REPS):
             out = call(stop)
         enqueue = (time.perf_counter() - t0) * 1e3 / REPS
-        event_ms = busy = n_ops = None
+        event_ms = busy = n_ops = n_by_name = None
         if cuda:
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -264,6 +268,7 @@ def stop_ladder(call: Callable, cuda: bool):
             _, prof = profile_window(
                 lambda: [call(stop) for _ in range(REPS)], cuda)
             busy, n_ops = prof.busy_ms / REPS, prof.n_ops / REPS
+            n_by_name = {k: v / REPS for k, v in prof.n_by_name.items()}
         rungs.append(Rung(stop or "full", enqueue, event_ms, busy, n_ops,
-                          tuple(out)))
+                          tuple(out), n_by_name))
     return rungs

@@ -11,7 +11,8 @@ tiles of 8, 64, 1,024 and (from 262,144 index rows) 256, and at the main
 path's shapes; on the main path's first batch the slot resolve (K3,
 ``csrc/resolve.cu``) bit for bit and the DL+LCS kernel's slot entry (K2
 reading the pairs' strings from the tables) against their plain versions,
-at the batch's budget and at one below its hit total (the overflow); the
+at the batch's budget (the slot entry at windows 3, 6 and 12, int8 and
+int32 tables) and at one below its hit total (the overflow); the
 DL+LCS kernel's pair-string entry against its plain version (DL clipped at
 window + 1) on the main path's pairs at windows 3, 6 and 12, with the
 ptxas summary and the shared memory per block of each window's instance;
@@ -82,6 +83,7 @@ N_RATIO = 1024
 N_ORACLE = 1024
 N_ORACLE_RATIO = 256
 TARGET_PAIRS = 1 << 20
+SLOT_WINDOWS = (3, 6, 12)  # the DL windows: absolute(2) gives 3, ratios 6, 12
 N_LINES = 4096  # search mode: lines of 8-16 tokens
 N_LINES_ORACLE = 32
 N_BIGRAMS = 100_000  # entries of the bigram language model
@@ -386,8 +388,8 @@ def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
 def k2_main_pairs(pipe, queries, params):
     """The main path's first batch of ``queries`` through stage A on the
     card, then K3 and K2's slot entry held against their plain versions at
-    the batch's budget (W=3), and once more at a budget below its hit total
-    (the overflow). Returns K2's pair-string input: its P slots ``(a, al,
+    the batch's budget (at each of SLOT_WINDOWS), and once more at a budget
+    below its hit total (the overflow, W=3). Returns K2's pair-string input: its P slots ``(a, al,
     b, bl)``, the valid ones, and the distinct pairs repeated to
     TARGET_PAIRS; and the batch (stage A's outputs, its arrays, P) for
     timing K3 and the slot entry."""
@@ -402,6 +404,11 @@ def k2_main_pairs(pipe, queries, params):
     pr, P, n, _slots = stage_b_slots(pipe, idx, sa, st["B"], q_norms,
                                      q_lens, k_ed, q_fl, start_blk, 3,
                                      "main batch")
+    # the slot entry's other instances, which the ratio-threshold queries
+    # of the main path launch, on the same slots
+    for W in SLOT_WINDOWS[1:]:
+        hold_glue(f"main batch W={W}", idx, sa, start_blk, P, q_norms,
+                  q_lens, k_ed, q_fl, W)
     P_over = max(1, n // 2)
     _s, _p, n_over = hold_glue("main batch overflow", idx, sa, start_blk,
                                P_over, q_norms, q_lens, k_ed, q_fl, 3)
@@ -421,7 +428,10 @@ def glue_records(main: dict, n_valid: int, card: str) -> list:
     """K3 and K2's slot entry on the main path's first batch (held against
     their plain versions in :func:`k2_main_pairs`): CUDA-event and profiler
     times of the kernels, the plain versions' times and the bounds
-    (``utils/roofline.py``). Their ``kernels`` records."""
+    (``utils/roofline.py``), the slot entry's at each of SLOT_WINDOWS (its
+    record's own numbers are W=3's, the main batch's window), after its
+    int32 instance is held equal to its int8 one there. Their ``kernels``
+    records."""
     import torch
 
     from analiticcl_tpu_torch.ops import dl as tdl
@@ -444,29 +454,42 @@ def glue_records(main: dict, n_valid: int, card: str) -> list:
     k3["bound_ms"], k3["bound_by"] = k3_bound_ms(sa.counts_t, sa.nmatch,
                                                  start_blk, P)
     q, _pcb, pc, valid, _total = ppl.resolve_pairs(*r_args)
-    W = 3
-    s_args = (idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W)
-    se = {
-        "ms": time_ms(lambda: tdl.dl_lcs_slots(*s_args), 10, inner=10),
-        "device_ms": device_ms(lambda: tdl.dl_lcs_slots(*s_args),
-                               "dl_lcs_slots_kernel", 10),
-        "plain_ms": time_ms(lambda: tdl.dl_lcs_slots_plain(*s_args), 3),
-    }
-    # the int32 instance (alphabets of 120 symbols or more) on the same
-    # strings gives the same metrics
-    idx32 = SimpleNamespace(norms2=idx.norms2.int(), norm_lens=idx.norm_lens,
-                            first_lower=idx.first_lower)
-    m8 = tdl.dl_lcs_slots(*s_args)
-    m32 = tdl.dl_lcs_slots(idx32, q_norms.int(), *s_args[2:])
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(m8, m32)):
-        raise SystemExit("dl_lcs slot entry: int32 tables differ from int8")
     qv, pv = q[:n_valid].long(), pc[:n_valid].long()
     L = q_norms.shape[1]
-    se["bound_ms"], se["bound_by"] = k2_slots_work(
-        q_lens[qv], idx.norm_lens[pv], P, L, W, q_norms.element_size(),
-        int(torch.unique(qv).numel()), int(torch.unique(pv).numel()),
-    ).bound_ms()
+    n_q, n_c = int(torch.unique(qv).numel()), int(torch.unique(pv).numel())
+    # the int32 instances (alphabets of 120 symbols or more) on the same
+    # strings give the same metrics
+    idx32 = SimpleNamespace(norms2=idx.norms2.int(), norm_lens=idx.norm_lens,
+                            first_lower=idx.first_lower)
+    by_window = {}
+    for W in SLOT_WINDOWS:
+        s_args = (idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W)
+        m8 = tdl.dl_lcs_slots(*s_args)
+        m32 = tdl.dl_lcs_slots(idx32, q_norms.int(), *s_args[2:])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(m8, m32)):
+            raise SystemExit(f"dl_lcs slot entry: int32 tables differ from "
+                             f"int8 at W={W}")
+        w = {
+            "ms": time_ms(lambda: tdl.dl_lcs_slots(*s_args), 10, inner=10),
+            "device_ms": device_ms(lambda: tdl.dl_lcs_slots(*s_args),
+                                   "dl_lcs_slots_kernel", 10),
+            "plain_ms": time_ms(lambda: tdl.dl_lcs_slots_plain(*s_args), 3),
+        }
+        w["bound_ms"], w["bound_by"] = k2_slots_work(
+            q_lens[qv], idx.norm_lens[pv], P, L, W, q_norms.element_size(),
+            n_q, n_c).bound_ms()
+        by_window[W] = w
+        log(f"K2 slot entry W={W}: P={P} slots ({n_valid} valid) from K3's "
+            f"slots, {q_norms.dtype} tables (int32 tables give the same "
+            f"metrics), equal to plain (DL clipped at W+1) and to the "
+            f"pair-string entry (DL exact); kernel {w['ms']:.4f} ms "
+            f"(CUDA events, 10 back-to-back calls; profiler device time "
+            f"{w['device_ms']:.4f} ms), plain (gathers + plain DL + affixes) "
+            f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms "
+            f"({w['bound_by']}) | {card}")
+    W = SLOT_WINDOWS[0]
+    se = dict(by_window[W])
     B = q_lens.shape[0]
     log(f"K3 resolve: B={B}, {sa.counts_t.shape[0]} blocks of 128 band rows "
         f"per query, P={P} ({n_valid} valid), bit-identical to plain, and at "
@@ -475,14 +498,6 @@ def glue_records(main: dict, n_valid: int, card: str) -> list:
         f"{k3['device_ms']:.4f} ms over its 2 launches), plain "
         f"{k3['plain_ms']:.3f} ms, bound {k3['bound_ms']:.4f} ms "
         f"({k3['bound_by']}) | {card}")
-    log(f"K2 slot entry W={W}: P={P} slots ({n_valid} valid) from K3's "
-        f"slots, {q_norms.dtype} tables (int32 tables give the same "
-        f"metrics), equal to plain (DL clipped at W+1) and to the "
-        f"pair-string entry (DL exact); kernel {se['ms']:.4f} ms "
-        f"(CUDA events, 10 back-to-back calls; profiler device time "
-        f"{se['device_ms']:.4f} ms), plain (gathers + plain DL + affixes) "
-        f"{se['plain_ms']:.3f} ms, bound {se['bound_ms']:.4f} ms "
-        f"({se['bound_by']}) | {card}")
     note = ("no single PyTorch call computes it: the plain version is a "
             "sequence of torch ops")
     return [
@@ -495,7 +510,7 @@ def glue_records(main: dict, n_valid: int, card: str) -> list:
          "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
          "replaces": "analiticcl_tpu/ops/pipeline.py:594-647",
          "max_abs_err": 0, **se, "library_ms": None, "library_note": note,
-         "P": P, "valid": n_valid, "window": W},
+         "P": P, "valid": n_valid, "window": W, "by_window": by_window},
     ]
 
 
@@ -1659,6 +1674,10 @@ def main() -> int:
         "ms": k2[3][1], "plain_ms": k2[3][2],
         "bound_ms": k2[3][3], "bound_by": k2[3][4], "library_ms": None,
         "library_note": "no PyTorch call computes banded Damerau-Levenshtein",
+        "launches_note": "launches of either entry: the paths run the slot "
+                         "entry (its own record's by_window has its times), "
+                         "which adds to this count too; ms, by_window and "
+                         "the bound are the pair-string entry's",
         "by_window": {W: {"ms": v[1], "device_ms": v[5], "plain_ms": v[2],
                           "bound_ms": v[3], "ptxas": v[6]}
                       for W, v in k2.items()},

@@ -217,6 +217,7 @@ def test_profile_window_on_the_cpu_measures_no_device():
     assert int(out) == 45
     assert prof.wall_ms > 0
     assert (prof.busy_ms, prof.n_ops, prof.idle_share) == (None, None, None)
+    assert prof.n_by_name == {}
 
 
 def test_stop_ladder_on_the_cpu(words):
@@ -236,7 +237,7 @@ def test_stop_ladder_on_the_cpu(words):
     rungs = stop_ladder(call, cuda=False)
     assert [r.stop for r in rungs] == [s or "full" for s in LADDER]
     assert all(r.enqueue_ms > 0 and r.event_ms is None and r.busy_ms is None
-               for r in rungs)
+               and r.n_by_name is None for r in rungs)
     full = call(None)
     assert int(full[8]) > 0
     assert all(torch.equal(g, w) for g, w in zip(rungs[-1].out, full))
@@ -355,9 +356,28 @@ def test_batch_floor_counts_this_batch(batch):
     assert f.n_valid == total_match
     assert 0 < f.cand_rows <= total_match
     assert f.k2_valid.int32_ops == f.k2_slots.int32_ops > 0
-    L = args[2].shape[1]
+    (q_counts, q_cc, q_norms, q_lens, _qf, k_ana, _ke, k_len, _se,
+     start_blk, _w, _thr) = args
+    L = q_norms.shape[1]
     assert f.k2_valid.nbytes == total_match * (8 * L + 16)
-    assert f.k2_slots.nbytes > P_BUDGET * 34
+    # the valid pairs by an enumeration of stage A's hit bits (all of them
+    # fit in P_BUDGET): the query rows and candidate rows they touch
+    sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
+                       static["nb_band"])
+    hits = np.unpackbits(sa.packed_q.numpy(), axis=1, bitorder="little")
+    q_ref, r_ref = np.nonzero(hits)
+    assert len(q_ref) == total_match
+    bt = q_counts.shape[0] // start_blk.shape[0]
+    rows = start_blk.numpy().astype(np.int64)[q_ref // bt] * 128 + r_ref
+    n_queries, cand_rows = len(np.unique(q_ref)), len(np.unique(rows))
+    assert f.cand_rows == cand_rows
+    assert f.k2_slots == roofline.k2_slots_work(
+        q_lens[torch.from_numpy(q_ref)], index.norm_lens[torch.from_numpy(rows)],
+        P_BUDGET, L, static["window"], q_norms.element_size(), n_queries,
+        cand_rows)
+    nb = q_norms.element_size()
+    assert f.k2_slots.nbytes == (P_BUDGET * (9 + 25) + n_queries * (L * nb + 9)
+                                 + cand_rows * (L * nb + 5))
     assert f.k3.nbytes > P_BUDGET * 13 and f.k3.int32_ops == 0
     assert f.parts_ms == pytest.approx(
         f.ms("k1")[0] + f.ms("k3")[0] + f.ms("k2_slots")[0]
@@ -390,6 +410,22 @@ def test_profile_device_stages_tool(capsys):
     for stop in LADDER:
         assert f"\n{stop or 'full'}: " in out
     assert "not measured" in out
+
+
+def test_profile_device_stages_tool_splits_the_kernels_ops():
+    """A rung's device ops per call, each hand-written kernel's by a part
+    of its device name (template instances summed), the rest as other."""
+    split = _tool("profile_device_stages_torch")._kernel_ops({
+        "void stage_a_kernel<64>(...)": 1.0,
+        "resolve_scan_kernel(...)": 1.0, "resolve_expand_kernel(...)": 1.0,
+        "void dl_lcs_slots_kernel<signed char, 3>(...)": 0.5,
+        "void dl_lcs_slots_kernel<int, 3>(...)": 0.5,
+        "void at::native::reduce_kernel<...>(...)": 4.0,
+        "Memset (Device)": 2.0,
+    })
+    assert split == ("stage_a_kernel 1.0, resolve_scan_kernel 1.0, "
+                     "resolve_expand_kernel 1.0, dl_lcs_slots_kernel 1.0, "
+                     "other 6.0")
 
 
 @pytest.mark.parametrize("extra", [[], ["--mesh", "1x2"]],

@@ -12,7 +12,9 @@ over 10 back-to-back calls: the host's time to enqueue one call
 card held first, so the host is ahead), and the card's busy time and ops
 per call from one ``torch.profiler`` window; each column also as the
 difference from the stop before. A prefix returns int32 checksums, so each
-difference is one stage's cost.
+difference is one stage's cost and the change in its checksums' cost; the
+line under each stop splits its device ops into the hand-written kernels'
+launches by kernel and the other ops (torch's, the checksums' among them).
 
     python3 tools/profile_device_stages_torch.py [--batch 4096]
         [--device cuda|cpu] [--lexicon FILE]
@@ -30,6 +32,21 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import common_torch  # noqa: E402
+
+
+# the device names (a part of each) of the port's hand-written kernels
+KERNELS = ("stage_a_kernel", "resolve_scan_kernel", "resolve_expand_kernel",
+           "dl_lcs_kernel", "dl_lcs_slots_kernel")
+
+
+def _kernel_ops(n_by_name) -> str:
+    """A rung's device ops per call split into each hand-written kernel's
+    and the rest."""
+    counts = {k: sum(n for name, n in n_by_name.items() if k in name)
+              for k in KERNELS}
+    other = sum(n_by_name.values()) - sum(counts.values())
+    return ", ".join([f"{k} {n:.1f}" for k, n in counts.items() if n]
+                     + [f"other {other:.1f}"])
 
 
 def _fmt(value, prev, digits: int) -> str:
@@ -71,6 +88,8 @@ def main(argv=None) -> int:
               f"{_fmt(r.event_ms, prev and prev.event_ms, 3)} | "
               f"{_fmt(r.busy_ms, prev and prev.busy_ms, 4)} | "
               f"{_fmt(r.n_ops, prev and prev.n_ops, 1)}")
+        if r.n_by_name is not None:
+            print(f"  device ops per call: {_kernel_ops(r.n_by_name)}")
         prev = r
     return 0
 
