@@ -44,17 +44,27 @@
 // SM, and capping them to fit more blocks spills and runs slower.
 //
 // Two entries run this DP. `analiticcl_dl_lcs` takes int32 [P, L] pair
-// strings. The slot entry, `analiticcl_dl_lcs_slots`, which the query
-// core runs, also replaces the JAX core's XLA glue beside the Pallas call
-// (the per-pair gathers and the affixes, analiticcl_tpu/ops/pipeline.py:
-// 594-647): it takes stage B's slots (query, device row, valid) and each
-// thread reads its pair's two strings by row from the index's int8 or
-// int32 norms and the batch's query norms (both stay in L2), computes the
-// common prefix and suffix (the suffix from the ends of the forward
-// strings) and the case flag, and runs the DP on the rows as they are, so
-// no [P, L] strings are written. Bound the same way: its bytes are the
-// slots and the rows the pairs touch (and its outputs); its time is the
-// DP's.
+// strings. The slot entry, which the query core runs, also replaces the
+// JAX core's XLA glue beside the Pallas call: the per-pair gathers and the
+// affixes (analiticcl_tpu/ops/pipeline.py:594-647) and, in its epilogue,
+// the score and the keep tests after it (:671-722). It takes stage B's
+// slots (query, device row, valid) and each thread reads its pair's two
+// strings by row from the index's int8 or int32 norms and the batch's
+// query norms (both stay in L2), computes the common prefix and suffix
+// (the suffix from the ends of the forward strings) and the case flag, and
+// runs the DP on the rows as they are, so no [P, L] strings are written.
+// Its metrics instance (`analiticcl_dl_lcs_slots`) writes six int32
+// metrics and the case flag a slot; the main path's
+// (`analiticcl_dl_lcs_slots_scored`) scores each slot in f32 in the JAX
+// core's operation order (no FMA contraction), applies the edit-threshold,
+// StopAtExactMatch and score tests, takes the per-query frequency maxima
+// (a segmented max in the warp, then one 64-bit atomicMax per query run)
+// and writes only the keep flag and five uint8 metrics: 6 bytes a slot
+// instead of 25, and none of the score's torch ops after it. Bound the
+// same way: its bytes are the slots, the rows the pairs touch and its
+// outputs; its time is the DP's. (Staging the block's rows in shared
+// memory was measured slower on the H100: the copy's loads waited one by
+// one, or, issued together, raised the registers to 204-255 with spills.)
 
 // With -DANALITICCL_HOST_TEST the per-pair DP compiles as plain C++ (for
 // checking its arithmetic on a machine without a card).
@@ -225,42 +235,133 @@ struct SlotTables {
   const int* k_ed;                     // [B]
 };
 
-// The slot entry's outputs: rows of one int32 [6, P] block (ld, lcs,
-// prefix, suffix, the query length (0 for an invalid slot) and the query's
-// edit threshold) and same_first [P].
+// The metrics instance's outputs (the holds and the `gather_dl` stop):
+// rows of one int32 [6, P] block (ld, lcs, prefix, suffix, the query
+// length (0 for an invalid slot) and the query's edit threshold) and
+// same_first [P]. Null on the main path.
 struct SlotOut {
   int* metrics;
   unsigned char* same_first;
 };
 
-// Slot p: its query's and candidate's strings read by row from the tables
-// (empty for an invalid slot), the common prefix and suffix (the suffix
-// from the ends of the forward strings), the case flags compared, and the
-// DP on the rows as they are; what gather_pairs, affix_metrics_aligned and
-// the DL+LCS of the pair strings give.
+// The scoring epilogue's inputs (the JAX core's score and keep tests,
+// analiticcl_tpu/ops/pipeline.py:671-722). Null weights: no epilogue.
+struct ScoreIn {
+  const float* weights;            // [6] ld, lcs, prefix, suffix, case, sum
+  const float* thr;                // [1] the score threshold less the slack
+  const int* pc_band;              // [P] the slot's band row
+  const unsigned char* exact_q;    // [B, nb8] stage A's exact-anagram bits
+  int nb8;
+  const unsigned char* use_exact;  // [B], or null: no StopAtExactMatch
+  const long long* freqs;          // [Ni], or null: no frequencies
+};
+
+// Its outputs: the keep flag, the metrics the survivor compaction moves
+// (one uint8 [5, P] block: ld, and lcs, prefix, suffix and the case flag
+// as the weights gate them), the per-query frequency maxima (zeroed by the
+// caller; null without frequencies) and, for the `score` stop, the score.
+struct ScoreOut {
+  unsigned char* keep;
+  unsigned char* met;
+  unsigned long long* max_freq;
+  float* score;
+};
+
+// One slot's metrics.
+struct SlotMetrics {
+  int ld, lcs, pf, sf, ql;
+  bool same_first;
+};
+
+// Slot p of query qi and device row ci: its strings ap and bp (the rows
+// of the tables as they are), empty for an invalid slot; the common prefix
+// and suffix (the suffix from the ends of the forward strings), the case
+// flags compared, and the DP on the rows; what gather_pairs,
+// affix_metrics_aligned and the DL+LCS of the pair strings give.
 template <typename Cell, int W, int LMAX, typename Ch>
-DEVFN void slot_pair(int p, int P, int L, const SlotTables<Ch>& t, Cell* st,
-                     int stride, SlotOut out) {
-  const int qi = t.q[p], ci = t.pc[p];
-  const bool v = t.valid[p] != 0;
-  const Ch* const ap = t.q_norms + (size_t)qi * L;
-  const Ch* const bp = t.norms2 + (size_t)ci * 2 * L;
-  const int ql = v ? t.q_lens[qi] : 0;
+DEVFN SlotMetrics slot_pair(int qi, int ci, bool v, const Ch* ap,
+                            const Ch* bp, int L, const SlotTables<Ch>& t,
+                            Cell* st, int stride) {
+  SlotMetrics r;
+  r.ql = v ? t.q_lens[qi] : 0;
   // a length above L is invalid input; clamping keeps every read in the row
-  const int al = min(ql, L), bl = min(v ? t.norm_lens[ci] : 0, L);
+  const int al = min(r.ql, L), bl = min(v ? t.norm_lens[ci] : 0, L);
   const int n = min(al, bl);
   int pf = 0;
   while (pf < n && ap[pf] == bp[pf]) ++pf;
   int sf = 0;
   while (sf < n && ap[al - 1 - sf] == bp[bl - 1 - sf]) ++sf;
-  int* const m = out.metrics;
-  m[2 * (size_t)P + p] = pf;
-  m[3 * (size_t)P + p] = sf;
-  m[4 * (size_t)P + p] = ql;
-  m[5 * (size_t)P + p] = t.k_ed[qi];
-  out.same_first[p] = (t.first_lower[ci] != 0) == (t.q_first_lower[qi] != 0);
-  dl_lcs_pair<Cell, W, LMAX, Ch>(ap, al, bp, bl, L, st, stride, m + p,
-                                 m + (size_t)P + p);
+  r.pf = pf;
+  r.sf = sf;
+  r.same_first = (t.first_lower[ci] != 0) == (t.q_first_lower[qi] != 0);
+  dl_lcs_pair<Cell, W, LMAX, Ch>(ap, al, bp, bl, L, st, stride, &r.ld,
+                                 &r.lcs);
+  return r;
+}
+
+// IEEE single-precision operations, rounded to nearest, none contracted
+// into an FMA: the score's arithmetic as torch evaluates it, op by op.
+#ifndef ANALITICCL_HOST_TEST
+DEVFN float f_mul(float a, float b) { return __fmul_rn(a, b); }
+DEVFN float f_add(float a, float b) { return __fadd_rn(a, b); }
+DEVFN float f_sub(float a, float b) { return __fsub_rn(a, b); }
+DEVFN float f_div(float a, float b) { return __fdiv_rn(a, b); }
+#else  // built with -ffp-contract=off
+inline float f_mul(float a, float b) { return a * b; }
+inline float f_add(float a, float b) { return a + b; }
+inline float f_sub(float a, float b) { return a - b; }
+inline float f_div(float a, float b) { return a / b; }
+#endif
+
+// Slot p's outputs. The metrics instance writes r as it is; the epilogue
+// the JAX core's f32 score of r in its operation order (the weights gate
+// lcs, prefix, suffix and the case flag; each ratio term is (w * x) /
+// qlen, left to right), the edit-threshold and exact tests, the keep flag
+// and the gated metrics. Returns the frequency the slot offers its
+// query's maximum: its row's where it passes the edit tests, else 0.
+DEVFN unsigned long long write_slot(int p, int P, int qi, int ci, bool v,
+                                    const SlotMetrics& r, int k_ed,
+                                    SlotOut out, const ScoreIn& in,
+                                    ScoreOut so) {
+  if (out.metrics) {
+    int* const m = out.metrics;
+    m[p] = r.ld;
+    m[(size_t)P + p] = r.lcs;
+    m[2 * (size_t)P + p] = r.pf;
+    m[3 * (size_t)P + p] = r.sf;
+    m[4 * (size_t)P + p] = r.ql;
+    m[5 * (size_t)P + p] = k_ed;
+  }
+  if (out.same_first) out.same_first[p] = r.same_first;
+  if (!in.weights) return 0;
+  const float* const w = in.weights;
+  const int lcs = w[1] > 0.f ? r.lcs : 0;
+  const int pf = w[2] > 0.f ? r.pf : 0;
+  const int sf = w[3] > 0.f ? r.sf : 0;
+  const bool samecase = w[4] > 0.f ? r.same_first : true;
+  const float qlen_f = (float)max(r.ql, 1);
+  const float ds = r.ld > r.ql ? 0.f : f_sub(1.f, f_div((float)r.ld, qlen_f));
+  float score = f_mul(w[0], ds);
+  score = f_add(score, f_div(f_mul(w[1], (float)lcs), qlen_f));
+  score = f_add(score, f_div(f_mul(w[2], (float)pf), qlen_f));
+  score = f_add(score, f_div(f_mul(w[3], (float)sf), qlen_f));
+  score = f_add(score, samecase ? w[4] : 0.f);
+  score = f_div(score, w[5]);
+  bool pass_ed = v && r.ld <= k_ed;
+  if (in.use_exact && pass_ed && in.use_exact[qi]) {
+    // StopAtExactMatch: a query with an exact anagram keeps only those
+    const int pcb = in.pc_band[p];
+    pass_ed = (in.exact_q[(size_t)qi * in.nb8 + (pcb >> 3)] >> (pcb & 7)) & 1;
+  }
+  so.keep[p] = pass_ed && score >= *in.thr;
+  unsigned char* const m8 = so.met;
+  m8[p] = (unsigned char)r.ld;
+  m8[(size_t)P + p] = (unsigned char)lcs;
+  m8[2 * (size_t)P + p] = (unsigned char)pf;
+  m8[3 * (size_t)P + p] = (unsigned char)sf;
+  m8[4 * (size_t)P + p] = samecase;
+  if (so.score) so.score[p] = score;
+  return pass_ed && in.freqs ? (unsigned long long)in.freqs[ci] : 0ull;
 }
 
 #ifndef ANALITICCL_HOST_TEST
@@ -292,30 +393,66 @@ dl_lcs_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
       a + (size_t)p * L, min(a_len[p], L), b + (size_t)p * L,
       min(b_len[p], L), L, smem + threadIdx.x, THREADS, ld + p, lcs + p);
 }
+#endif
+
+#ifndef ANALITICCL_HOST_TEST
+constexpr unsigned FULL = 0xffffffffu;
+
+// The frequency maxima: each lane offers its slot's frequency v for query
+// qi. A segmented max down the warp over runs of lanes with equal queries
+// (slots are query-major, so a run is a query's slots in the warp) leaves
+// each run's maximum in its first lane, which alone updates max_freq.
+__device__ __forceinline__ void max_freq_update(unsigned long long v, int qi,
+                                                unsigned long long* max_freq) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long y = __shfl_down_sync(FULL, v, o);
+    const int qy = __shfl_down_sync(FULL, qi, o);
+    if (lane + o < 32 && qy == qi && y > v) v = y;
+  }
+  const int qu = __shfl_up_sync(FULL, qi, 1);
+  if ((lane == 0 || qu != qi) && v > 0) atomicMax(max_freq + qi, v);
+}
 
 // The slot entry: one thread per slot, the same state and DP as
 // dl_lcs_kernel, the strings read from the tables (both stay in L2: about
-// 200 KB of queries and 6 MB of candidate rows at the main batch).
+// 200 KB of queries and 6 MB of candidate rows at the main batch). With
+// the epilogue (ScoreIn's weights) it writes the keep flag and the
+// compaction's uint8 metrics instead of the int32 metrics; every lane,
+// past P too, takes part in the warp's frequency maxima.
 template <int W, int LMAX, int THREADS, typename Ch>
 __global__ void __launch_bounds__(THREADS)
-dl_lcs_slots_kernel(SlotTables<Ch> t, SlotOut out, int P, int L) {
+dl_lcs_slots_kernel(SlotTables<Ch> t, SlotOut out, ScoreIn in, ScoreOut so,
+                    int P, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
   init_state<W, LMAX, THREADS>(smem, L);
   const int p = blockIdx.x * THREADS + threadIdx.x;
-  if (p >= P) return;
-  slot_pair<unsigned char, W, LMAX, Ch>(p, P, L, t, smem + threadIdx.x,
-                                        THREADS, out);
+  const bool live = p < P;
+  const int qi = live ? t.q[p] : -1;
+  unsigned long long f = 0;
+  if (live) {
+    const int ci = t.pc[p];
+    const bool v = t.valid[p] != 0;
+    const SlotMetrics r = slot_pair<unsigned char, W, LMAX, Ch>(
+        qi, ci, v, t.q_norms + (size_t)qi * L, t.norms2 + (size_t)ci * 2 * L,
+        L, t, smem + threadIdx.x, THREADS);
+    f = write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so);
+  }
+  if (so.max_freq) max_freq_update(f, qi, so.max_freq);
 }
 
 // Above 48 KB a block's dynamic shared memory needs the attribute; it is
-// set once per kernel instance and device, for the instance's largest L.
-template <int W, int LMAX, int THREADS, typename Kernel>
-cudaError_t allow_smem(Kernel kernel, unsigned long long& attr_set) {
+// set once per kernel instance and device, for `bytes`, the instance's
+// largest.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                       unsigned long long& attr_set) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (attr_set >> dev & 1)) return e;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           state_elems<W, LMAX>(LMAX) * THREADS);
+                           (int)bytes);
   if (e == cudaSuccess) attr_set |= 1ull << dev;
   return e;
 }
@@ -325,8 +462,9 @@ int launch(const int* a, const int* al, const int* b, const int* bl, int* ld,
            int* lcs, int P, int L, cudaStream_t st) {
   static_assert(THREADS % 16 == 0, "rows of whole 16-byte words");
   static unsigned long long attr_set = 0;
-  cudaError_t e = allow_smem<W, LMAX, THREADS>(dl_lcs_kernel<W, LMAX, THREADS>,
-                                               attr_set);
+  cudaError_t e = allow_smem(dl_lcs_kernel<W, LMAX, THREADS>,
+                             (size_t)state_elems<W, LMAX>(LMAX) * THREADS,
+                             attr_set);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)state_elems<W, LMAX>(L) * THREADS;
   dl_lcs_kernel<W, LMAX, THREADS><<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(
@@ -345,33 +483,35 @@ int launch_w(const int* a, const int* al, const int* b, const int* bl, int* ld,
 }
 
 template <int W, int LMAX, int THREADS, typename Ch>
-int launch_slots(const SlotTables<Ch>& t, SlotOut out, int P, int L,
-                 cudaStream_t st) {
+int launch_slots(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
+                 ScoreOut so, int P, int L, cudaStream_t st) {
   static unsigned long long attr_set = 0;
-  cudaError_t e = allow_smem<W, LMAX, THREADS>(
-      dl_lcs_slots_kernel<W, LMAX, THREADS, Ch>, attr_set);
+  cudaError_t e = allow_smem(dl_lcs_slots_kernel<W, LMAX, THREADS, Ch>,
+                             (size_t)state_elems<W, LMAX>(LMAX) * THREADS,
+                             attr_set);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)state_elems<W, LMAX>(L) * THREADS;
   dl_lcs_slots_kernel<W, LMAX, THREADS, Ch>
-      <<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(t, out, P, L);
+      <<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(t, out, in, so, P,
+                                                          L);
   return (int)cudaGetLastError();
 }
 
 template <int W, typename Ch>
-int launch_slots_w(const SlotTables<Ch>& t, SlotOut out, int P, int L,
-                   cudaStream_t st) {
+int launch_slots_w(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
+                   ScoreOut so, int P, int L, cudaStream_t st) {
   // the instances of launch_w
-  if (L <= 32) return launch_slots<W, 32, 128, Ch>(t, out, P, L, st);
-  return launch_slots<W, 64, 64, Ch>(t, out, P, L, st);
+  if (L <= 32) return launch_slots<W, 32, 128, Ch>(t, out, in, so, P, L, st);
+  return launch_slots<W, 64, 64, Ch>(t, out, in, so, P, L, st);
 }
 
 template <typename Ch>
-int launch_slots_all(const SlotTables<Ch>& t, SlotOut out, int P, int L,
-                     int W, cudaStream_t st) {
+int launch_slots_all(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
+                     ScoreOut so, int P, int L, int W, cudaStream_t st) {
   switch (W) {
-    case 3: return launch_slots_w<3, Ch>(t, out, P, L, st);
-    case 6: return launch_slots_w<6, Ch>(t, out, P, L, st);
-    case 12: return launch_slots_w<12, Ch>(t, out, P, L, st);
+    case 3: return launch_slots_w<3, Ch>(t, out, in, so, P, L, st);
+    case 6: return launch_slots_w<6, Ch>(t, out, in, so, P, L, st);
+    case 12: return launch_slots_w<12, Ch>(t, out, in, so, P, L, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -391,9 +531,47 @@ SlotTables<Ch> slot_tables(const void* q, const void* pc, const void* valid,
       (const int*)k_ed};
 }
 
+ScoreIn score_in(const void* pc_band, const void* exact_q, int nb8,
+                 const void* use_exact, const void* freqs,
+                 const void* weights, const void* thr) {
+  return ScoreIn{(const float*)weights, (const float*)thr,
+                 (const int*)pc_band, (const unsigned char*)exact_q, nb8,
+                 (const unsigned char*)use_exact, (const long long*)freqs};
+}
+
+ScoreOut score_out(void* keep, void* met, void* max_freq, void* score) {
+  return ScoreOut{(unsigned char*)keep, (unsigned char*)met,
+                  (unsigned long long*)max_freq, (float*)score};
+}
+
 }  // namespace
 
 #ifndef ANALITICCL_HOST_TEST
+namespace {
+int slots_entry(const void* q, const void* pc, const void* valid,
+                const void* norms2, const void* norm_lens,
+                const void* first_lower, const void* q_norms,
+                const void* q_lens, const void* q_first_lower,
+                const void* k_ed, int elem_bytes, SlotOut out,
+                const ScoreIn& in, ScoreOut so, int P, int L, int W,
+                void* stream) {
+  if (P <= 0) return 0;
+  if (L < 1 || L > KERNEL_MAX_L) return (int)cudaErrorInvalidValue;
+  auto st = (cudaStream_t)stream;
+  if (elem_bytes == 1)
+    return launch_slots_all(
+        slot_tables<signed char>(q, pc, valid, norms2, norm_lens, first_lower,
+                                 q_norms, q_lens, q_first_lower, k_ed),
+        out, in, so, P, L, W, st);
+  if (elem_bytes == 4)
+    return launch_slots_all(
+        slot_tables<int>(q, pc, valid, norms2, norm_lens, first_lower,
+                         q_norms, q_lens, q_first_lower, k_ed),
+        out, in, so, P, L, W, st);
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace
+
 // a, b: int32 [P, L] (PAD_A / PAD_B padded); a_len, b_len: int32 [P];
 // ld, lcs: int32 [P] outputs. W in {3, 6, 12}, 1 <= L <= 64.
 extern "C" int analiticcl_dl_lcs(const void* a, const void* a_len,
@@ -414,11 +592,11 @@ extern "C" int analiticcl_dl_lcs(const void* a, const void* a_len,
   }
 }
 
-// The slot entry. q, pc: int32 [P]; valid: bool [P]; norms2: [Ni, 2L] and
-// q_norms: [B, L], both int8 (elem_bytes 1) or both int32 (4); norm_lens:
-// int32 [Ni]; first_lower: bool [Ni]; q_lens, k_ed: int32 [B];
-// q_first_lower: bool [B]. metrics: int32 [6, P] out (ld, lcs, prefix,
-// suffix, query length, edit threshold); same_first: bool [P] out.
+// The slot entry's metrics instance. q, pc: int32 [P]; valid: bool [P];
+// norms2: [Ni, 2L] and q_norms: [B, L], both int8 (elem_bytes 1) or both
+// int32 (4); norm_lens: int32 [Ni]; first_lower: bool [Ni]; q_lens, k_ed:
+// int32 [B]; q_first_lower: bool [B]. metrics: int32 [6, P] out (ld, lcs,
+// prefix, suffix, query length, edit threshold); same_first: bool [P] out.
 // W in {3, 6, 12}, 1 <= L <= 64.
 extern "C" int analiticcl_dl_lcs_slots(
     const void* q, const void* pc, const void* valid, const void* norms2,
@@ -426,21 +604,34 @@ extern "C" int analiticcl_dl_lcs_slots(
     const void* q_lens, const void* q_first_lower, const void* k_ed,
     int elem_bytes, void* metrics, void* same_first, int P, int L, int W,
     void* stream) {
-  if (P <= 0) return 0;
-  if (L < 1 || L > KERNEL_MAX_L) return (int)cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
-  SlotOut out{(int*)metrics, (unsigned char*)same_first};
-  if (elem_bytes == 1)
-    return launch_slots_all(
-        slot_tables<signed char>(q, pc, valid, norms2, norm_lens, first_lower,
-                                 q_norms, q_lens, q_first_lower, k_ed),
-        out, P, L, W, st);
-  if (elem_bytes == 4)
-    return launch_slots_all(
-        slot_tables<int>(q, pc, valid, norms2, norm_lens, first_lower,
-                         q_norms, q_lens, q_first_lower, k_ed),
-        out, P, L, W, st);
-  return (int)cudaErrorInvalidValue;
+  return slots_entry(q, pc, valid, norms2, norm_lens, first_lower, q_norms,
+                     q_lens, q_first_lower, k_ed, elem_bytes,
+                     SlotOut{(int*)metrics, (unsigned char*)same_first},
+                     ScoreIn{}, ScoreOut{}, P, L, W, stream);
+}
+
+// The slot entry with the scoring epilogue, the main path's: the inputs of
+// analiticcl_dl_lcs_slots, then pc_band: int32 [P]; exact_q: uint8
+// [B, nb8]; use_exact: bool [B] or null; freqs: int64 [Ni] or null;
+// weights: float32 [6]; thr: float32 [1]. keep: bool [P] out; met: uint8
+// [5, P] out (ld, lcs, prefix, suffix, case flag, gated); max_freq: int64
+// [B] in/out, zeros in (null with freqs); score: float32 [P] out or null.
+extern "C" int analiticcl_dl_lcs_slots_scored(
+    const void* q, const void* pc, const void* valid, const void* norms2,
+    const void* norm_lens, const void* first_lower, const void* q_norms,
+    const void* q_lens, const void* q_first_lower, const void* k_ed,
+    int elem_bytes, const void* pc_band, const void* exact_q, int nb8,
+    const void* use_exact, const void* freqs, const void* weights,
+    const void* thr, void* keep, void* met, void* max_freq, void* score,
+    int P, int L, int W, void* stream) {
+  if (!weights || !thr || !keep || !met || !pc_band || !exact_q ||
+      (freqs == nullptr) != (max_freq == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return slots_entry(q, pc, valid, norms2, norm_lens, first_lower, q_norms,
+                     q_lens, q_first_lower, k_ed, elem_bytes, SlotOut{},
+                     score_in(pc_band, exact_q, nb8, use_exact, freqs,
+                              weights, thr),
+                     score_out(keep, met, max_freq, score), P, L, W, stream);
 }
 #else
 namespace {
@@ -483,49 +674,89 @@ extern "C" void analiticcl_dl_lcs_host(const int* a, const int* a_len,
 }
 
 namespace {
-// The slot entry's per-slot work (loads, affixes, DP) on the host, one
-// slot at a time over byte cells of stride 1.
+// The slot entry's per-slot work on the host, one slot at a time over byte
+// cells of stride 1: the loads, affixes, DP and outputs; the frequency
+// maxima a plain max per slot.
 template <typename Ch, int W, int LMAX>
-void host_slots_pairs(const SlotTables<Ch>& t, SlotOut out, int P, int L) {
+void host_slots_pairs(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
+                      ScoreOut so, int P, int L) {
   std::vector<unsigned char> st(state_elems<W, LMAX>(L));
   for (int p = 0; p < P; ++p) {
     for (size_t k = 0; k < st.size(); ++k)
       st[k] = (unsigned char)state_init<W>((int)k, L);
-    slot_pair<unsigned char, W, LMAX, Ch>(p, P, L, t, st.data(), 1, out);
+    const int qi = t.q[p], ci = t.pc[p];
+    const bool v = t.valid[p] != 0;
+    const SlotMetrics r = slot_pair<unsigned char, W, LMAX, Ch>(
+        qi, ci, v, t.q_norms + (size_t)qi * L, t.norms2 + (size_t)ci * 2 * L,
+        L, t, st.data(), 1);
+    const unsigned long long f =
+        write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so);
+    if (so.max_freq && f > so.max_freq[qi]) so.max_freq[qi] = f;
   }
 }
 
 template <typename Ch, int W>
-void host_slots_w(const SlotTables<Ch>& t, SlotOut out, int P, int L) {
-  if (L <= 32) host_slots_pairs<Ch, W, 32>(t, out, P, L);
-  else host_slots_pairs<Ch, W, 64>(t, out, P, L);
+void host_slots_w(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
+                  ScoreOut so, int P, int L) {
+  if (L <= 32) host_slots_pairs<Ch, W, 32>(t, out, in, so, P, L);
+  else host_slots_pairs<Ch, W, 64>(t, out, in, so, P, L);
 }
 
 template <typename Ch>
-void host_slots(const SlotTables<Ch>& t, SlotOut out, int P, int L, int W) {
+void host_slots(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
+                ScoreOut so, int P, int L, int W) {
   if (L < 1 || L > KERNEL_MAX_L) return;
-  if (W == 3) host_slots_w<Ch, 3>(t, out, P, L);
-  if (W == 6) host_slots_w<Ch, 6>(t, out, P, L);
-  if (W == 12) host_slots_w<Ch, 12>(t, out, P, L);
+  if (W == 3) host_slots_w<Ch, 3>(t, out, in, so, P, L);
+  if (W == 6) host_slots_w<Ch, 6>(t, out, in, so, P, L);
+  if (W == 12) host_slots_w<Ch, 12>(t, out, in, so, P, L);
+}
+
+void host_slots_any(const void* q, const void* pc, const void* valid,
+                    const void* norms2, const void* norm_lens,
+                    const void* first_lower, const void* q_norms,
+                    const void* q_lens, const void* q_first_lower,
+                    const void* k_ed, int elem_bytes, SlotOut out,
+                    const ScoreIn& in, ScoreOut so, int P, int L, int W) {
+  if (elem_bytes == 1)
+    host_slots(slot_tables<signed char>(q, pc, valid, norms2, norm_lens,
+                                        first_lower, q_norms, q_lens,
+                                        q_first_lower, k_ed),
+               out, in, so, P, L, W);
+  if (elem_bytes == 4)
+    host_slots(slot_tables<int>(q, pc, valid, norms2, norm_lens, first_lower,
+                                q_norms, q_lens, q_first_lower, k_ed),
+               out, in, so, P, L, W);
 }
 }  // namespace
 
-// the slot entry on the host, arguments as analiticcl_dl_lcs_slots's
+// the slot entry's metrics instance on the host, arguments as
+// analiticcl_dl_lcs_slots's
 extern "C" void analiticcl_dl_lcs_slots_host(
     const void* q, const void* pc, const void* valid, const void* norms2,
     const void* norm_lens, const void* first_lower, const void* q_norms,
     const void* q_lens, const void* q_first_lower, const void* k_ed,
     int elem_bytes, void* metrics, void* same_first, int P, int L, int W) {
-  SlotOut out{(int*)metrics, (unsigned char*)same_first};
-  if (elem_bytes == 1)
-    host_slots(slot_tables<signed char>(q, pc, valid, norms2, norm_lens,
-                                        first_lower, q_norms, q_lens,
-                                        q_first_lower, k_ed),
-               out, P, L, W);
-  if (elem_bytes == 4)
-    host_slots(slot_tables<int>(q, pc, valid, norms2, norm_lens, first_lower,
-                                q_norms, q_lens, q_first_lower, k_ed),
-               out, P, L, W);
+  host_slots_any(q, pc, valid, norms2, norm_lens, first_lower, q_norms,
+                 q_lens, q_first_lower, k_ed, elem_bytes,
+                 SlotOut{(int*)metrics, (unsigned char*)same_first},
+                 ScoreIn{}, ScoreOut{}, P, L, W);
+}
+
+// the slot entry with the scoring epilogue on the host, arguments as
+// analiticcl_dl_lcs_slots_scored's
+extern "C" void analiticcl_dl_lcs_slots_scored_host(
+    const void* q, const void* pc, const void* valid, const void* norms2,
+    const void* norm_lens, const void* first_lower, const void* q_norms,
+    const void* q_lens, const void* q_first_lower, const void* k_ed,
+    int elem_bytes, const void* pc_band, const void* exact_q, int nb8,
+    const void* use_exact, const void* freqs, const void* weights,
+    const void* thr, void* keep, void* met, void* max_freq, void* score,
+    int P, int L, int W) {
+  host_slots_any(q, pc, valid, norms2, norm_lens, first_lower, q_norms,
+                 q_lens, q_first_lower, k_ed, elem_bytes, SlotOut{},
+                 score_in(pc_band, exact_q, nb8, use_exact, freqs, weights,
+                          thr),
+                 score_out(keep, met, max_freq, score), P, L, W);
 }
 
 // the same DP on int cells

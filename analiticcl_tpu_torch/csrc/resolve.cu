@@ -11,25 +11,45 @@
 // valid = 0 and the values the plain version gives it (the last query, the
 // last band row of its band), which keep every later index in range.
 //
-// Design: expand, don't search. The plain version searches for each slot's
-// 128-row block in a cumsum over all B x M_band block counts and ranks the
-// slot's bit inside the block. Here each query's first slot is one
-// exclusive scan over stage A's per-query totals `nmatch` (launch 1, one
-// block), and then one block per query (launch 2) scans the query's column
-// of `counts_t` for each block's first slot and writes the set bits of every
-// non-empty block straight into their slots: one warp per 128-row block,
-// each lane a nibble of its 16 bytes, the nibble's slot offset a prefix sum
-// of `__popc` across the warp. Extra blocks of launch 2 write the validity
-// of every slot and the fixed values of the slots past the total; the query
-// blocks write only slots below it, so no slot is written twice.
+// Design: expand, don't search, in one launch. The plain version searches
+// for each slot's 128-row block in a cumsum over all B x M_band block
+// counts and ranks the slot's bit inside the block. Here a block of
+// QT_WARPS warps takes QT_WARPS consecutive queries, a warp each:
+// - Its first slot: every block sums stage A's per-query totals `nmatch`
+//   below its first query (and all of them, the total) itself; B is a few
+//   thousand, so this costs a few coalesced loads a thread and no second
+//   launch or grid-wide scan.
+// - The block counts: `counts_t` is [M_band, B], so the block reads it
+//   along its contiguous axis, CHUNK rows of its QT_WARPS columns at a time
+//   (one 32-byte sector a row), into shared memory, double-buffered: the
+//   next chunk's loads are in flight while the warps expand this one, and a
+//   chunk costs one block barrier. A warp walks its query's column in rows
+//   of 32 blocks, a lane each (the padded pitch keeps the reads free of
+//   bank conflicts), and a shuffle scan per row gives each block its first
+//   slot.
+// - The expansion: each lane takes its own blocks, ROWS of a chunk: it
+//   loads the 16 bytes of hit bits of each of them that is non-empty and
+//   starts below P at once (one latency for the chunk, not one per block),
+//   then writes each set bit's slot in band-row order. Stage A's hits are
+//   sparse, a few per non-empty block, so a lane's loop is short. Measured
+//   on the H100 (tools/k3_compare.py), these variants were no faster:
+//   blocks of 4 or 16 queries, chunks of 256 blocks, the whole band's
+//   counts in two chunks with each warp's non-empty blocks listed and
+//   their bits loaded in one batch; handing the blocks of more than 6 hits
+//   to the whole warp, a nibble a lane, was 1.6x slower.
+// - The tail: every block writes a grid-stride share of the slots'
+//   validity and the fixed values of the slots past the total; the warps
+//   write only slots below it, so no slot is written twice.
 //
-// What bounds it on the H100: bytes. It reads the column counts (4 B x
-// M_band bytes) and the 16 bytes of each non-empty block, and writes 13
-// bytes per slot; its arithmetic is a few operations per hit.
+// What bounds it on the H100: bytes. It reads the block counts (4 B x
+// M_band x B) once and the 16 bytes of each non-empty block, and writes 13
+// bytes per slot; its arithmetic is a few operations per hit. The
+// per-block sums of `nmatch` read B x 4 bytes a block, from L2.
 
-// With -DANALITICCL_HOST_TEST the per-nibble writes and the slot values
-// compile as plain C++, driven by a sequential walk that stands in for the
-// warps (for checking the arithmetic on a machine without a card).
+// With -DANALITICCL_HOST_TEST the per-block writes, the slot values and
+// the tiles' arithmetic compile as plain C++, driven by a sequential walk
+// of the same tiles, chunks and prefix sums that stands in for the warps
+// (for checking the arithmetic on a machine without a card).
 #ifndef ANALITICCL_HOST_TEST
 #include <cuda_runtime.h>
 
@@ -45,7 +65,12 @@ namespace {
 constexpr int HIT_BLOCK = 128;                 // band rows per count
 constexpr int BLOCK_BYTES = HIT_BLOCK / 8;     // bytes of hit bits per count
 constexpr int ROW_BLOCK = 1024;                // band-start granularity
-constexpr int NIBBLES = HIT_BLOCK / 4;         // one per lane of a warp
+constexpr int QT_WARPS = 8;                    // queries per block, a warp each
+constexpr int THREADS = QT_WARPS * 32;
+constexpr int ROWS = 4;                        // rows of 32 blocks per chunk
+constexpr int CHUNK = 32 * ROWS;               // block counts per chunk
+constexpr int PER_THREAD = CHUNK * QT_WARPS / THREADS;  // counts a thread loads
+static_assert(CHUNK * QT_WARPS % THREADS == 0, "whole loads a thread");
 
 struct Slots {
   int* q;
@@ -54,25 +79,27 @@ struct Slots {
   unsigned char* valid;
 };
 
-// The 4 hit bits of nibble `lane` of a 128-row block (band rows
-// 4 * lane .. 4 * lane + 3 of the block).
-HDFN unsigned nibble_of(const unsigned char* block_bits, int lane) {
-  return (block_bits[lane >> 1] >> ((lane & 1) * 4)) & 0xFu;
+// The index of the lowest set bit of x (x != 0).
+HDFN int lowest_bit(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
 }
 
-// Write the set bits of `nib` into the slots from `slot` on, in band-row
-// order; `row` is the band row of the nibble's bit 0. Slots at or past P
-// are dropped.
-HDFN void write_nibble(unsigned nib, long long slot, int q, int row, int row0,
-                       int P, Slots out) {
-  for (int k = 0; k < 4; ++k) {
-    if (!((nib >> k) & 1u)) continue;
-    if (slot < P) {
+// Write the set bits of the 128-row block `blk` (its 16 bytes `bits`, as
+// four little-endian words) into the slots from `slot` on, in band-row
+// order; slots at or past P are dropped.
+HDFN void write_block(const unsigned* words, long long slot, int q, int blk,
+                      int row0, int P, Slots out) {
+  for (int w = 0; w < BLOCK_BYTES / 4 && slot < P; ++w) {
+    for (unsigned x = words[w]; x && slot < P; x &= x - 1, ++slot) {
+      const int row = blk * HIT_BLOCK + 32 * w + lowest_bit(x);
       out.q[slot] = q;
-      out.pc_band[slot] = row + k;
-      out.pc[slot] = row0 + row + k;
+      out.pc_band[slot] = row;
+      out.pc[slot] = row0 + row;
     }
-    ++slot;
   }
 }
 
@@ -89,115 +116,146 @@ HDFN void write_tail(long long s, long long total, int B, int Nb,
   }
 }
 
-#ifndef ANALITICCL_HOST_TEST
-constexpr int SCAN_THREADS = 1024;
-constexpr int EXPAND_THREADS = 256;
-constexpr int TAIL_BLOCKS_MAX = 512;
+// The block count the j-th load of thread t brings for the chunk from
+// block row m0: its index i = t + j * THREADS is row m0 + i / QT_WARPS of
+// the tile's column i % QT_WARPS (0 past the edges).
+HDFN int chunk_count(const int* counts_t, int m0, int i, int q0, int B,
+                     int M_band) {
+  const int m = m0 + i / QT_WARPS, col = q0 + i % QT_WARPS;
+  return m < M_band && col < B ? counts_t[(size_t)m * B + col] : 0;
+}
 
-// Exclusive prefix sum of `v` over the block's threads; `*total` gets the
-// block's sum. `sh` holds one entry per warp.
-template <int THREADS>
-__device__ __forceinline__ long long block_exclusive_scan(long long v,
-                                                          long long* sh,
-                                                          long long* total) {
-  constexpr int NWARPS = THREADS / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  long long x = v;
+// The grid: a block per tile of QT_WARPS queries, and more (up to 512)
+// where the slots would leave a block over 1,024 tail slots.
+HDFN int grid_blocks(int B, int P) {
+  const int tiles = (B + QT_WARPS - 1) / QT_WARPS;
+  const long long tail = ((long long)P + 4 * THREADS - 1) / (4 * THREADS);
+  return tail > tiles ? (int)(tail < 512 ? tail : 512) : tiles;
+}
+
+#ifndef ANALITICCL_HOST_TEST
+constexpr unsigned FULL = 0xffffffffu;
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Inclusive prefix sum across the warp.
+__device__ __forceinline__ int warp_incl_scan(int v, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+    const int y = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += y;
   }
-  if (lane == 31) sh[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    long long w = lane < NWARPS ? sh[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < NWARPS) sh[lane] = w;
-  }
-  __syncthreads();
-  const long long ex = x - v + (warp > 0 ? sh[warp - 1] : 0);
-  *total = sh[NWARPS - 1];
-  __syncthreads();  // sh is reused by the next call
-  return ex;
+  return v;
 }
 
-// Launch 1: each query's first slot (the exclusive scan of nmatch) and the
-// hit total. One block; each thread sums a contiguous run of queries.
-__global__ void __launch_bounds__(SCAN_THREADS)
-resolve_scan_kernel(const int* __restrict__ nmatch, int B,
-                    long long* __restrict__ base, long long* __restrict__ total) {
-  __shared__ long long sh[SCAN_THREADS / 32];
-  const int per = (B + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(B, (int)threadIdx.x * per), hi = min(B, lo + per);
-  long long s = 0;
-  for (int i = lo; i < hi; ++i) s += nmatch[i];
-  long long all;
-  long long ex = block_exclusive_scan<SCAN_THREADS>(s, sh, &all);
-  for (int i = lo; i < hi; ++i) {
-    base[i] = ex;
-    ex += nmatch[i];
-  }
-  if (threadIdx.x == 0) *total = all;
-}
-
-// Launch 2: blocks 0 .. B-1 expand query blockIdx.x's hits; the blocks
-// after them write every slot's validity and the slots past the total.
-__global__ void __launch_bounds__(EXPAND_THREADS)
-resolve_expand_kernel(const unsigned char* __restrict__ packed_q,
-                      const int* __restrict__ counts_t,
-                      const long long* __restrict__ base,
-                      const long long* __restrict__ total,
-                      const int* __restrict__ start_blk, int B, int M_band,
-                      int bt, int P, Slots out) {
-  constexpr int NWARPS = EXPAND_THREADS / 32;
+__global__ void __launch_bounds__(THREADS)
+resolve_kernel(const unsigned char* __restrict__ packed_q,
+               const int* __restrict__ counts_t,
+               const int* __restrict__ nmatch,
+               const int* __restrict__ start_blk, int B, int M_band, int bt,
+               int P, Slots out, long long* __restrict__ total_out) {
+  // the chunk's counts, column by column (a column's rows of 32 are read
+  // by a warp); the pitch's + 1 spreads the stores over the banks
+  __shared__ int s_cnt[2][QT_WARPS][CHUNK + 1];
+  __shared__ long long s_red[2][QT_WARPS];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int q0 = blockIdx.x * QT_WARPS;
   const int Nb = M_band * HIT_BLOCK;
-  if ((int)blockIdx.x >= B) {
-    const long long tot = *total;
-    const int last_row0 = start_blk[(B - 1) / bt] * ROW_BLOCK;
-    const long long stride = (long long)(gridDim.x - B) * EXPAND_THREADS;
-    for (long long s = (long long)(blockIdx.x - B) * EXPAND_THREADS +
-                       threadIdx.x;
-         s < P; s += stride)
-      write_tail(s, tot, B, Nb, last_row0, out);
-    return;
-  }
-  __shared__ long long sh[NWARPS];
-  __shared__ int s_cnt[EXPAND_THREADS];
-  __shared__ long long s_off[EXPAND_THREADS];
-  const int q = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = start_blk[q / bt] * ROW_BLOCK;
-  const unsigned char* bits = packed_q + (size_t)q * M_band * BLOCK_BYTES;
-  long long off = base[q];  // the same in every thread: the loop is uniform
-  for (int m0 = 0; m0 < M_band && off < P; m0 += EXPAND_THREADS) {
-    const int m = m0 + (int)threadIdx.x;
-    const int c = m < M_band ? counts_t[(size_t)m * B + q] : 0;
-    long long chunk;
-    const long long ex = block_exclusive_scan<EXPAND_THREADS>(c, sh, &chunk);
-    s_cnt[threadIdx.x] = c;
-    s_off[threadIdx.x] = off + ex;
-    __syncthreads();
-    for (int k = warp; k < EXPAND_THREADS; k += NWARPS) {
-      if (s_cnt[k] == 0 || s_off[k] >= P) continue;  // uniform in the warp
-      const int blk = m0 + k;
-      const unsigned nib = nibble_of(bits + (size_t)blk * BLOCK_BYTES, lane);
-      const int n = __popc(nib);
-      int incl = n;
+
+  // the tile's first chunk of counts is in flight during the sums
+  int next[PER_THREAD];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      write_nibble(nib, s_off[k] + incl - n, q, blk * HIT_BLOCK + 4 * lane,
-                   row0, P, out);
+  for (int j = 0; j < PER_THREAD; ++j)
+    next[j] = chunk_count(counts_t, 0, t + j * THREADS, q0, B, M_band);
+
+  // the hits of the queries below the tile, and of all of them
+  long long pre = 0, all = 0;
+  for (int i = t; i < B; i += THREADS) {
+    const int v = nmatch[i];
+    all += v;
+    if (i < q0) pre += v;
+  }
+  pre = warp_sum(pre);
+  all = warp_sum(all);
+  if (lane == 0) {
+    s_red[0][warp] = pre;
+    s_red[1][warp] = all;
+  }
+#pragma unroll
+  for (int j = 0; j < PER_THREAD; ++j) {
+    const int i = t + j * THREADS;
+    s_cnt[0][i % QT_WARPS][i / QT_WARPS] = next[j];
+  }
+  __syncthreads();
+  pre = all = 0;
+#pragma unroll
+  for (int w = 0; w < QT_WARPS; ++w) {
+    pre += s_red[0][w];
+    all += s_red[1][w];
+  }
+  if (blockIdx.x == 0 && t == 0) *total_out = all;
+
+  // this block's share of every slot's validity and of the slots past the
+  // total (stores only: nothing below waits for them)
+  const int last_row0 = start_blk[(B - 1) / bt] * ROW_BLOCK;
+  for (long long s = (long long)blockIdx.x * THREADS + t; s < P;
+       s += (long long)gridDim.x * THREADS)
+    write_tail(s, all, B, Nb, last_row0, out);
+  if (q0 >= B || pre >= P) return;  // uniform: no slot of this tile
+
+  // the warp's query and its first slot (uniform in the warp)
+  const int q = q0 + warp;
+  const bool live = q < B;
+  long long off = pre;
+  for (int j = q0; j < q; ++j) off += nmatch[j];
+  const int row0 = live ? start_blk[q / bt] * ROW_BLOCK : 0;
+  const uint4* const bits = reinterpret_cast<const uint4*>(
+      packed_q + (size_t)(live ? q : 0) * M_band * BLOCK_BYTES);
+
+  for (int k = 0, m0 = 0; m0 < M_band; ++k, m0 += CHUNK) {
+    const bool more = m0 + CHUNK < M_band;
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < PER_THREAD; ++j)
+        next[j] = chunk_count(counts_t, m0 + CHUNK, t + j * THREADS, q0, B,
+                              M_band);
     }
-    off += chunk;
-    __syncthreads();  // s_cnt and s_off are rewritten next round
+    if (live && off < P) {
+      // each lane's block of each row of 32: its count and first slot
+      long long first[ROWS];
+      int cnt[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int c = s_cnt[k & 1][warp][r * 32 + lane];
+        const int incl = warp_incl_scan(c, lane);
+        first[r] = off + incl - c;
+        cnt[r] = c > 0 && first[r] < P ? c : 0;
+        off += __shfl_sync(FULL, incl, 31);
+      }
+      uint4 b[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        if (cnt[r]) b[r] = bits[m0 + r * 32 + lane];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (!cnt[r]) continue;
+        const unsigned words[4] = {b[r].x, b[r].y, b[r].z, b[r].w};
+        write_block(words, first[r], q, m0 + r * 32 + lane, row0, P, out);
+      }
+    }
+    if (more) {
+#pragma unroll
+      for (int j = 0; j < PER_THREAD; ++j) {
+        const int i = t + j * THREADS;
+        s_cnt[(k + 1) & 1][i % QT_WARPS][i / QT_WARPS] = next[j];
+      }
+    }
+    __syncthreads();
   }
 }
 #endif
@@ -207,32 +265,26 @@ resolve_expand_kernel(const unsigned char* __restrict__ packed_q,
 #ifndef ANALITICCL_HOST_TEST
 // packed_q: uint8 [B, M_band * 16]; counts_t: int32 [M_band, B]; nmatch:
 // int32 [B] (the column sums of counts_t); start_blk: int32 [B / bt].
-// Outputs: q, pc_band, pc int32 [P], valid uint8 [P], total int64 [1];
-// base: int64 [B] scratch. Two launches on `stream`.
+// Outputs: q, pc_band, pc int32 [P], valid uint8 [P], total int64 [1].
+// One launch on `stream`.
 extern "C" int analiticcl_resolve(const void* packed_q, const void* counts_t,
                                   const void* nmatch, const void* start_blk,
                                   void* q, void* pc_band, void* pc,
-                                  void* valid, void* total, void* base, int B,
-                                  int M_band, int bt, int P, void* stream) {
+                                  void* valid, void* total, int B, int M_band,
+                                  int bt, int P, void* stream) {
   if (B < 1 || M_band < 1 || bt < 1 || B % bt || P < 0)
     return (int)cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
-  resolve_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(
-      (const int*)nmatch, B, (long long*)base, (long long*)total);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int tail = (int)std::min<long long>(
-      TAIL_BLOCKS_MAX, ((long long)P + EXPAND_THREADS - 1) / EXPAND_THREADS);
   Slots out{(int*)q, (int*)pc_band, (int*)pc, (unsigned char*)valid};
-  resolve_expand_kernel<<<B + std::max(tail, 1), EXPAND_THREADS, 0, st>>>(
+  resolve_kernel<<<grid_blocks(B, P), THREADS, 0, (cudaStream_t)stream>>>(
       (const unsigned char*)packed_q, (const int*)counts_t,
-      (const long long*)base, (const long long*)total,
-      (const int*)start_blk, B, M_band, bt, P, out);
+      (const int*)nmatch, (const int*)start_blk, B, M_band, bt, P, out,
+      (long long*)total);
   return (int)cudaGetLastError();
 }
 #else
-// The same slots on the host: the kernel's nibble writes and tail values,
-// the warps' prefix sums and the block scans walked in order.
+// The same slots on the host: the kernel's tiles, chunks, rows of 32 and
+// prefix sums walked in order, warp by warp and lane by lane, with its
+// lanes' block writes and its tail values.
 extern "C" void analiticcl_resolve_host(const unsigned char* packed_q,
                                         const int* counts_t,
                                         const int* nmatch,
@@ -242,28 +294,52 @@ extern "C" void analiticcl_resolve_host(const unsigned char* packed_q,
                                         long long* total, int B, int M_band,
                                         int bt, int P) {
   Slots out{q, pc_band, pc, valid};
-  long long off = 0;
-  for (int qi = 0; qi < B; ++qi) {
-    const int row0 = start_blk[qi / bt] * ROW_BLOCK;
-    const unsigned char* bits = packed_q + (size_t)qi * M_band * BLOCK_BYTES;
-    long long blk_off = off;
-    for (int m = 0; m < M_band && blk_off < P; ++m) {
-      const int c = counts_t[(size_t)m * B + qi];
-      if (c > 0) {
-        long long slot = blk_off;
-        for (int lane = 0; lane < NIBBLES; ++lane) {
-          const unsigned nib = nibble_of(bits + (size_t)m * BLOCK_BYTES, lane);
-          write_nibble(nib, slot, qi, m * HIT_BLOCK + 4 * lane, row0, P, out);
-          slot += __builtin_popcount(nib);
+  const int Nb = M_band * HIT_BLOCK;
+  const int last_row0 = start_blk[(B - 1) / bt] * ROW_BLOCK;
+  const int grid = grid_blocks(B, P);
+  for (int blk_i = 0; blk_i < grid; ++blk_i) {
+    const int q0 = blk_i * QT_WARPS;
+    long long pre = 0, all = 0;
+    for (int i = 0; i < B; ++i) {
+      all += nmatch[i];
+      if (i < q0) pre += nmatch[i];
+    }
+    if (blk_i == 0) *total = all;
+    for (long long s = (long long)blk_i * THREADS; s < P;
+         s += (long long)grid * THREADS)
+      for (long long u = s; u < s + THREADS && u < P; ++u)
+        write_tail(u, all, B, Nb, last_row0, out);
+    if (q0 >= B || pre >= P) continue;
+    for (int warp = 0; warp < QT_WARPS && q0 + warp < B; ++warp) {
+      const int qi = q0 + warp;
+      long long off = pre;
+      for (int j = q0; j < qi; ++j) off += nmatch[j];
+      const int row0 = start_blk[qi / bt] * ROW_BLOCK;
+      const unsigned char* bits = packed_q + (size_t)qi * M_band * BLOCK_BYTES;
+      for (int m0 = 0; m0 < M_band && off < P; m0 += CHUNK) {
+        for (int r = 0; r < ROWS; ++r) {
+          long long first = off;  // the lanes' exclusive scan, in order
+          for (int lane = 0; lane < 32; ++lane) {
+            const int m = r * 32 + lane;  // the count's place in the chunk
+            const int c =
+                chunk_count(counts_t, m0, m * QT_WARPS + warp, q0, B, M_band);
+            if (c > 0 && first < P) {
+              const int blk = m0 + m;
+              unsigned words[4];
+              for (int w = 0; w < 4; ++w) {
+                const unsigned char* b4 =
+                    bits + (size_t)blk * BLOCK_BYTES + 4 * w;
+                words[w] = b4[0] | b4[1] << 8 | b4[2] << 16 |
+                           (unsigned)b4[3] << 24;
+              }
+              write_block(words, first, qi, blk, row0, P, out);
+            }
+            first += c;
+          }
+          off = first;
         }
       }
-      blk_off += c;
     }
-    off += nmatch[qi];
   }
-  *total = off;
-  const int last_row0 = start_blk[(B - 1) / bt] * ROW_BLOCK;
-  for (long long s = 0; s < P; ++s)
-    write_tail(s, off, B, M_band * HIT_BLOCK, last_row0, out);
 }
 #endif

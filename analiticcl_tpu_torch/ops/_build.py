@@ -50,11 +50,19 @@ SIGNATURES = {
             _I, _P, _P,  # table element bytes, outputs
             _I, _I, _I, _P,  # P, L, W, stream
         ],
+        "analiticcl_dl_lcs_slots_scored": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # slots and tables
+            _I,  # table element bytes
+            _P, _P, _I, _P, _P, _P, _P,  # pc_band, exact bits, nb8, flags,
+            # freqs, weights, threshold
+            _P, _P, _P, _P,  # keep, metrics, max_freq, score
+            _I, _I, _I, _P,  # P, L, W, stream
+        ],
     },
     "resolve": {
         "analiticcl_resolve": [
             _P, _P, _P, _P,  # inputs
-            _P, _P, _P, _P, _P, _P,  # outputs, scratch
+            _P, _P, _P, _P, _P,  # outputs
             _I, _I, _I, _I, _P,  # B, M_band, bt, P, stream
         ],
     },

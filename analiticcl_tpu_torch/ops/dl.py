@@ -27,16 +27,21 @@ slot resolve), the main path's entry:
 * :func:`dl_lcs_slots` launches the kernel's slot entry for CUDA tensors:
   each thread reads its slot's two strings by row from the index's and the
   batch's tables and gives DL + LCS, prefix, suffix and the per-pair
-  attributes stage B scores with, with no ``[P, L]`` strings in between.
+  attributes stage B scores with, with no ``[P, L]`` strings in between. Given :class:`ScoreInputs` (the main
+  path's instance) its epilogue also scores each slot as the JAX core does
+  and writes only what the survivor compaction needs (:class:`SlotScore`:
+  the keep flag, five uint8 metrics, the per-query frequency maxima).
   For CPU tensors it takes :func:`dl_lcs_slots_plain`, the composition of
   :func:`gather_pairs`, :func:`dl_metrics_windowed_plain` and
-  :func:`affix_metrics_aligned`. Both agree exactly, above ``window`` too:
-  the slot entry runs the same DP on the same strings.
+  :func:`affix_metrics_aligned`, and with a score :func:`score_slots_plain`
+  after it, the JAX core's score as torch ops. Both agree exactly, above
+  ``window`` too: the slot entry runs the same DP on the same strings and
+  the same f32 operations in the same order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -305,20 +310,120 @@ def _check_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid):
     return P, L
 
 
+class ScoreInputs(NamedTuple):
+    """What the slot entry's scoring epilogue reads beside the metrics (the
+    JAX core's score and keep tests, ``analiticcl_tpu/ops/pipeline.py:
+    671-722``)."""
+
+    pc_band: torch.Tensor  # int32 [P] the slot's band row
+    exact_q: torch.Tensor  # uint8 [B, Nb / 8] stage A's exact-anagram bits
+    use_exact: Optional[torch.Tensor]  # bool [B]; None: no StopAtExactMatch
+    weights: torch.Tensor  # float32 [6] ld, lcs, prefix, suffix, case, sum
+    thr: torch.Tensor  # float32 [] the score threshold less the slack
+    freqs: Optional[torch.Tensor]  # int64 [Ni]; None: no frequencies
+    want_score: bool = False  # also return the f32 score (the score stop)
+
+
+class SlotScore(NamedTuple):
+    """The scored slot entry's outputs."""
+
+    keep: torch.Tensor  # bool [P]: within the edit tests and the threshold
+    met: torch.Tensor  # [5, P] ld, lcs, prefix, suffix, case flag as the
+    # weights gate them: uint8 below L 256 (the survivors' values fit), else
+    # int32
+    max_freq: torch.Tensor  # int64 [B] over the slots within the edit tests
+    score: Optional[torch.Tensor]  # float32 [P] with want_score
+
+
+def score_slots_plain(m: SlotMetrics, q, pc, valid, L: int,
+                      s: ScoreInputs) -> SlotScore:
+    """The scoring epilogue as torch ops on the metrics ``m`` of the slots
+    ``(q, pc, valid)`` of strings of width ``L``, in the JAX core's f32
+    operation order: the weights gate lcs, prefix, suffix and the case
+    flag; the score; the edit-threshold test and, with ``use_exact``,
+    StopAtExactMatch's exact test; keep at or above the threshold; the
+    exact int64 frequency maximum of each query over its slots within the
+    edit tests, also those below the threshold (lib.rs:1455-1476)."""
+    w_ld, w_lcs, w_pf, w_sf, w_case, w_sum = s.weights.unbind()
+    ld, ql = m.ld, m.ql
+    lcs = torch.where(w_lcs > 0, m.lcs, 0)
+    pf = torch.where(w_pf > 0, m.pf, 0)
+    sf = torch.where(w_sf > 0, m.sf, 0)
+    samecase = torch.where(w_case > 0, m.same_first, True)
+    qlen_f = ql.clamp(min=1).to(torch.float32)
+    ds = torch.where(ld > ql, 0.0, 1.0 - ld.to(torch.float32) / qlen_f)
+    score = (
+        w_ld * ds
+        + w_lcs * lcs.to(torch.float32) / qlen_f
+        + w_pf * pf.to(torch.float32) / qlen_f
+        + w_sf * sf.to(torch.float32) / qlen_f
+        + torch.where(samecase, w_case, 0.0)
+    ) / w_sum
+    pass_ed = valid & (ld <= m.k_ed)
+    if s.use_exact is not None:
+        # StopAtExactMatch (lib.rs:1158-1174): queries with an exact anagram
+        # keep only their exact pairs
+        byte = s.exact_q[q.long(), (s.pc_band >> 3).long()].to(torch.int32)
+        pair_exact = ((byte >> (s.pc_band & 7)) & 1) != 0
+        pass_ed = pass_ed & (~s.use_exact[q.long()] | pair_exact)
+    keep = pass_ed & (score >= s.thr)
+    B = s.exact_q.shape[0]
+    if s.freqs is not None:
+        # slots outside pass_ed add 0, the initial value
+        max_freq = torch.zeros(B, dtype=torch.int64, device=q.device
+                               ).scatter_reduce(
+            0, q.long(), torch.where(pass_ed, s.freqs[pc.long()], 0), "amax")
+    else:
+        max_freq = torch.ones(B, dtype=torch.int64, device=q.device)
+    met = torch.stack([ld, lcs, pf, sf, samecase.to(torch.int32)])
+    if L < 256:  # DL <= 3L + 8 and the rest <= L: bytes hold them
+        met = met.to(torch.uint8)
+    return SlotScore(keep, met, max_freq, score if s.want_score else None)
+
+
+def _check_score(s: ScoreInputs, B: int, P: int, Ni: int, dev) -> None:
+    want = {
+        "pc_band": (s.pc_band, torch.int32, (P,)),
+        "exact_q": (s.exact_q, torch.uint8, (B, s.exact_q.shape[1])),
+        "weights": (s.weights, torch.float32, (6,)),
+        "thr": (s.thr, torch.float32, ()),
+    }
+    if s.use_exact is not None:
+        want["use_exact"] = (s.use_exact, torch.bool, (B,))
+    if s.freqs is not None:
+        want["freqs"] = (s.freqs, torch.int64, (Ni,))
+    for name, (t, dtype, shape) in want.items():
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(
+                f"dl_lcs_slots: score input {name} is {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}, wants contiguous {dtype} "
+                f"{shape} on {dev}"
+            )
+
+
 def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
-                 window: int) -> SlotMetrics:
+                 window: int, score: Optional[ScoreInputs] = None
+                 ) -> Union[SlotMetrics, SlotScore]:
     """Stage B's metrics of the ``P`` slots ``(q, pc, valid)`` over the
-    index's rows (``index.norms2``, ``norm_lens``, ``first_lower``) and the
-    batch's (``q_norms``, ``q_lens``, ``k_ed``, ``q_first_lower``): the
-    kernel's slot entry for CUDA tensors, :func:`dl_lcs_slots_plain` for
-    CPU tensors. A launch adds to :func:`dl_lcs`'s count as well: it is the
-    same kernel's DP."""
+    index's rows (``index.norms2``, ``norm_lens``, ``first_lower``, and
+    ``freqs`` through ``score``) and the batch's (``q_norms``, ``q_lens``,
+    ``k_ed``, ``q_first_lower``): :class:`SlotMetrics`, or with ``score``
+    the scored slots (:class:`SlotScore`). The kernel's slot entry for CUDA
+    tensors; for CPU tensors :func:`dl_lcs_slots_plain`, then
+    :func:`score_slots_plain` with ``score``. A launch adds to
+    :func:`dl_lcs`'s count as well: it is the same kernel's DP."""
     P, L = _check_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
                         valid)
     dev = q.device
+    B = q_lens.shape[0]
+    if score is not None:
+        _check_score(score, B, P, index.norm_lens.shape[0], dev)
     if dev.type == "cpu":
-        return dl_lcs_slots_plain(index, q_norms, q_lens, k_ed,
-                                  q_first_lower, q, pc, valid, window)
+        m = dl_lcs_slots_plain(index, q_norms, q_lens, k_ed, q_first_lower,
+                               q, pc, valid, window)
+        return m if score is None else score_slots_plain(m, q, pc, valid, L,
+                                                         score)
     if dev.type != "cuda":
         raise ValueError(f"dl_lcs_slots: unsupported device {dev}")
     if window not in KERNEL_WINDOWS:
@@ -327,24 +432,49 @@ def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
     if L > KERNEL_MAX_LEN:
         raise ValueError(f"dl_lcs_slots kernel: L={L} above the cap "
                          f"{KERNEL_MAX_LEN}")
-    metrics = torch.empty((6, P), dtype=torch.int32, device=dev)
-    same_first = torch.empty(P, dtype=torch.bool, device=dev)
-    if P:
-        lib = _build.load("dl_lcs")
+    tables = (q.data_ptr(), pc.data_ptr(), valid.data_ptr(),
+              index.norms2.data_ptr(), index.norm_lens.data_ptr(),
+              index.first_lower.data_ptr(), q_norms.data_ptr(),
+              q_lens.data_ptr(), q_first_lower.data_ptr(), k_ed.data_ptr(),
+              q_norms.element_size())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if score is None:
+        metrics = torch.empty((6, P), dtype=torch.int32, device=dev)
+        same_first = torch.empty(P, dtype=torch.bool, device=dev)
+        out = SlotMetrics(*metrics.unbind(), same_first)
+        if not P:
+            return out
         with torch.cuda.device(dev):
-            err = lib.analiticcl_dl_lcs_slots(
-                q.data_ptr(), pc.data_ptr(), valid.data_ptr(),
-                index.norms2.data_ptr(), index.norm_lens.data_ptr(),
-                index.first_lower.data_ptr(), q_norms.data_ptr(),
-                q_lens.data_ptr(), q_first_lower.data_ptr(), k_ed.data_ptr(),
-                q_norms.element_size(), metrics.data_ptr(),
-                same_first.data_ptr(), P, L, window,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        dl_lcs_slots.launches += 1
-        dl_lcs.launches += 1
-        _build.check(err, "dl_lcs_slots kernel launch")
-    return SlotMetrics(*metrics.unbind(), same_first)
+            err = _build.load("dl_lcs").analiticcl_dl_lcs_slots(
+                *tables, metrics.data_ptr(), same_first.data_ptr(), P, L,
+                window, stream)
+    else:
+        s = score
+        keep = torch.empty(P, dtype=torch.bool, device=dev)
+        met = torch.empty((5, P), dtype=torch.uint8, device=dev)
+        max_freq = (torch.zeros if s.freqs is not None else torch.ones)(
+            B, dtype=torch.int64, device=dev)
+        f32 = (torch.empty(P, dtype=torch.float32, device=dev)
+               if s.want_score else None)
+        out = SlotScore(keep, met, max_freq, f32)
+        if not P:
+            return out
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        with torch.cuda.device(dev):
+            err = _build.load("dl_lcs").analiticcl_dl_lcs_slots_scored(
+                *tables, s.pc_band.data_ptr(), s.exact_q.data_ptr(),
+                s.exact_q.shape[1], ptr(s.use_exact), ptr(s.freqs),
+                s.weights.data_ptr(), s.thr.data_ptr(), keep.data_ptr(),
+                met.data_ptr(),
+                ptr(max_freq if s.freqs is not None else None),
+                ptr(f32), P, L, window, stream)
+    dl_lcs_slots.launches += 1
+    dl_lcs.launches += 1
+    _build.check(err, "dl_lcs_slots kernel launch")
+    return out
 
 
 dl_lcs_slots.launches = 0

@@ -9,10 +9,11 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
   o_pf, o_sf, o_case`` (``[P2]``, unused slots filled with query ``B`` and
   zeros), ``max_freq, total_match, total_keep``. On CUDA tensors stage A
   (K1, ``ops/stage_a.py``), the slot resolve (K3, :func:`resolve_pairs`)
-  and the pair loading with DL+LCS and the affixes (K2's slot entry,
-  ``ops/dl.py``) run in hand-written kernels; the score and the survivor
-  compaction after them are torch ops. It is the composition
-  of :func:`query_stage_a` and :func:`query_stage_b`, which a sharded index
+  and the pair loading with DL+LCS, the affixes, the f32 score and the
+  keep tests (K2's slot entry and its epilogue, ``ops/dl.py``) run in
+  hand-written kernels; the survivor compaction after them is torch ops.
+  It is the composition of :func:`query_stage_a` and
+  :func:`query_stage_b`, which a sharded index
   (``parallel/mesh.py``) calls per shard, combining the shards' exact
   counts between them. Its ``stop_stage`` prefixes (:data:`STOP_STAGES`)
   end it after one stage with int32 checksums of that stage's outputs, as
@@ -20,10 +21,10 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
 * Pair compaction is the JAX core's slot resolve (:func:`resolve_pairs`):
   slot ``p`` holds the ``p + 1``-th stage-A hit in query-major, then
   band-row order. The kernel expands each query's hit bits into its slots
-  from an exclusive scan of the per-query totals; the plain version
-  (:func:`resolve_pairs_plain`) searches each slot's block and ranks its
-  bit. Survivors move into the P2 slots by a
-  cumsum and a search (:func:`compact_slots`). A batch whose totals pass
+  from the per-query totals and block counts, in one launch; the plain
+  version (:func:`resolve_pairs_plain`) searches each slot's block and
+  ranks its bit. Survivors move into the P2 slots by a cumsum and a search
+  (:func:`compact_index`). A batch whose totals pass
   its budgets comes back truncated query-major, as in JAX, and is re-run.
   Nothing between ``submit``'s entry and its return waits for the card.
 * :class:`DevicePipeline` ports the host side: query preparation, the window
@@ -81,7 +82,7 @@ from ..utils.profiling import StageTimer
 from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
 from ..device import resolve_device
 from . import _build
-from .dl import dl_lcs_slots
+from .dl import ScoreInputs, dl_lcs_slots
 from .rank_batch import rank_fast_batch
 from .ranked import RankedResults
 from .stage_a import ROW_BLOCK, _b_tile, stage_a_masks
@@ -149,7 +150,6 @@ class _ByteTables(NamedTuple):
     popcount: torch.Tensor  # float32 [256]: set bits of each byte value
     select: torch.Tensor  # int64 [256 * 9]: (v * 9 + k) -> k-th set bit
     upper: torch.Tensor  # float32 [16, 16]: ones on and above the diagonal
-    bit: torch.Tensor  # uint8 [8]: 1 << k
 
 
 def _byte_tables(dev) -> _ByteTables:
@@ -165,7 +165,7 @@ def _byte_tables(dev) -> _ByteTables:
         select = (upto[:, None, :] < k[None, :, None]).sum(2).clamp(max=7)
         tabs = _ByteTables(
             bits.sum(1).float(), select.reshape(-1),
-            torch.ones(16, 16, device=dev).triu(), (1 << lanes).to(torch.uint8),
+            torch.ones(16, 16, device=dev).triu(),
         )
         _TABLES[dev] = tabs
     return tabs
@@ -240,8 +240,8 @@ def resolve_pairs(packed_q, counts_t, nmatch, start_blk, Ni_pad: int,
     reference's gather order (the JAX core's resolve,
     ``analiticcl_tpu/ops/pipeline.py:450-592``). Hits past ``P`` are
     dropped; the total counts them. Slots past the total hold the last
-    query and the last row of its band. Kernel K3 (``csrc/resolve.cu``, two
-    launches) for CUDA tensors, :func:`resolve_pairs_plain` for CPU
+    query and the last row of its band. Kernel K3 (``csrc/resolve.cu``, one
+    launch) for CUDA tensors, :func:`resolve_pairs_plain` for CPU
     tensors; both give the same slots."""
     B, M_band, bt = _check_resolve(packed_q, counts_t, nmatch, start_blk,
                                    Ni_pad)
@@ -254,14 +254,13 @@ def resolve_pairs(packed_q, counts_t, nmatch, start_blk, Ni_pad: int,
     slots = torch.empty((3, P), dtype=torch.int32, device=dev)
     valid = torch.empty(P, dtype=torch.bool, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
-    base = torch.empty(B, dtype=torch.int64, device=dev)  # scratch
     lib = _build.load("resolve")
     with torch.cuda.device(dev):
         err = lib.analiticcl_resolve(
             packed_q.data_ptr(), counts_t.data_ptr(), nmatch.data_ptr(),
             start_blk.data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
             slots[2].data_ptr(), valid.data_ptr(), total.data_ptr(),
-            base.data_ptr(), B, M_band, bt, P,
+            B, M_band, bt, P,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     resolve_pairs.launches += 1
@@ -272,21 +271,19 @@ def resolve_pairs(packed_q, counts_t, nmatch, start_blk, Ni_pad: int,
 resolve_pairs.launches = 0
 
 
-def compact_slots(keep, payload, P2: int, fill: int):
-    """Stable compaction of the columns of ``payload`` (``[k, P]``) at the
-    set positions of ``keep`` into ``P2`` slots, the rest zero (the JAX
-    ``_compact``): slot ``j`` takes the first position where the cumsum of
-    ``keep`` reaches ``j + 1``. Row 0 is filled with ``fill`` instead.
-    Returns ``[k, P2]`` and the number of set positions."""
+def compact_index(keep, P2: int):
+    """Where the survivors of ``keep`` go, in order (the JAX ``_compact``):
+    slot ``j`` of ``P2`` takes the first position where the cumsum of
+    ``keep`` reaches ``j + 1``. Returns those positions (clamped into
+    range), whether each slot takes one, and the number of set
+    positions."""
     n = keep.shape[0]
     csum = torch.cumsum(keep, 0, dtype=torch.int64)
     idx = torch.searchsorted(
         csum, torch.arange(1, P2 + 1, dtype=torch.int64, device=keep.device)
     )
-    valid = idx < n
-    out = torch.where(valid, payload[:, idx.clamp_(max=n - 1)], 0)
-    out[0] = torch.where(valid, out[0], fill)
-    return out, csum[-1]
+    hit = idx < n
+    return idx.clamp_(max=n - 1), hit, csum[-1]
 
 
 class StageA(NamedTuple):
@@ -407,17 +404,16 @@ def query_stage_b(
     stop_stage: Optional[str] = None,
 ):
     """Stage B of :func:`query_core` over stage A's hits in ``index``: the
-    slot resolve at ``P`` (kernel K3), the pair loading, DL + LCS and the
-    affixes (K2's slot entry), the f32 score and survivor compaction into
-    ``P2`` slots. ``use_exact`` is separate because under a sharded index it
-    depends on every shard's exact count. ``stop_stage`` (one of
+    slot resolve at ``P`` (kernel K3), the pair loading, DL + LCS, the
+    affixes, the f32 score and the keep tests (K2's slot entry and its
+    epilogue), and the survivor compaction into ``P2`` slots. ``use_exact``
+    is separate because under a sharded index it depends on every shard's
+    exact count. ``stop_stage`` (one of
     :data:`STAGE_B_STOPS`) ends it after that stage with the probes the JAX
     core gives there."""
     _check_stop(stop_stage, STAGE_B_STOPS)
     packed_q = sa.packed_q
-    dev = packed_q.device
     B = packed_q.shape[0]
-    L = q_norms.shape[1]
     Ni_pad = index.bins.shape[0]
     q, pc_band, pc, pvalid, total_match = resolve_pairs(
         packed_q, sa.counts_t, sa.nmatch, start_blk, Ni_pad, P
@@ -428,62 +424,30 @@ def query_stage_b(
                      torch.where(pvalid, pc.clamp(max=Ni_pad - 1), 0))
 
     # ---- stage B: the pairs' strings, DL + LCS and the affixes (K2) ----
-    m = dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc,
-                     pvalid, window)
-    ld, lcs, pf, sf, ql = m.ld, m.lcs, m.pf, m.sf, m.ql
+    slot_args = (index, q_norms, q_lens, k_ed, q_first_lower, q, pc, pvalid,
+                 window)
     if stop_stage == "gather_dl":
-        return probe(ld, lcs, pf, sf)
+        m = dl_lcs_slots(*slot_args)
+        return probe(m.ld, m.lcs, m.pf, m.sf)
 
-    # ---- f32 pre-filter score, same operation order as the JAX core ----
-    w_ld, w_lcs, w_pf, w_sf, w_case, w_sum = weights.unbind()
-    lcs = torch.where(w_lcs > 0, lcs, 0)
-    pf = torch.where(w_pf > 0, pf, 0)
-    sf = torch.where(w_sf > 0, sf, 0)
-    samecase = torch.where(w_case > 0, m.same_first, True)
-    qlen_f = ql.clamp(min=1).to(torch.float32)
-    ds = torch.where(ld > ql, 0.0, 1.0 - ld.to(torch.float32) / qlen_f)
-    score = (
-        w_ld * ds
-        + w_lcs * lcs.to(torch.float32) / qlen_f
-        + w_pf * pf.to(torch.float32) / qlen_f
-        + w_sf * sf.to(torch.float32) / qlen_f
-        + torch.where(samecase, w_case, 0.0)
-    ) / w_sum
-
-    pass_ed = pvalid & (ld <= m.k_ed)
-    if use_stop_exact:
-        # StopAtExactMatch (lib.rs:1158-1174): queries with an exact anagram
-        # keep only their exact pairs
-        bit = _byte_tables(dev).bit[pc_band & 7]
-        pair_exact = (sa.exact_q[q, pc_band >> 3] & bit) != 0
-        pass_ed = pass_ed & (~use_exact[q] | pair_exact)
-    keep = pass_ed & (score >= score_threshold - THRESHOLD_SLACK)
-
-    # the normalization max runs over every pair within the edit threshold,
-    # also those below the score threshold (lib.rs:1455-1476); exact int64.
-    # Slots outside ``pass_ed`` add 0, the initial value.
-    if have_freq:
-        max_freq = torch.zeros(B, dtype=torch.int64, device=dev).scatter_reduce(
-            0, q.long(), torch.where(pass_ed, index.freqs[pc], 0), "amax"
-        )
-    else:
-        max_freq = torch.ones(B, dtype=torch.int64, device=dev)
+    # ---- the f32 score and the keep tests, in the JAX core's operation
+    # order, in K2's epilogue ----
+    s = dl_lcs_slots(*slot_args, score=ScoreInputs(
+        pc_band, sa.exact_q, use_exact if use_stop_exact else None, weights,
+        score_threshold - THRESHOLD_SLACK,
+        index.freqs if have_freq else None, stop_stage == "score"))
     if stop_stage == "score":
-        return probe(keep, max_freq) + ((score * keep).sum(),)
+        return probe(s.keep, s.max_freq) + ((s.score * s.keep).sum(),)
 
     # ---- survivor compaction into P2 slots, order kept; unused slots hold
-    # query B and zeros ----
-    out, total_keep = compact_slots(
-        keep, torch.stack([q, pc, ld, lcs, pf, sf,
-                           samecase.to(torch.int32)]), P2, B,
-    )
-    # kept pairs have ld <= 12 and lcs/prefix/suffix <= L: uint8 below L 256
-    met = out[2:].to(torch.uint8) if L < 256 else out[2:]
+    # query B and zeros; the metrics are uint8 below L 256 ----
+    idx, hit, total_keep = compact_index(s.keep, P2)
+    o_q = torch.where(hit, q[idx], B)
+    o_c = torch.where(hit, pc[idx], 0)
+    met = torch.where(hit, s.met[:, idx], 0)
     if stop_stage == "compact_sum":
-        return probe(out[0], out[1], *met)
-    return (
-        out[0], out[1], *met.unbind(), max_freq, total_match, total_keep,
-    )
+        return probe(o_q, o_c, *met)
+    return (o_q, o_c, *met.unbind(), s.max_freq, total_match, total_keep)
 
 
 def _pack(tensors):

@@ -18,20 +18,25 @@ at the zero columns the device layout pads them to. The parts:
 * **K2** (DL + LCS): about 10 32-bit operations per banded DL cell and 3 per
   LCS cell of each valid pair. ``k2_valid`` is the pair-string entry at the
   valid pairs (the strings and lengths in, both metrics out); ``k2_slots``
-  the slot entry the main path runs at the budget's P slots: the slots in,
-  the query rows and the candidate rows the valid pairs touch read once,
-  the six int32 metrics and the case flag of every slot out;
-* **the glue** (the score and the survivor compaction, torch ops): bytes
-  only: K3's slots and K2's metrics read once, the exact bits under
-  StopAtExactMatch and the touched rows' frequencies read once, the
-  ``[P2]`` survivor columns, the ``[B]`` frequency maxima and the two
-  totals written once.
+  the slot entry the main path runs at the budget's P slots, with the score
+  and the keep tests in its epilogue: the slots in, the query rows and the
+  candidate rows the valid pairs touch read once (with their frequencies
+  when the model has them), the exact-bit bytes the valid pairs test under
+  StopAtExactMatch, and every slot's keep flag and five uint8 metrics and
+  the ``[B]`` frequency maxima written once;
+* **the glue** (the survivor compaction, torch ops): bytes only: K3's query
+  and device row and the slot entry's keep flags and metrics read once, the
+  ``[P2]`` survivor columns and the two totals written once.
 
 The parts' floors count the data that passes between them (K1's bits and
 counts, the pair strings) as memory traffic. **The program** does not: it
 reads only its own inputs (the batch's arguments, the band rows' planes and
 charcounts, the candidate rows the pairs touch) and writes only its
 outputs, and does K1's and K2's operations.
+
+The peaks (:func:`peaks_for`): the data sheet's int8 and HBM rates, and
+the 32-bit integer rate at 64 operations per SM and clock; on a card
+:func:`card_peaks` takes its SM count and maximum SM clock.
 
 ``chip_smoke.py`` and ``tools/roofline_torch.py`` both count here.
 """
@@ -49,26 +54,72 @@ class Peaks(NamedTuple):
     name: str
     int8_ops_per_s: float  # dense int8 tensor-core operations
     hbm_bytes_per_s: float
-    int32_ops_per_s: float  # 32-bit arithmetic outside the tensor cores
+    int32_ops_per_s: float  # 32-bit integer operations outside the tensor cores
 
 
-# NVIDIA H100 SXM data sheet, dense, at 700 W
-H100_SXM = Peaks("NVIDIA H100 SXM data sheet (dense, 700 W)", 1.979e15,
-                 3.35e12, 67e12)
+# 32-bit integer operations an SM issues per clock on compute capability 9.0
+# (the CUDA C++ Programming Guide's table of arithmetic instruction
+# throughput: add, logic, shift, compare, min/max and IMAD each 64). The
+# data sheet's 67 TFLOP/s is the FP32 rate with an FMA counted as two.
+INT32_OPS_PER_SM_CLOCK = 64
+
+
+def int32_rate(sms: int, sm_clock_mhz: float) -> float:
+    """32-bit integer operations per second of a card with ``sms`` SMs at
+    ``sm_clock_mhz``."""
+    return INT32_OPS_PER_SM_CLOCK * sms * sm_clock_mhz * 1e6
+
+
+# NVIDIA H100 SXM data sheet, dense, at 700 W; 32-bit integer work at 64
+# operations per SM and clock on its 132 SMs at their 1,980 MHz maximum.
+# A run on a card derives the last from the card itself (card_peaks).
+H100_SXM = Peaks("NVIDIA H100 SXM data sheet (dense, 700 W; int32 64/SM/clock "
+                 "x 132 SMs x 1980 MHz)", 1.979e15, 3.35e12,
+                 int32_rate(132, 1980))
 
 
 def peaks_for(card: str, int8: Optional[float] = None,
-              hbm: Optional[float] = None,
-              int32: Optional[float] = None) -> Peaks:
+              hbm: Optional[float] = None, int32: Optional[float] = None,
+              sms: Optional[int] = None,
+              sm_clock_mhz: Optional[float] = None) -> Peaks:
     """The peaks to bound a run on the card named ``card``
     (``torch.cuda.get_device_name``): the ones given, else the H100 SXM
-    data sheet's for an H100 SXM (HBM3) card; any other card raises."""
+    data sheet's for an H100 SXM (HBM3) card. Without ``int32``, the 32-bit
+    rate comes from ``sms`` and ``sm_clock_mhz`` (:func:`int32_rate`) where
+    both are given. Any other card raises."""
+    if int32 is None and sms is not None and sm_clock_mhz is not None:
+        int32 = int32_rate(sms, sm_clock_mhz)
     if None not in (int8, hbm, int32):
         return Peaks(f"given for {card}", int8, hbm, int32)
     if "H100" in card and ("HBM3" in card or "SXM" in card):
-        return H100_SXM
+        if int32 is None:
+            return H100_SXM
+        how = (f"{sms} SMs x {sm_clock_mhz:g} MHz" if sms is not None
+               else "given")
+        return H100_SXM._replace(
+            name=f"NVIDIA H100 SXM data sheet (dense, 700 W); int32 "
+                 f"64/SM/clock x {how}", int32_ops_per_s=int32)
     raise ValueError(f"no data-sheet peaks for {card!r}: give --peak-int8, "
                      "--peak-hbm and --peak-int32")
+
+
+def card_peaks(index: int = 0, int8: Optional[float] = None,
+               hbm: Optional[float] = None,
+               int32: Optional[float] = None) -> Peaks:
+    """:func:`peaks_for` the CUDA card ``index``, its 32-bit rate derived
+    from its SM count (``torch.cuda.get_device_properties``) and its maximum
+    SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import subprocess
+
+    props = torch.cuda.get_device_properties(index)
+    clock = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return peaks_for(torch.cuda.get_device_name(index), int8, hbm, int32,
+                     sms=props.multi_processor_count,
+                     sm_clock_mhz=float(clock))
 
 
 class Work(NamedTuple):
@@ -137,9 +188,10 @@ def k2_bound_ms(a_len, b_len, L: int, W: int, peaks: Peaks = H100_SXM):
 
 
 # bytes per slot: K3 writes query, band row and device row (int32) and the
-# validity; the slot entry writes six int32 metrics and the case flag
+# validity; the slot entry, on the main path, the keep flag and five uint8
+# metrics
 SLOT_BYTES = 13
-METRIC_BYTES = 25
+KEEP_BYTES = 6
 
 
 def k3_work(counts_t, nmatch, start_blk, P: int) -> Work:
@@ -161,23 +213,35 @@ def k3_bound_ms(counts_t, nmatch, start_blk, P: int,
     return k3_work(counts_t, nmatch, start_blk, P).bound_ms(peaks)
 
 
-def k2_slots_work(ql, cl, P: int, L: int, W: int, norm_bytes: int,
-                  n_queries: int, cand_rows: int) -> Work:
-    """K2's slot entry at ``P`` slots whose valid ones have the lengths
-    ``ql``, ``cl``: each slot's query, row and validity in; each of the
-    ``n_queries`` query rows (string, length, threshold, case flag) and
-    ``cand_rows`` candidate rows (string, length, case flag) the valid
-    pairs touch read once; every slot's metrics written once; and
-    :func:`_dl_ops` on the valid pairs."""
-    nbytes = (P * (9 + METRIC_BYTES) + n_queries * (L * norm_bytes + 9)
-              + cand_rows * (L * norm_bytes + 5))
-    return Work(nbytes, int32_ops=_dl_ops(ql, cl, L, W))
-
-
 def _cand_row_bytes(L: int, norm_bytes: int, have_freq: bool) -> int:
     """One candidate row as the pairs read it: string, length, case flag,
     and frequency when the model has them."""
     return L * norm_bytes + 5 + (8 if have_freq else 0)
+
+
+def k2_slots_work(ql, cl, P: int, L: int, W: int, norm_bytes: int,
+                  n_queries: int, cand_rows: int, *, B: int = 0,
+                  have_freq: bool = False,
+                  exact_bytes: Optional[int] = None) -> Work:
+    """K2's slot entry as the main path runs it, with the score and the
+    keep tests in its epilogue, at ``P`` slots whose valid ones have the
+    lengths ``ql``, ``cl``: each slot's query, row and validity in (and its
+    band row under StopAtExactMatch, where ``exact_bytes`` counts the
+    distinct bytes of exact bits the valid pairs test, read once with the
+    ``B`` per-query flags); each of the ``n_queries`` query rows (string,
+    length, threshold, case flag) and ``cand_rows`` candidate rows (string,
+    length, case flag, frequency with ``have_freq``) the valid pairs touch
+    read once; the weights and the threshold; every slot's keep flag and
+    five metrics and, with ``have_freq``, the ``B`` frequency maxima
+    written once; and :func:`_dl_ops` on the valid pairs (the epilogue's
+    few dozen operations a slot are under 1 % of them)."""
+    stop_exact = exact_bytes is not None
+    nbytes = (P * (9 + (4 if stop_exact else 0) + KEEP_BYTES)
+              + n_queries * (L * norm_bytes + 9)
+              + cand_rows * _cand_row_bytes(L, norm_bytes, have_freq)
+              + (exact_bytes + B if stop_exact else 0)
+              + (8 * B if have_freq else 0) + 6 * 4 + 4)
+    return Work(nbytes, int32_ops=_dl_ops(ql, cl, L, W))
 
 
 def _output_bytes(B: int, P2: int) -> int:
@@ -186,17 +250,12 @@ def _output_bytes(B: int, P2: int) -> int:
     return P2 * 13 + 8 * B + 16
 
 
-def glue_work(B: int, Nb: int, P: int, P2: int, cand_rows: int,
-              have_freq: bool, exact_bits: bool) -> Work:
-    """The least bytes of the torch ops after the kernels (the score and
-    the survivor compaction): K3's ``P`` slots and the slot entry's metrics
-    read once; under StopAtExactMatch stage A's exact bits and the
-    per-query flags, and with frequencies those of the ``cand_rows`` rows
-    the pairs touch, read once; the core's outputs written once."""
-    reads = (P * (SLOT_BYTES + METRIC_BYTES)
-             + ((B * Nb // 8 + B) if exact_bits else 0)
-             + (8 * cand_rows if have_freq else 0))
-    return Work(reads + _output_bytes(B, P2))
+def glue_work(P: int, P2: int) -> Work:
+    """The least bytes of the torch ops after the kernels (the survivor
+    compaction): K3's query and device row and the slot entry's keep flag
+    and five metrics of the ``P`` slots read once; the ``[P2]`` survivor
+    columns and the two int64 totals written once."""
+    return Work(P * (8 + KEEP_BYTES) + P2 * 13 + 16)
 
 
 def program_work(args: Sequence[torch.Tensor], at: int, rows: int,
@@ -256,10 +315,15 @@ def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
      start_blk, _w, _thr) = args
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
                        nb_band)
-    q, _pcb, pc, _valid, total = resolve_pairs(
+    q, pcb, pc, _valid, total = resolve_pairs(
         sa.packed_q, sa.counts_t, sa.nmatch, start_blk, index.bins.shape[0],
         P)
     n_valid = min(int(total), P)
+    exact_bytes = None
+    if use_stop_exact:  # the bytes of exact bits the valid pairs test
+        nb8 = sa.exact_q.shape[1]
+        exact_bytes = int(torch.unique(q[:n_valid].long() * nb8
+                                       + (pcb[:n_valid] >> 3)).numel())
     cand_rows = int(torch.unique(pc[:n_valid]).numel())
     n_queries = int(torch.unique(q[:n_valid]).numel())
     ql = q_lens[q[:n_valid].long()]
@@ -274,9 +338,9 @@ def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
         k3=k3_work(sa.counts_t, sa.nmatch, start_blk, P),
         k2_valid=k2_valid,
         k2_slots=k2_slots_work(ql, cl, P, L, window, nbytes, n_queries,
-                               cand_rows),
-        glue=glue_work(B, nb_band * ROW_BLOCK, P, P2, cand_rows, have_freq,
-                       use_stop_exact),
+                               cand_rows, B=B, have_freq=have_freq,
+                               exact_bytes=exact_bytes),
+        glue=glue_work(P, P2),
         program=program_work(args, index.at, band_rows(start_blk, nb_band),
                              cand_rows, L, nbytes, have_freq, P2, k1,
                              k2_valid),

@@ -9,14 +9,19 @@ with ptxas's registers, shared memory and spills); the stage-A kernel (K1)
 against its plain PyTorch version (bit for bit) on seeded inputs with query
 tiles of 8, 64, 1,024 and (from 262,144 index rows) 256, and at the main
 path's shapes; on the main path's first batch the slot resolve (K3,
-``csrc/resolve.cu``) bit for bit and the DL+LCS kernel's slot entry (K2
-reading the pairs' strings from the tables) against their plain versions,
-at the batch's budget (the slot entry at windows 3, 6 and 12, int8 and
-int32 tables) and at one below its hit total (the overflow); the
+``csrc/resolve.cu``, one launch) bit for bit and the DL+LCS kernel's slot
+entry (K2 reading the pairs' strings from the tables) against their plain
+versions, at the batch's budget (the slot entry at windows 3, 6 and 12,
+int8 and int32 tables; its scoring epilogue, the main path's instance,
+against the plain score with StopAtExactMatch off and on, zero weights and
+seeded frequencies: keep, the frequency maxima and the compacted
+survivors exact) and at one below its hit total (the overflow); the
 DL+LCS kernel's pair-string entry against its plain version (DL clipped at
 window + 1) on the main path's pairs at windows 3, 6 and 12, with the
 ptxas summary and the shared memory per block of each window's instance;
-CUDA-event and profiler times of the four beside their bounds. Then the
+CUDA-event and profiler times of the four beside their bounds at the
+card's peaks (the 32-bit rate from its SM count and maximum SM clock).
+Then the
 main path:
 ``VariantModel(device="cuda")`` over a seeded synthetic lexicon of
 eng.aspell's size, ``find_variants_stream`` over 16,384 corrupted queries,
@@ -199,7 +204,7 @@ def counted_wrappers() -> dict:
 
 # the device kernel name (a part of it) each count's launches run under
 TRACE_NAMES = {"stage_a": "stage_a_kernel", "dl_lcs": "dl_lcs",
-               "resolve": "resolve_expand_kernel",
+               "resolve": "resolve_kernel",
                "dl_lcs_slots": "dl_lcs_slots_kernel"}
 
 
@@ -343,16 +348,55 @@ def stage_b_budget(pipe, B: int, sa) -> tuple:
     return max(pipe._budgets(B)[0], ppl._bucket(total, ppl.P_BUCKETS)), total
 
 
+def score_variants(idx, sa, sc: dict, every: bool) -> list:
+    """The epilogue inputs (``ops.dl.ScoreInputs``) of K2's slot entry as
+    the main path gives them for a batch whose arguments ``sc`` holds
+    (``stop_exact``, ``weights``, ``thr``, ``use_stop_exact``,
+    ``have_freq``, ``pc_band``), labelled: the batch's own; with ``every``
+    also StopAtExactMatch off and on, zero weights (lcs and case, the sum
+    kept true) and seeded frequencies, some above 2**24."""
+    import torch
+
+    from analiticcl_tpu_torch.ops.dl import ScoreInputs
+    from analiticcl_tpu_torch.ops.pipeline import THRESHOLD_SLACK
+    from analiticcl_tpu_torch.testing import synthetic_frequencies
+
+    use_exact = sc["stop_exact"] & (sa.nexact > 0)
+    base = ScoreInputs(
+        sc["pc_band"], sa.exact_q, use_exact if sc["use_stop_exact"] else None,
+        sc["weights"], sc["thr"] - THRESHOLD_SLACK,
+        idx.freqs if sc["have_freq"] else None)
+    out = [("the batch's", base)]
+    if not every:
+        return out
+    zw = sc["weights"].clone()
+    zw[1] = zw[4] = 0.0
+    zw[5] = zw[:5].sum()
+    freqs = torch.from_numpy(synthetic_frequencies(
+        SEED + 9, idx.freqs.shape[0])).to(idx.freqs.device)
+    return out + [
+        ("StopAtExactMatch off", base._replace(use_exact=None)),
+        ("StopAtExactMatch on", base._replace(use_exact=sa.nexact > 0)),
+        ("zero weights", base._replace(weights=zw)),
+        ("frequencies", base._replace(freqs=freqs)),
+    ]
+
+
 def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
-              q_fl, W: int):
+              q_fl, W: int, sc: dict, every: bool = False):
     """Hold K3 (the slot resolve) against its plain version on stage A's
     outputs ``sa`` at budget ``P``, all five outputs bit for bit; then K2's
     slot entry against its plain version (the gathers, the plain DL and
-    the affixes) on K3's slots: LCS, prefix, suffix, query length,
-    threshold and case flag bit for bit, DL clipped at ``W + 1`` (the
-    kernel's contract), and DL and LCS bit for bit against K2's
-    pair-string entry on the gathered strings (the same DP on the same
-    strings). Returns K3's slots, the pair strings and the valid count."""
+    the affixes) on K3's slots: its metrics instance's LCS, prefix, suffix,
+    query length, threshold and case flag bit for bit, DL clipped at
+    ``W + 1`` (the kernel's contract), and DL and LCS bit for bit against
+    K2's pair-string entry on the gathered strings (the same DP on the same
+    strings); and its main-path instance, the scoring epilogue, against
+    the plain score on the plain metrics for each of
+    :func:`score_variants` (``sc``, ``every``): the keep flags, the
+    frequency maxima and the survivors compacted into P slots (query,
+    device row, the five uint8 metrics) exactly. Returns K3's slots, the
+    pair strings and the valid count."""
     import torch
 
     from analiticcl_tpu_torch.ops import dl as tdl
@@ -367,7 +411,7 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
         if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
             raise SystemExit(f"{name}: resolve kernel differs from plain in "
                              f"{n} at P={P}")
-    q, _pcb, pc, valid, total = got
+    q, pcb, pc, valid, total = got
     s_args = (idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W)
     m = tdl.dl_lcs_slots(*s_args)
     mp = tdl.dl_lcs_slots_plain(*s_args)
@@ -383,11 +427,37 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
     if bad:
         raise SystemExit(f"{name}: dl_lcs slot entry differs from plain in "
                          f"{bad} at P={P}, W={W}")
+    L = q_norms.shape[1]
+    for label, s in score_variants(idx, sa, dict(sc, pc_band=pcb), every):
+        ks = tdl.dl_lcs_slots(*s_args, score=s)
+        kp = tdl.score_slots_plain(mp, q, pc, valid, L, s)
+        torch.cuda.synchronize()
+        bad = [f for f, g, w in (("keep", ks.keep, kp.keep),
+                                 ("max_freq", ks.max_freq, kp.max_freq))
+               if g.dtype != w.dtype or not torch.equal(g, w)]
+        idx_k, hit, n_keep = ppl.compact_index(ks.keep, P)
+        idx_p, hit_p, _ = ppl.compact_index(kp.keep, P)
+        survivors = [torch.where(hit, x, 0) for x in (
+            q[idx_k], pc[idx_k], ks.met[:, idx_k])]
+        survivors_p = [torch.where(hit_p, x, 0) for x in (
+            q[idx_p], pc[idx_p], kp.met[:, idx_p])]
+        if not all(g.dtype == w.dtype and torch.equal(g, w)
+                   for g, w in zip(survivors, survivors_p)):
+            bad.append("compacted survivors")
+        if bad:
+            raise SystemExit(f"{name}: dl_lcs slot entry's epilogue differs "
+                             f"from the plain score in {bad} ({label}) at "
+                             f"P={P}, W={W}")
+        if every:
+            log(f"{name}: slot entry's epilogue ({label}) equal to the plain "
+                f"score: {int(n_keep)} kept of {min(int(total), P)} valid "
+                f"slots, max_freq max {int(ks.max_freq.max())}")
     return got, pr, min(int(total), P)
 
 
 def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
-                  start_blk, W: int, name: str):
+                  start_blk, W: int, name: str, sc: dict,
+                  every: bool = False):
     """K3's and K2's work as ``query_stage_b`` gives it from stage A's
     outputs ``sa`` at the budget of a batch of size ``B``
     (:func:`stage_b_budget`), both kernels held against their plain
@@ -395,15 +465,26 @@ def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
     (the pair-string entry's input), P, the valid slots and K3's slots."""
     P, _total = stage_b_budget(pipe, B, sa)
     slots, pr, n = hold_glue(name, idx, sa, start_blk, P, q_norms, q_lens,
-                             k_ed, q_fl, W)
+                             k_ed, q_fl, W, sc, every)
     return pr, P, n, slots
+
+
+def score_args(pipe, st) -> dict:
+    """What :func:`score_variants` reads of a prepared batch ``st``."""
+    (_qc, _qcc, _qn, _ql, _qf, _ka, _ke, _kl, stop_exact, _blk, weights,
+     thr) = st["args"]
+    return dict(stop_exact=stop_exact, weights=weights, thr=thr,
+                use_stop_exact=st["use_stop_exact"],
+                have_freq=bool(pipe.model.have_freq))
 
 
 def k2_main_pairs(pipe, queries, params):
     """The main path's first batch of ``queries`` through stage A on the
     card, then K3 and K2's slot entry held against their plain versions at
-    the batch's budget (at each of SLOT_WINDOWS), and once more at a budget
-    below its hit total (the overflow, W=3). Returns K2's pair-string input: its P slots ``(a, al,
+    the batch's budget (at each of SLOT_WINDOWS; the slot entry's
+    epilogue also with StopAtExactMatch off and on, zero weights and
+    frequencies), and once more at a budget below its hit total (the
+    overflow, W=3). Returns K2's pair-string input: its P slots ``(a, al,
     b, bl)``, the valid ones, and the distinct pairs repeated to
     TARGET_PAIRS; and the batch (stage A's outputs, its arrays, P) for
     timing K3 and the slot entry."""
@@ -415,17 +496,18 @@ def k2_main_pairs(pipe, queries, params):
     idx = pipe.index
     sa = query_stage_a(idx, q_counts, q_cc, k_ana, k_len, start_blk,
                        st["nb_band"])
+    sc = score_args(pipe, st)
     pr, P, n, _slots = stage_b_slots(pipe, idx, sa, st["B"], q_norms,
                                      q_lens, k_ed, q_fl, start_blk, 3,
-                                     "main batch")
+                                     "main batch", sc, every=True)
     # the slot entry's other instances, which the ratio-threshold queries
     # of the main path launch, on the same slots
     for W in SLOT_WINDOWS[1:]:
         hold_glue(f"main batch W={W}", idx, sa, start_blk, P, q_norms,
-                  q_lens, k_ed, q_fl, W)
+                  q_lens, k_ed, q_fl, W, sc, every=True)
     P_over = max(1, n // 2)
     _s, _p, n_over = hold_glue("main batch overflow", idx, sa, start_blk,
-                               P_over, q_norms, q_lens, k_ed, q_fl, 3)
+                               P_over, q_norms, q_lens, k_ed, q_fl, 3, sc)
     if n_over != P_over or n <= P_over:
         raise SystemExit(f"overflow check: {n_over} valid of {P_over} slots "
                          f"for {n} hits")
@@ -434,18 +516,21 @@ def k2_main_pairs(pipe, queries, params):
     pairs = tuple(x[:n].repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
                   .contiguous() for x in slots)
     main = dict(idx=idx, sa=sa, start_blk=start_blk, P=P, P_over=P_over,
-                batch=(q_norms, q_lens, k_ed, q_fl))
+                batch=(q_norms, q_lens, k_ed, q_fl), sc=sc)
     return pairs, n, slots, P, main
 
 
-def glue_records(main: dict, n_valid: int, card: str) -> list:
+def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
     """K3 and K2's slot entry on the main path's first batch (held against
     their plain versions in :func:`k2_main_pairs`): CUDA-event and profiler
-    times of the kernels, the plain versions' times and the bounds
-    (``utils/roofline.py``), the slot entry's at each of SLOT_WINDOWS (its
-    record's own numbers are W=3's, the main batch's window), after its
-    int32 instance is held equal to its int8 one there. Their ``kernels``
-    records."""
+    times of the kernels, the plain versions' times and the bounds at the
+    card's ``peaks`` (``utils/roofline.py``). The slot entry's are its
+    main-path instance's (the scoring epilogue, the batch's own inputs;
+    the plain version the plain metrics and the plain score) at each of
+    SLOT_WINDOWS (its record's own numbers are W=3's, the main batch's
+    window), after its int32 instance is held equal to its int8 one there;
+    beside them its metrics instance's time at W=3 (the int32 metrics the
+    holds and the `gather_dl` stop read). Their ``kernels`` records."""
     import torch
 
     from analiticcl_tpu_torch.ops import dl as tdl
@@ -462,54 +547,79 @@ def glue_records(main: dict, n_valid: int, card: str) -> list:
     k3 = {
         "ms": time_ms(lambda: ppl.resolve_pairs(*r_args), 10, inner=10),
         "device_ms": device_ms(lambda: ppl.resolve_pairs(*r_args),
-                               "resolve_", 10, per_call=2),
+                               "resolve_kernel", 10),
         "plain_ms": time_ms(lambda: ppl.resolve_pairs_plain(*r_args), 5),
     }
     k3["bound_ms"], k3["bound_by"] = k3_bound_ms(sa.counts_t, sa.nmatch,
-                                                 start_blk, P)
-    q, _pcb, pc, valid, _total = ppl.resolve_pairs(*r_args)
+                                                 start_blk, P, peaks)
+    q, pcb, pc, valid, _total = ppl.resolve_pairs(*r_args)
     qv, pv = q[:n_valid].long(), pc[:n_valid].long()
-    L = q_norms.shape[1]
+    L, B = q_norms.shape[1], q_lens.shape[0]
     n_q, n_c = int(torch.unique(qv).numel()), int(torch.unique(pv).numel())
+    (_, score), = score_variants(idx, sa, dict(main["sc"], pc_band=pcb),
+                                 False)
+    exact_bytes = None
+    if score.use_exact is not None:
+        exact_bytes = int(torch.unique(qv * sa.exact_q.shape[1]
+                                       + (pcb[:n_valid] >> 3)).numel())
     # the int32 instances (alphabets of 120 symbols or more) on the same
-    # strings give the same metrics
+    # strings give the same metrics and scores
     idx32 = SimpleNamespace(norms2=idx.norms2.int(), norm_lens=idx.norm_lens,
-                            first_lower=idx.first_lower)
+                            first_lower=idx.first_lower, freqs=idx.freqs)
     by_window = {}
     for W in SLOT_WINDOWS:
         s_args = (idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W)
-        m8 = tdl.dl_lcs_slots(*s_args)
-        m32 = tdl.dl_lcs_slots(idx32, q_norms.int(), *s_args[2:])
+        s32_args = (idx32, q_norms.int(), *s_args[2:])
+        pairs = ((tdl.dl_lcs_slots(*s_args), tdl.dl_lcs_slots(*s32_args)),
+                 (tdl.dl_lcs_slots(*s_args, score=score),
+                  tdl.dl_lcs_slots(*s32_args, score=score)))
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(m8, m32)):
+        if not all(torch.equal(a, b) for m8, m32 in pairs
+                   for a, b in zip(m8, m32) if a is not None):
             raise SystemExit(f"dl_lcs slot entry: int32 tables differ from "
                              f"int8 at W={W}")
+
+        def plain():
+            m = tdl.dl_lcs_slots_plain(*s_args)
+            return tdl.score_slots_plain(m, q, pc, valid, L, score)
+
         w = {
-            "ms": time_ms(lambda: tdl.dl_lcs_slots(*s_args), 10, inner=10),
-            "device_ms": device_ms(lambda: tdl.dl_lcs_slots(*s_args),
-                                   "dl_lcs_slots_kernel", 10),
-            "plain_ms": time_ms(lambda: tdl.dl_lcs_slots_plain(*s_args), 3),
+            "ms": time_ms(lambda: tdl.dl_lcs_slots(*s_args, score=score),
+                          10, inner=10),
+            "device_ms": device_ms(
+                lambda: tdl.dl_lcs_slots(*s_args, score=score),
+                "dl_lcs_slots_kernel", 10),
+            "plain_ms": time_ms(plain, 3),
         }
         w["bound_ms"], w["bound_by"] = k2_slots_work(
             q_lens[qv], idx.norm_lens[pv], P, L, W, q_norms.element_size(),
-            n_q, n_c).bound_ms()
+            n_q, n_c, B=B, have_freq=score.freqs is not None,
+            exact_bytes=exact_bytes).bound_ms(peaks)
+        if W == SLOT_WINDOWS[0]:
+            w["metrics_instance_ms"] = time_ms(
+                lambda: tdl.dl_lcs_slots(*s_args), 10, inner=10)
+            w["metrics_instance_device_ms"] = device_ms(
+                lambda: tdl.dl_lcs_slots(*s_args), "dl_lcs_slots_kernel", 10)
         by_window[W] = w
         log(f"K2 slot entry W={W}: P={P} slots ({n_valid} valid) from K3's "
             f"slots, {q_norms.dtype} tables (int32 tables give the same "
-            f"metrics), equal to plain (DL clipped at W+1) and to the "
-            f"pair-string entry (DL exact); kernel {w['ms']:.4f} ms "
-            f"(CUDA events, 10 back-to-back calls; profiler device time "
-            f"{ms4(w['device_ms'])}), plain (gathers + plain DL + affixes) "
+            f"metrics and scores), its epilogue equal to the plain score; "
+            f"kernel with the epilogue {w['ms']:.4f} ms (CUDA events, 10 "
+            f"back-to-back calls; profiler device time "
+            f"{ms4(w['device_ms'])})"
+            + (f", the metrics instance {w['metrics_instance_ms']:.4f} ms "
+               f"(device {ms4(w['metrics_instance_device_ms'])})"
+               if "metrics_instance_ms" in w else "")
+            + f", plain (gathers + plain DL + affixes + score) "
             f"{w['plain_ms']:.3f} ms, bound {w['bound_ms']:.4f} ms "
             f"({w['bound_by']}) | {card}")
     W = SLOT_WINDOWS[0]
     se = dict(by_window[W])
-    B = q_lens.shape[0]
     log(f"K3 resolve: B={B}, {sa.counts_t.shape[0]} blocks of 128 band rows "
         f"per query, P={P} ({n_valid} valid), bit-identical to plain, and at "
         f"P={main['P_over']} below the hit total; kernel {k3['ms']:.4f} ms "
         f"(CUDA events, 10 back-to-back calls; profiler device time "
-        f"{ms4(k3['device_ms'])} over its 2 launches), plain "
+        f"{ms4(k3['device_ms'])}, one launch), plain "
         f"{k3['plain_ms']:.3f} ms, bound {k3['bound_ms']:.4f} ms "
         f"({k3['bound_by']}) | {card}")
     note = ("no single PyTorch call computes it: the plain version is a "
@@ -522,7 +632,7 @@ def glue_records(main: dict, n_valid: int, card: str) -> list:
          "P": P, "valid": n_valid, "P_overflow_held": main["P_over"]},
         {"name": "dl_lcs_slots", "route": "cuda",
          "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
-         "replaces": "analiticcl_tpu/ops/pipeline.py:594-647",
+         "replaces": "analiticcl_tpu/ops/pipeline.py:594-647, 671-722",
          "max_abs_err": 0, **se, "library_ms": None, "library_note": note,
          "P": P, "valid": n_valid, "window": W, "by_window": by_window},
     ]
@@ -638,9 +748,12 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     hold_k1(*a_args)
     sa = StageA(*stage_a_masks(*a_args))
     W = st["window"]
+    sc = score_args(pipe, st)
+    if isinstance(pipe, ShardedPipeline):
+        sc["stop_exact"] = sc["stop_exact"][rows]
     pr, P, n_valid, _slots = stage_b_slots(
         pipe, idx, sa, st["B"], q_norms, q_lens, k_ed, q_fl, start_blk, W,
-        name)
+        name, sc)
     ld, lcs = dl_lcs(pr.a, pr.ql, pr.b, pr.cl, pipe.L, W)
     ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(
         pr.a, pr.ql, pr.b, pr.cl, pipe.L, W
@@ -1435,7 +1548,7 @@ def profiling_phase(words, queries, params, wall_ms: float,
     from analiticcl_tpu_torch.utils.profiling import (
         settled_batch, stop_ladder, trace,
     )
-    from analiticcl_tpu_torch.utils.roofline import batch_floor, peaks_for
+    from analiticcl_tpu_torch.utils.roofline import batch_floor, card_peaks
 
     t0 = time.perf_counter()
     model = populate(VariantModel(alphabet=ALPHABET, device="cuda"), words)
@@ -1470,7 +1583,7 @@ def profiling_phase(words, queries, params, wall_ms: float,
             f"{r.n_ops:.1f} device ops per call{delta}")
         prev = r
     floor = batch_floor(pipe.index, st["args"], **static,
-                        peaks=peaks_for(torch.cuda.get_device_name(0)))
+                        peaks=card_peaks(0))
     prog, prog_by = floor.ms("program")
     parts = ", ".join(
         f"{name} {floor.ms(part)[0]:.4f} ms ({floor.ms(part)[1]})"
@@ -1535,7 +1648,9 @@ def main() -> int:
         synthetic_lexicon, synthetic_text,
     )
     from analiticcl_tpu_torch.utils.provenance import stamp
-    from analiticcl_tpu_torch.utils.roofline import k1_bound_ms, k2_bound_ms
+    from analiticcl_tpu_torch.utils.roofline import (
+        card_peaks, k1_bound_ms, k2_bound_ms,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # ---- 1. the card ----
@@ -1547,6 +1662,10 @@ def main() -> int:
     log(card)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| nvcc {nvcc} | devices {torch.cuda.device_count()}")
+    peaks = card_peaks(0)
+    log(f"peaks: {peaks.name}: {peaks.int8_ops_per_s:.4g} int8 op/s, "
+        f"{peaks.hbm_bytes_per_s:.4g} B/s, {peaks.int32_ops_per_s:.4g} "
+        f"32-bit op/s")
 
     # ---- 2. the build ----
     t0 = time.perf_counter()
@@ -1599,7 +1718,7 @@ def main() -> int:
     k1_dev = device_ms(lambda: stage_a_masks(*a_args), "stage_a_kernel", 10)
     k1_plain = time_ms(lambda: stage_a_masks_plain(*a_args), 5)
     k1_bound, k1_by = k1_bound_ms(idx.at, qbin.shape[0], start_blk,
-                                  st["nb_band"])
+                                  st["nb_band"], peaks)
     rs = idx.bins.shape[1] + 16  # csrc/stage_a.cu smem_bytes
     log(f"K1 stage_a: dynamic shared memory "
         f"{128 * rs + 3 * (64 * rs + 320) + 2 * 4 * 128 * 33} bytes per "
@@ -1627,7 +1746,7 @@ def main() -> int:
     # pair-string entry on its pairs ----
     (a, al, b, bl), n_distinct, slots, P_main, main = k2_main_pairs(
         pipe, queries, params)
-    records += glue_records(main, n_distinct, card)
+    records += glue_records(main, n_distinct, card, peaks)
     P, L = a.shape
     lmax, threads = k2_instance(L)
     k2_ptxas = dl_lcs_ptxas(_build.ptxas_report("dl_lcs"))
@@ -1648,7 +1767,7 @@ def main() -> int:
         plain = time_ms(
             lambda: dl_metrics_windowed_plain(a, al, b, bl, L, W), 3
         )
-        bound, by = k2_bound_ms(al, bl, L, W)
+        bound, by = k2_bound_ms(al, bl, L, W, peaks)
         px = k2_ptxas.get((W, lmax))
         k2[W] = (err, ms, plain, bound, by, dev, px)
         log(f"K2 dl_lcs W={W}: P={P} L={L} ({n_distinct} distinct "
@@ -1673,7 +1792,7 @@ def main() -> int:
         "ms": time_ms(lambda: dl_lcs(*slots, L, W), 10, inner=10),
         "device_ms": device_ms(lambda: dl_lcs(*slots, L, W),
                                "dl_lcs_kernel", 10),
-        "bound_ms": k2_bound_ms(slots[1], slots[3], L, W)[0],
+        "bound_ms": k2_bound_ms(slots[1], slots[3], L, W, peaks)[0],
         "slot_entry_ms": entry["ms"],
         "slot_entry_device_ms": entry["device_ms"],
         "slot_entry_bound_ms": entry["bound_ms"],

@@ -134,8 +134,9 @@ def _host_dp(tmp_path, entry="analiticcl_dl_lcs_host"):
     so = tmp_path / "libdlhost.so"
     if not so.exists():
         subprocess.run(
-            [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST", "-shared",
-             "-fPIC", "-o", str(so), str(src)],
+            [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST",
+             "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so),
+             str(src)],
             check=True, capture_output=True,
         )
     fn = getattr(ctypes.CDLL(str(so)), entry)
@@ -254,9 +255,10 @@ def test_kernel_pair_dp_on_host(tmp_path):
 
 def host_slots_fn(build_dir):
     """K2's slot entry (``analiticcl_dl_lcs_slots_host``: the kernel's
-    per-slot loads, affixes and byte-cell DP) built for the host, as a
-    function with ``dl_lcs_slots``'s arguments; returns its seven outputs
-    as tensors."""
+    per-slot loads, affixes and byte-cell DP; with ``score`` its scoring
+    epilogue too, ``analiticcl_dl_lcs_slots_scored_host``) built for the
+    host, as a function with ``dl_lcs_slots``'s arguments and outputs
+    (``SlotMetrics``, or ``SlotScore`` with ``score``)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler")
@@ -264,26 +266,43 @@ def host_slots_fn(build_dir):
     so = Path(build_dir) / "libdlslots.so"
     if not so.exists():
         subprocess.run(
-            [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST", "-shared",
-             "-fPIC", "-o", str(so), str(src)],
+            [gxx, "-O2", "-x", "c++", "-DANALITICCL_HOST_TEST",
+             "-ffp-contract=off", "-shared", "-fPIC", "-o", str(so),
+             str(src)],
             check=True, capture_output=True,
         )
-    fn = ctypes.CDLL(str(so)).analiticcl_dl_lcs_slots_host
-    ptr = ctypes.c_void_p
+    lib = ctypes.CDLL(str(so))
+    fn, scored = lib.analiticcl_dl_lcs_slots_host, \
+        lib.analiticcl_dl_lcs_slots_scored_host
+
+    def ptr(t):
+        return None if t is None else ctypes.c_void_p(t.data_ptr())
 
     def host(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
-             window):
-        P, L = q.shape[0], q_norms.shape[1]
-        metrics = torch.full((6, P), -7, dtype=torch.int32)
-        same_first = torch.zeros(P, dtype=torch.bool)
-        ins = [t.contiguous() for t in (
+             window, score=None):
+        P, (B, L) = q.shape[0], q_norms.shape
+        ins = [ptr(t.contiguous()) for t in (
             q, pc, valid, index.norms2, index.norm_lens, index.first_lower,
             q_norms, q_lens, q_first_lower, k_ed)]
-        fn(*[ptr(t.data_ptr()) for t in ins],
-           ctypes.c_int(q_norms.element_size()), ptr(metrics.data_ptr()),
-           ptr(same_first.data_ptr()), ctypes.c_int(P), ctypes.c_int(L),
-           ctypes.c_int(window))
-        return (*metrics.unbind(), same_first)
+        ins.append(ctypes.c_int(q_norms.element_size()))
+        size = [ctypes.c_int(P), ctypes.c_int(L), ctypes.c_int(window)]
+        if score is None:
+            metrics = torch.full((6, P), -7, dtype=torch.int32)
+            same_first = torch.zeros(P, dtype=torch.bool)
+            fn(*ins, ptr(metrics), ptr(same_first), *size)
+            return tdl.SlotMetrics(*metrics.unbind(), same_first)
+        s = score
+        keep = torch.ones(P, dtype=torch.bool)
+        met = torch.full((5, P), 77, dtype=torch.uint8)
+        max_freq = (torch.zeros if s.freqs is not None else torch.ones)(
+            B, dtype=torch.int64)
+        f32 = torch.full((P,), float("nan")) if s.want_score else None
+        scored(*ins, ptr(s.pc_band), ptr(s.exact_q),
+               ctypes.c_int(s.exact_q.shape[1]), ptr(s.use_exact),
+               ptr(s.freqs), ptr(s.weights), ptr(s.thr), ptr(keep), ptr(met),
+               ptr(max_freq if s.freqs is not None else None), ptr(f32),
+               *size)
+        return tdl.SlotScore(keep, met, max_freq, f32)
 
     return host
 
@@ -385,6 +404,95 @@ def test_host_slot_entry_equals_plain(host_slots, host_dp_lib, L, window,
     assert (got[0].numpy()[v] <= window).any()
     assert (got[0].numpy()[v] > window).any() or window >= L
     assert (got[0].numpy()[~v] == 0).all() and (got[4].numpy()[~v] == 0).all()
+
+
+# weights (ld, lcs, prefix, suffix, case, sum): the defaults, and sets with
+# zero weights, which gate their metrics to 0 (the case flag to true)
+WEIGHT_SETS = {
+    "default": (0.5, 0.125, 0.125, 0.125, 0.125, 1.0),
+    "zeros": (1.0, 0.0, 0.5, 0.0, 0.0, 1.5),
+    "case": (0.7, 0.3, 0.0, 0.25, 1.0, 2.25),
+}
+
+
+def _score_inputs(seed: int, index, B: int, P: int, weights: str):
+    """Seeded epilogue inputs for the slots of :func:`_slot_tables`: band
+    rows, exact bits (four bytes a query), per-query StopAtExactMatch
+    flags, and Zipf-like frequencies, some above 2**24."""
+    rng = np.random.default_rng(seed)
+    nb8 = 4
+    freqs = (2_000_000_000 // (rng.permutation(index.norm_lens.shape[0]) + 1))
+    pc_band, exact_q, use_exact, freqs = _t(
+        rng.integers(0, 8 * nb8, P).astype(np.int32),
+        rng.integers(0, 256, (B, nb8)).astype(np.uint8), rng.random(B) < 0.5,
+        freqs.astype(np.int64))
+    return tdl.ScoreInputs(pc_band, exact_q, use_exact,
+                           torch.tensor(WEIGHT_SETS[weights]),
+                           torch.tensor(0.0), freqs, True)
+
+
+@pytest.mark.parametrize("weights", list(WEIGHT_SETS))
+@pytest.mark.parametrize("dtype", [np.int8, np.int32], ids=["int8", "int32"])
+@pytest.mark.parametrize("window", [3, 6, 12])
+@pytest.mark.parametrize("L", [8, 25, 64])
+def test_host_scored_slot_entry_equals_plain(host_slots, L, window, dtype,
+                                             weights):
+    """The slot entry's scoring epilogue (its host build, compiled without
+    FMA contraction) against the plain score (``score_slots_plain``: the
+    JAX core's f32 operations in torch), tolerance 0, with StopAtExactMatch
+    on and off, with and without frequencies, and with the threshold set to
+    one slot's score exactly (kept: the test is ``score >= thr``):
+    - on the host build's own metrics, every output bit for bit: the keep
+      flags, the gated uint8 metrics, the score and the int64 frequency
+      maxima;
+    - against the whole plain route (the gathers, the plain DL, the
+      affixes, the plain score), with every edit threshold within the
+      window as the pipeline sets them: the keep flags and the frequency
+      maxima, and the metrics and the score of the kept slots (above the
+      window the two DPs may differ, by contract)."""
+    index, (q_norms, q_lens, k_ed, q_fl), (q, pc, valid) = _slot_tables(
+        13 * L + window, L, dtype)
+    k_ed = k_ed.clamp(max=window)
+    B, P = q_lens.shape[0], q.shape[0]
+    base = _score_inputs(L + window, index, B, P, weights)
+    args = (index, q_norms, q_lens, k_ed, q_fl, q, pc, valid, window)
+    m = host_slots(*args)  # the host build's metrics
+    assert (valid & (m.ld > m.ql)).any()
+    for stop_exact in (False, True):
+        for with_freq in (False, True):
+            s = base._replace(use_exact=base.use_exact if stop_exact else None,
+                              freqs=base.freqs if with_freq else None,
+                              thr=torch.tensor(float("-inf")))
+            # every slot within the edit tests passes at -inf; put the
+            # threshold on the score of one of them
+            sc = tdl.score_slots_plain(m, q, pc, valid, L, s)
+            passing = torch.nonzero(sc.keep).flatten()
+            k = int(passing[torch.argsort(sc.score[passing])[len(passing)
+                                                              // 2]])
+            s = s._replace(thr=sc.score[k].clone())
+            got = host_slots(*args, score=s)
+            want = tdl.score_slots_plain(m, q, pc, valid, L, s)
+            assert want.met.dtype == torch.uint8
+            for name, g, w in zip(tdl.SlotScore._fields, got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), name
+            assert got.keep[k] and got.score[k] == s.thr
+            assert 0 < int(got.keep.sum()) < int(sc.keep.sum())
+            if with_freq:
+                assert int(got.max_freq.max()) > 2**24
+            else:
+                assert (got.max_freq == 1).all()
+            plain = tdl.dl_lcs_slots(*args, score=s)  # CPU: the plain route
+            keep = got.keep
+            assert torch.equal(plain.keep, keep)
+            assert torch.equal(plain.max_freq, got.max_freq)
+            assert torch.equal(plain.met[:, keep], got.met[:, keep])
+            assert torch.equal(plain.score[keep], got.score[keep])
+    # a zero weight gates its metric to 0 (the case flag to 1)
+    gated = [f for f, w in zip(("lcs", "pf", "sf", "same_first"),
+                               WEIGHT_SETS[weights][1:5]) if w == 0]
+    for row, name in enumerate(("lcs", "pf", "sf", "same_first"), 1):
+        if name in gated:
+            assert (got.met[row] == (1 if name == "same_first" else 0)).all()
 
 
 def test_slot_entry_cpu_takes_the_plain_version():

@@ -22,7 +22,7 @@ from analiticcl_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from analiticcl_tpu_torch import VariantModel
 from analiticcl_tpu_torch.ops.pipeline import (
     DevicePipeline,
-    compact_slots,
+    compact_index,
     resolve_pairs,
 )
 from analiticcl_tpu_torch.ops.stage_a import ROW_BLOCK, _b_tile
@@ -272,16 +272,17 @@ def test_resolve_pairs_enumerates_hits(B, nb_band, density, budget):
 
 @pytest.mark.parametrize("P2", [1, 7, 50, 200])
 def test_compact_slots_is_stable(P2):
+    """The survivor compaction's positions (``compact_index``): slot j of
+    P2 takes the (j + 1)-th set position of ``keep``, in order; the slots
+    past the survivors take none."""
     rng = np.random.default_rng(P2)
     keep = rng.random(120) < 0.3
-    payload = rng.integers(1, 99, size=(3, 120)).astype(np.int32)
-    got, n = compact_slots(torch.from_numpy(keep), torch.from_numpy(payload),
-                           P2, -1)
-    idx = np.nonzero(keep)[0][:P2]
-    want = np.zeros((3, P2), dtype=np.int32)
-    want[0] = -1
-    want[:, :len(idx)] = payload[:, idx]
-    np.testing.assert_array_equal(got.numpy(), want)
+    idx, hit, n = compact_index(torch.from_numpy(keep), P2)
+    want = np.nonzero(keep)[0][:P2]
+    assert idx.shape == hit.shape == (P2,)
+    np.testing.assert_array_equal(hit.numpy(), np.arange(P2) < len(want))
+    np.testing.assert_array_equal(idx[hit].numpy(), want)
+    assert int(idx.max()) < len(keep)
     assert int(n) == keep.sum()
 
 

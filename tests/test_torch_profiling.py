@@ -284,18 +284,24 @@ def test_k2_and_glue_counts():
     assert roofline.k2_bound_ms(a_len, b_len, 25, 3)[1] == "bytes"
     # the slot entry at 100 slots whose three valid ones touch two query
     # rows and three candidate rows: the same operations, its own bytes
+    # (the keep flag and five uint8 metrics a slot out, the weights and the
+    # threshold in)
     s = roofline.k2_slots_work(a_len, b_len, P=100, L=25, W=3, norm_bytes=1,
                                n_queries=2, cand_rows=3)
     assert s.int32_ops == w.int32_ops
-    assert s.nbytes == 100 * (9 + 25) + 2 * (25 + 9) + 3 * (25 + 5)
-    # the glue after the kernels: K3's slots and K2's metrics in
-    g = roofline.glue_work(B=8, Nb=2048, P=100, P2=64, cand_rows=10,
-                           have_freq=True, exact_bits=False)
-    assert g.nbytes == 100 * (13 + 25) + 10 * 8 + 64 * 13 + 64 + 16
+    assert s.nbytes == 100 * (9 + 6) + 2 * (25 + 9) + 3 * (25 + 5) + 28
+    # with frequencies (read per candidate row, the B maxima written) and
+    # under StopAtExactMatch (each slot's band row, the tested bytes of
+    # exact bits and the B per-query flags read)
+    s2 = roofline.k2_slots_work(a_len, b_len, P=100, L=25, W=3,
+                                norm_bytes=1, n_queries=2, cand_rows=3, B=8,
+                                have_freq=True, exact_bytes=3)
+    assert s2.nbytes == s.nbytes + 3 * 8 + 8 * 8 + 100 * 4 + 3 + 8
+    # the glue after the kernels (the compaction): K3's query and row and
+    # the slot entry's keep flag and metrics in, the survivors out
+    g = roofline.glue_work(P=100, P2=64)
+    assert g.nbytes == 100 * (8 + 6) + 64 * 13 + 16
     assert g.int8_ops == g.int32_ops == 0
-    g2 = roofline.glue_work(B=8, Nb=2048, P=100, P2=64, cand_rows=10,
-                            have_freq=False, exact_bits=True)
-    assert g2.nbytes == g.nbytes + 8 * 256 + 8 - 10 * 8
 
 
 def test_k3_counts_the_blocks_it_expands():
@@ -331,23 +337,43 @@ def test_program_counts_its_inputs_and_outputs_only():
     assert w.nbytes == (8 * 30 * 4 + 8 * 25 + 2 * 4 + 6 * 4 + 2048 * 215
                         + 10 * 38 + 64 * 13 + 8 * 8 + 16)
     assert (w.int8_ops, w.int32_ops) == (4e12, 1e11)
-    # 2.021 ms for the int8 products, 1.493 ms for the 32-bit work: the
-    # longer of the two, since they run on different units
+    # 2.021 ms for the int8 products, 5.979 ms for the 32-bit work at 64
+    # operations per SM and clock (132 SMs, 1,980 MHz): the longer of the
+    # two, since they run on different units
     ms, by = w.bound_ms()
     assert by == "operations"
-    assert ms == pytest.approx(4e12 / 1.979e15 * 1e3)
-    assert roofline.Work(1e10, 4e12, 1e11).bound_ms() == (
-        pytest.approx(1e10 / 3.35e12 * 1e3), "bytes")
+    assert ms == pytest.approx(1e11 / (64 * 132 * 1980e6) * 1e3)
+    assert roofline.Work(1e6, 4e12, 1e10).bound_ms() == (
+        pytest.approx(4e12 / 1.979e15 * 1e3), "operations")
+    assert roofline.Work(1e11, 4e12, 1e11).bound_ms() == (
+        pytest.approx(1e11 / 3.35e12 * 1e3), "bytes")
 
 
 def test_peaks_for_cards():
     assert roofline.peaks_for("NVIDIA H100 80GB HBM3") is roofline.H100_SXM
-    assert roofline.H100_SXM[1:] == (1.979e15, 3.35e12, 67e12)
+    # the data sheet's int8 and HBM rates; 32-bit integer work at 64
+    # operations per SM and clock, 132 SMs at 1,980 MHz (not the FP32 data
+    # sheet's 67 TFLOP/s, which counts an FMA as two)
+    assert roofline.H100_SXM[1:] == (1.979e15, 3.35e12, 64 * 132 * 1980e6)
+    assert roofline.H100_SXM.int32_ops_per_s == pytest.approx(16.727e12,
+                                                              rel=1e-4)
+    # derived from a card's SM count and maximum SM clock
+    p = roofline.peaks_for("NVIDIA H100 80GB HBM3", sms=114,
+                           sm_clock_mhz=1755)
+    assert p[1:] == (1.979e15, 3.35e12, 64 * 114 * 1755e6)
+    assert "114 SMs x 1755 MHz" in p.name
+    assert roofline.int32_rate(132, 1980) == roofline.H100_SXM[3]
+    # a given rate wins over the derived one
+    assert roofline.peaks_for("NVIDIA H100 80GB HBM3", int32=1e13, sms=114,
+                              sm_clock_mhz=1755).int32_ops_per_s == 1e13
     with pytest.raises(ValueError, match="--peak-int8"):
         roofline.peaks_for("NVIDIA H100 PCIe")
     p = roofline.peaks_for("NVIDIA A100-SXM4-80GB", 1.248e15, 2.039e12,
                            19.5e12)
     assert p.hbm_bytes_per_s == 2.039e12
+    p = roofline.peaks_for("NVIDIA A100-SXM4-80GB", 1.248e15, 2.039e12,
+                           sms=108, sm_clock_mhz=1410)
+    assert p.int32_ops_per_s == 64 * 108 * 1410e6
 
 
 def test_batch_floor_counts_this_batch(batch):
@@ -371,13 +397,22 @@ def test_batch_floor_counts_this_batch(batch):
     rows = start_blk.numpy().astype(np.int64)[q_ref // bt] * 128 + r_ref
     n_queries, cand_rows = len(np.unique(q_ref)), len(np.unique(rows))
     assert f.cand_rows == cand_rows
+    # under StopAtExactMatch the bytes of exact bits the pairs test
+    B = q_lens.shape[0]
+    exact_bytes = (len(np.unique(q_ref * (hits.shape[1] // 8) + r_ref // 8))
+                   if static["use_stop_exact"] else None)
     assert f.k2_slots == roofline.k2_slots_work(
         q_lens[torch.from_numpy(q_ref)], index.norm_lens[torch.from_numpy(rows)],
         P_BUDGET, L, static["window"], q_norms.element_size(), n_queries,
-        cand_rows)
+        cand_rows, B=B, have_freq=static["have_freq"],
+        exact_bytes=exact_bytes)
     nb = q_norms.element_size()
-    assert f.k2_slots.nbytes == (P_BUDGET * (9 + 25) + n_queries * (L * nb + 9)
-                                 + cand_rows * (L * nb + 5))
+    freq = 8 if static["have_freq"] else 0
+    assert f.k2_slots.nbytes == (
+        P_BUDGET * (9 + 6) + n_queries * (L * nb + 9)
+        + cand_rows * (L * nb + 5 + freq) + freq * B + 28
+        + (P_BUDGET * 4 + exact_bytes + B if exact_bytes is not None else 0))
+    assert f.glue == roofline.glue_work(P_BUDGET, P_BUDGET)
     assert f.k3.nbytes > P_BUDGET * 13 and f.k3.int32_ops == 0
     assert f.parts_ms == pytest.approx(
         f.ms("k1")[0] + f.ms("k3")[0] + f.ms("k2_slots")[0]
@@ -415,17 +450,24 @@ def test_profile_device_stages_tool(capsys):
 def test_profile_device_stages_tool_splits_the_kernels_ops():
     """A rung's device ops per call, each hand-written kernel's by a part
     of its device name (template instances summed), the rest as other."""
-    split = _tool("profile_device_stages_torch")._kernel_ops({
+    tool = _tool("profile_device_stages_torch")
+    split = tool._kernel_ops({
         "void stage_a_kernel<64>(...)": 1.0,
-        "resolve_scan_kernel(...)": 1.0, "resolve_expand_kernel(...)": 1.0,
+        "resolve_kernel(...)": 1.0,
         "void dl_lcs_slots_kernel<signed char, 3>(...)": 0.5,
         "void dl_lcs_slots_kernel<int, 3>(...)": 0.5,
         "void at::native::reduce_kernel<...>(...)": 4.0,
         "Memset (Device)": 2.0,
     })
-    assert split == ("stage_a_kernel 1.0, resolve_scan_kernel 1.0, "
-                     "resolve_expand_kernel 1.0, dl_lcs_slots_kernel 1.0, "
-                     "other 6.0")
+    assert split == ("stage_a_kernel 1.0, resolve_kernel 1.0, "
+                     "dl_lcs_slots_kernel 1.0, other 6.0")
+    # the other ops that changed from the rung before, by name
+    moved = tool._other_delta(
+        {"resolve_kernel(...)": 1.0, "reduce_kernel<...>": 4.0,
+         "Memset (Device)": 2.0, "fill_kernel": 1.0},
+        {"reduce_kernel<...>": 2.0, "Memset (Device)": 2.0, "copy": 1.0})
+    assert moved == "reduce_kernel<...> +2.0; copy -1.0; fill_kernel +1.0"
+    assert tool._other_delta({"a": 1.0}, {"a": 1.0}) == "none"
 
 
 @pytest.mark.parametrize("extra", [[], ["--mesh", "1x2"]],

@@ -14,10 +14,12 @@ inside the port's query core.
   (the Pallas kernels in interpret mode, as ``test_torch_profiling.py``
   runs it) exactly, tolerance 0: the ``resolve`` and ``gather_dl`` probes
   and the outputs, at a budget above the hit total and one below it. With
-  the wrappers replaced by the two kernels' host builds, the ``resolve``
-  probes and the outputs are still exact (the ``gather_dl`` probe sums DL
-  values above the window, where the kernel's DP and the plain one may
-  differ by contract, so it is held on the plain route only).
+  the wrappers replaced by the two kernels' host builds (K2's slot entry
+  with its scoring epilogue, as the main path runs it), the ``resolve``
+  and ``score`` probes and the outputs are still exact (the ``gather_dl``
+  probe sums DL values above the window, where the kernel's DP and the
+  plain one may differ by contract, so it is held on the plain route
+  only).
 """
 
 import ctypes
@@ -30,7 +32,6 @@ import pytest
 import torch
 
 import analiticcl_tpu_torch.ops.pipeline as ppl
-from analiticcl_tpu_torch.ops import dl as tdl
 from analiticcl_tpu_torch.ops.pipeline import (
     query_core,
     resolve_pairs,
@@ -110,7 +111,9 @@ def _stage_a_bits(seed: int, B: int, nb_band: int, Ni_pad: int,
 
 
 # (B, nb_band, Ni_pad, density, budget): budget "over" gives P above the
-# total, "under" a third of it (overflow), "none" a budget with no hits
+# total, "under" a third of it (overflow), "none" a budget with no hits;
+# "first", "middle" and "last" a budget that runs out inside the hits of
+# the first, a middle or the last query that has any (_overflow_at)
 CASES = [
     (8, 1, 4096, 0.0, "none"),
     (8, 1, 4096, 0.02, "over"),
@@ -120,7 +123,26 @@ CASES = [
     (2048, 1, 262_144, 0.003, "over"),  # bt 256 from 262,144 rows
     (8, 40, 65_536, 0.004, "over"),  # 320 blocks of 128 rows per query
     (8, 40, 65_536, 0.004, "under"),
+    # B not a multiple of the kernel's 8-query tile: bt 4, so each tile
+    # straddles two band tiles; bt 1 (every query its own band)
+    (20, 1, 4096, 0.02, "over"),
+    (20, 1, 4096, 0.02, "middle"),
+    (13, 2, 8192, 0.01, "over"),
+    (13, 2, 8192, 0.01, "last"),
+    (24, 2, 8192, 0.01, "first"),
+    (3000, 1, 8192, 0.002, "middle"),
+    (3000, 1, 8192, 0.002, "last"),
+    (8, 40, 65_536, 0.004, "first"),
 ]
+
+
+def _overflow_at(nmatch, where: str) -> int:
+    """A budget that ends halfway through the hits of the first, a middle
+    or the last query with hits."""
+    n = nmatch.long()
+    qs = torch.nonzero(n).flatten().tolist()
+    q = {"first": qs[0], "middle": qs[len(qs) // 2], "last": qs[-1]}[where]
+    return int(n[:q].sum()) + max(1, int(n[q]) // 2)
 
 
 @pytest.mark.parametrize("B,nb_band,Ni_pad,density,budget", CASES)
@@ -130,7 +152,9 @@ def test_host_resolve_equals_plain(host_resolve, B, nb_band, Ni_pad, density,
                          density)
     total = int(args[2].sum())
     assert (total == 0) == (budget == "none")
-    P = {"none": 2048, "over": total + 37, "under": max(1, total // 3)}[budget]
+    P = ({"none": 2048, "over": total + 37, "under": max(1, total // 3)}
+         .get(budget) or _overflow_at(args[2], budget))
+    assert (P < total) == (budget not in ("none", "over"))
     want = resolve_pairs_plain(*args, Ni_pad, P)
     got = host_resolve(*args, Ni_pad, P)
     for name, g, w in zip(("q", "pc_band", "pc", "valid", "total"), got,
@@ -221,13 +245,15 @@ def test_core_through_the_wrappers_equals_jax(batch, counted):
 def test_core_through_the_host_kernels_equals_jax(batch, host_resolve,
                                                   host_slots_lib,
                                                   monkeypatch):
-    """The same core with K3 and K2's slot entry replaced by their host
-    builds: the resolve probes and the outputs equal the JAX core's."""
+    """The same core with K3 and K2's slot entry (its scoring epilogue on
+    the main path) replaced by their host builds: the resolve and score
+    probes and the outputs equal the JAX core's."""
     monkeypatch.setattr(ppl, "resolve_pairs", host_resolve)
     monkeypatch.setattr(ppl, "dl_lcs_slots", host_slots_lib)
     for P, P2 in _budgets(batch):
-        _assert_probes_equal(_port(batch, "resolve", P, P2),
-                             _jax(batch, "resolve", P, P2), "resolve")
+        for stop in ("resolve", "score"):
+            _assert_probes_equal(_port(batch, stop, P, P2),
+                                 _jax(batch, stop, P, P2), stop)
         _assert_outputs_equal(_port(batch, None, P, P2),
                               _jax(batch, None, P, P2))
 
@@ -235,12 +261,6 @@ def test_core_through_the_host_kernels_equals_jax(batch, host_resolve,
 @pytest.fixture(scope="module")
 def host_slots_lib(tmp_path_factory):
     """K2's slot entry built for the host, with ``dl_lcs_slots``'s
-    arguments and outputs."""
-    fn = host_slots_fn(tmp_path_factory.mktemp("slotshost"))
-
-    def run(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
-            window):
-        return tdl.SlotMetrics(*fn(index, q_norms, q_lens, k_ed,
-                                   q_first_lower, q, pc, valid, window))
-
-    return run
+    arguments and outputs: the metrics instance, and with ``score`` the
+    scoring epilogue the core's main path runs."""
+    return host_slots_fn(tmp_path_factory.mktemp("slotshost"))

@@ -81,7 +81,7 @@ def main(argv) -> int:
     )
     # chip_smoke's queries: the main path's first batch is the same
     queries = corrupt_queries(words, chip_smoke.SEED + 1, chip_smoke.N_QUERIES)
-    (a, al, b, bl), n_distinct, _slots, _P = chip_smoke.k2_main_pairs(
+    (a, al, b, bl), n_distinct, _slots, _P, _main = chip_smoke.k2_main_pairs(
         model._pipeline(), queries, params)
     P, L = a.shape
     stream = torch.cuda.current_stream().cuda_stream

@@ -14,7 +14,9 @@ per call from one ``torch.profiler`` window; each column also as the
 difference from the stop before. A prefix returns int32 checksums, so each
 difference is one stage's cost and the change in its checksums' cost; the
 line under each stop splits its device ops into the hand-written kernels'
-launches by kernel and the other ops (torch's, the checksums' among them).
+launches by kernel and the other ops (torch's, the checksums' among them),
+and the next line names the other ops whose count changed from the stop
+before.
 
     python3 tools/profile_device_stages_torch.py [--batch 4096]
         [--device cuda|cpu] [--lexicon FILE]
@@ -35,8 +37,8 @@ import common_torch  # noqa: E402
 
 
 # the device names (a part of each) of the port's hand-written kernels
-KERNELS = ("stage_a_kernel", "resolve_scan_kernel", "resolve_expand_kernel",
-           "dl_lcs_kernel", "dl_lcs_slots_kernel")
+KERNELS = ("stage_a_kernel", "resolve_kernel", "dl_lcs_kernel",
+           "dl_lcs_slots_kernel")
 
 
 def _kernel_ops(n_by_name) -> str:
@@ -47,6 +49,21 @@ def _kernel_ops(n_by_name) -> str:
     other = sum(n_by_name.values()) - sum(counts.values())
     return ", ".join([f"{k} {n:.1f}" for k, n in counts.items() if n]
                      + [f"other {other:.1f}"])
+
+
+def _other_delta(n_by_name, prev_by_name) -> str:
+    """The other ops (not a hand-written kernel's) whose count per call
+    changed from the rung before, by name, most changed first."""
+    def other(d):
+        return {k: v for k, v in d.items()
+                if not any(kern in k for kern in KERNELS)}
+
+    now, before = other(n_by_name), other(prev_by_name)
+    delta = {k: now.get(k, 0.0) - before.get(k, 0.0)
+             for k in set(now) | set(before)}
+    moved = sorted(((v, k) for k, v in delta.items() if abs(v) > 1e-9),
+                   key=lambda x: (-abs(x[0]), x[1]))
+    return "; ".join(f"{k[:70]} {v:+.1f}" for v, k in moved) or "none"
 
 
 def _fmt(value, prev, digits: int) -> str:
@@ -90,6 +107,9 @@ def main(argv=None) -> int:
               f"{_fmt(r.n_ops, prev and prev.n_ops, 1)}")
         if r.n_by_name is not None:
             print(f"  device ops per call: {_kernel_ops(r.n_by_name)}")
+            if prev is not None and prev.n_by_name is not None:
+                print(f"  other ops changed: "
+                      f"{_other_delta(r.n_by_name, prev.n_by_name)}")
         prev = r
     return 0
 

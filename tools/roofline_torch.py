@@ -20,9 +20,12 @@ beside the floor.
         [--device cuda|cpu] [--lexicon FILE]
 
 Peaks: the NVIDIA H100 SXM data sheet's (1,979 TOP/s int8 dense, 3.35 TB/s
-HBM, 67 TOP/s 32-bit outside the tensor cores) on an H100 SXM card; any
-other card needs all three ``--peak-*``. ``--device cpu`` counts the same
-work against the given or the H100 SXM peaks and measures nothing.
+HBM) on an H100 SXM card, with the 32-bit integer rate derived from the
+card: 64 operations per SM and clock (compute capability 9.0) x its SM
+count x its maximum SM clock (``utils.roofline.card_peaks``); any other
+card needs all three ``--peak-*``. ``--device cpu`` counts the same work
+against the given peaks or the H100 SXM constant (132 SMs at 1,980 MHz:
+16.7 TOP/s 32-bit) and measures nothing.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def main(argv=None) -> int:
         REPS, profile_window, settled_batch,
     )
     from analiticcl_tpu_torch.utils.roofline import (
-        H100_SXM, Peaks, batch_floor, peaks_for,
+        H100_SXM, Peaks, batch_floor, card_peaks,
     )
 
     cuda = args.device == "cuda"
@@ -62,7 +65,7 @@ def main(argv=None) -> int:
         args, args.batches * args.batch)
     pipe = model._pipeline()
     if cuda:
-        peaks = peaks_for(torch.cuda.get_device_name(0), *given)
+        peaks = card_peaks(0, *given)
     elif None in given:
         peaks = H100_SXM
     else:
