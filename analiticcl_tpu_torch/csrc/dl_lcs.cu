@@ -60,7 +60,10 @@
 // StopAtExactMatch and score tests, takes the per-query frequency maxima
 // (a segmented max in the warp, then one 64-bit atomicMax per query run)
 // and writes only the keep flag and five uint8 metrics: 6 bytes a slot
-// instead of 25, and none of the score's torch ops after it. Bound the
+// instead of 25, and none of the score's torch ops after it. Each block
+// also stores how many of its slots it kept (one __syncthreads_count and
+// one int32 store), which the survivor compaction (csrc/compact.cu) sums to
+// place its survivors without a second pass over the keep flags. Bound the
 // same way: its bytes are the slots, the rows the pairs touch and its
 // outputs; its time is the DP's. (Staging the block's rows in shared
 // memory was measured slower on the H100: the copy's loads waited one by
@@ -259,13 +262,21 @@ struct ScoreIn {
 // Its outputs: the keep flag, the metrics the survivor compaction moves
 // (one uint8 [5, P] block: ld, and lcs, prefix, suffix and the case flag
 // as the weights gate them), the per-query frequency maxima (zeroed by the
-// caller; null without frequencies) and, for the `score` stop, the score.
+// caller; null without frequencies), for the `score` stop the score, and
+// the kept slots of each block of slot_threads slots (null: none).
 struct ScoreOut {
   unsigned char* keep;
   unsigned char* met;
   unsigned long long* max_freq;
   float* score;
+  int* counts;
 };
+
+// Slots per block of the slot entry's instance for strings up to LMAX.
+template <int LMAX>
+HDFN constexpr int slot_threads() {
+  return LMAX > 32 ? 64 : 128;
+}
 
 // One slot's metrics.
 struct SlotMetrics {
@@ -317,12 +328,13 @@ inline float f_div(float a, float b) { return a / b; }
 // the JAX core's f32 score of r in its operation order (the weights gate
 // lcs, prefix, suffix and the case flag; each ratio term is (w * x) /
 // qlen, left to right), the edit-threshold and exact tests, the keep flag
-// and the gated metrics. Returns the frequency the slot offers its
-// query's maximum: its row's where it passes the edit tests, else 0.
+// and the gated metrics; `kept` is set to the keep flag. Returns the
+// frequency the slot offers its query's maximum: its row's where it passes
+// the edit tests, else 0.
 DEVFN unsigned long long write_slot(int p, int P, int qi, int ci, bool v,
                                     const SlotMetrics& r, int k_ed,
                                     SlotOut out, const ScoreIn& in,
-                                    ScoreOut so) {
+                                    ScoreOut so, bool& kept) {
   if (out.metrics) {
     int* const m = out.metrics;
     m[p] = r.ld;
@@ -353,7 +365,8 @@ DEVFN unsigned long long write_slot(int p, int P, int qi, int ci, bool v,
     const int pcb = in.pc_band[p];
     pass_ed = (in.exact_q[(size_t)qi * in.nb8 + (pcb >> 3)] >> (pcb & 7)) & 1;
   }
-  so.keep[p] = pass_ed && score >= *in.thr;
+  kept = pass_ed && score >= *in.thr;
+  so.keep[p] = kept;
   unsigned char* const m8 = so.met;
   m8[p] = (unsigned char)r.ld;
   m8[(size_t)P + p] = (unsigned char)lcs;
@@ -419,8 +432,9 @@ __device__ __forceinline__ void max_freq_update(unsigned long long v, int qi,
 // dl_lcs_kernel, the strings read from the tables (both stay in L2: about
 // 200 KB of queries and 6 MB of candidate rows at the main batch). With
 // the epilogue (ScoreIn's weights) it writes the keep flag and the
-// compaction's uint8 metrics instead of the int32 metrics; every lane,
-// past P too, takes part in the warp's frequency maxima.
+// compaction's uint8 metrics instead of the int32 metrics, and the
+// block's kept count; every lane, past P too, takes part in the warp's
+// frequency maxima and in the block's count (those past P count 0).
 template <int W, int LMAX, int THREADS, typename Ch>
 __global__ void __launch_bounds__(THREADS)
 dl_lcs_slots_kernel(SlotTables<Ch> t, SlotOut out, ScoreIn in, ScoreOut so,
@@ -431,15 +445,20 @@ dl_lcs_slots_kernel(SlotTables<Ch> t, SlotOut out, ScoreIn in, ScoreOut so,
   const bool live = p < P;
   const int qi = live ? t.q[p] : -1;
   unsigned long long f = 0;
+  bool kept = false;
   if (live) {
     const int ci = t.pc[p];
     const bool v = t.valid[p] != 0;
     const SlotMetrics r = slot_pair<unsigned char, W, LMAX, Ch>(
         qi, ci, v, t.q_norms + (size_t)qi * L, t.norms2 + (size_t)ci * 2 * L,
         L, t, smem + threadIdx.x, THREADS);
-    f = write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so);
+    f = write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so, kept);
   }
   if (so.max_freq) max_freq_update(f, qi, so.max_freq);
+  if (so.counts) {  // uniform: the whole block reaches the barrier
+    const int n = __syncthreads_count(kept);
+    if (threadIdx.x == 0) so.counts[blockIdx.x] = n;
+  }
 }
 
 // Above 48 KB a block's dynamic shared memory needs the attribute; it is
@@ -501,8 +520,11 @@ template <int W, typename Ch>
 int launch_slots_w(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
                    ScoreOut so, int P, int L, cudaStream_t st) {
   // the instances of launch_w
-  if (L <= 32) return launch_slots<W, 32, 128, Ch>(t, out, in, so, P, L, st);
-  return launch_slots<W, 64, 64, Ch>(t, out, in, so, P, L, st);
+  if (L <= 32)
+    return launch_slots<W, 32, slot_threads<32>(), Ch>(t, out, in, so, P, L,
+                                                       st);
+  return launch_slots<W, 64, slot_threads<64>(), Ch>(t, out, in, so, P, L,
+                                                     st);
 }
 
 template <typename Ch>
@@ -539,9 +561,10 @@ ScoreIn score_in(const void* pc_band, const void* exact_q, int nb8,
                  (const unsigned char*)use_exact, (const long long*)freqs};
 }
 
-ScoreOut score_out(void* keep, void* met, void* max_freq, void* score) {
+ScoreOut score_out(void* keep, void* met, void* max_freq, void* score,
+                   void* counts) {
   return ScoreOut{(unsigned char*)keep, (unsigned char*)met,
-                  (unsigned long long*)max_freq, (float*)score};
+                  (unsigned long long*)max_freq, (float*)score, (int*)counts};
 }
 
 }  // namespace
@@ -615,7 +638,9 @@ extern "C" int analiticcl_dl_lcs_slots(
 // [B, nb8]; use_exact: bool [B] or null; freqs: int64 [Ni] or null;
 // weights: float32 [6]; thr: float32 [1]. keep: bool [P] out; met: uint8
 // [5, P] out (ld, lcs, prefix, suffix, case flag, gated); max_freq: int64
-// [B] in/out, zeros in (null with freqs); score: float32 [P] out or null.
+// [B] in/out, zeros in (null with freqs); score: float32 [P] out or null;
+// counts: int32 [ceil(P / T)] out, the kept slots of each block of T = 128
+// slots (64 above L 32), or null.
 extern "C" int analiticcl_dl_lcs_slots_scored(
     const void* q, const void* pc, const void* valid, const void* norms2,
     const void* norm_lens, const void* first_lower, const void* q_norms,
@@ -623,7 +648,7 @@ extern "C" int analiticcl_dl_lcs_slots_scored(
     int elem_bytes, const void* pc_band, const void* exact_q, int nb8,
     const void* use_exact, const void* freqs, const void* weights,
     const void* thr, void* keep, void* met, void* max_freq, void* score,
-    int P, int L, int W, void* stream) {
+    void* counts, int P, int L, int W, void* stream) {
   if (!weights || !thr || !keep || !met || !pc_band || !exact_q ||
       (freqs == nullptr) != (max_freq == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -631,7 +656,8 @@ extern "C" int analiticcl_dl_lcs_slots_scored(
                      q_lens, q_first_lower, k_ed, elem_bytes, SlotOut{},
                      score_in(pc_band, exact_q, nb8, use_exact, freqs,
                               weights, thr),
-                     score_out(keep, met, max_freq, score), P, L, W, stream);
+                     score_out(keep, met, max_freq, score, counts), P, L, W,
+                     stream);
 }
 #else
 namespace {
@@ -676,11 +702,14 @@ extern "C" void analiticcl_dl_lcs_host(const int* a, const int* a_len,
 namespace {
 // The slot entry's per-slot work on the host, one slot at a time over byte
 // cells of stride 1: the loads, affixes, DP and outputs; the frequency
-// maxima a plain max per slot.
+// maxima a plain max per slot, the blocks' kept counts a plain sum.
 template <typename Ch, int W, int LMAX>
 void host_slots_pairs(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
                       ScoreOut so, int P, int L) {
   std::vector<unsigned char> st(state_elems<W, LMAX>(L));
+  constexpr int THREADS = slot_threads<LMAX>();
+  if (so.counts)
+    for (int b = 0; b < (P + THREADS - 1) / THREADS; ++b) so.counts[b] = 0;
   for (int p = 0; p < P; ++p) {
     for (size_t k = 0; k < st.size(); ++k)
       st[k] = (unsigned char)state_init<W>((int)k, L);
@@ -689,9 +718,11 @@ void host_slots_pairs(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
     const SlotMetrics r = slot_pair<unsigned char, W, LMAX, Ch>(
         qi, ci, v, t.q_norms + (size_t)qi * L, t.norms2 + (size_t)ci * 2 * L,
         L, t, st.data(), 1);
+    bool kept = false;
     const unsigned long long f =
-        write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so);
+        write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so, kept);
     if (so.max_freq && f > so.max_freq[qi]) so.max_freq[qi] = f;
+    if (so.counts) so.counts[p / THREADS] += kept;
   }
 }
 
@@ -751,12 +782,12 @@ extern "C" void analiticcl_dl_lcs_slots_scored_host(
     int elem_bytes, const void* pc_band, const void* exact_q, int nb8,
     const void* use_exact, const void* freqs, const void* weights,
     const void* thr, void* keep, void* met, void* max_freq, void* score,
-    int P, int L, int W) {
+    void* counts, int P, int L, int W) {
   host_slots_any(q, pc, valid, norms2, norm_lens, first_lower, q_norms,
                  q_lens, q_first_lower, k_ed, elem_bytes, SlotOut{},
                  score_in(pc_band, exact_q, nb8, use_exact, freqs, weights,
                           thr),
-                 score_out(keep, met, max_freq, score), P, L, W);
+                 score_out(keep, met, max_freq, score, counts), P, L, W);
 }
 
 // the same DP on int cells

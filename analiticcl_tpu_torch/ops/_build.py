@@ -55,8 +55,22 @@ SIGNATURES = {
             _I,  # table element bytes
             _P, _P, _I, _P, _P, _P, _P,  # pc_band, exact bits, nb8, flags,
             # freqs, weights, threshold
-            _P, _P, _P, _P,  # keep, metrics, max_freq, score
+            _P, _P, _P, _P, _P,  # keep, metrics, max_freq, score, counts
             _I, _I, _I, _P,  # P, L, W, stream
+        ],
+    },
+    "compact": {
+        "analiticcl_compact": [
+            _P, _I, _I,  # counts, their number, slots per count
+            _P, _P, _P, _P, _P, _P,  # keep, q, pc, metrics, max_freq,
+            # total_match
+            _P, _I, _I, _I, _P,  # out, B, P, P2, stream
+        ],
+    },
+    "planes": {
+        "analiticcl_planes": [
+            _P, _P, _P,  # q_counts, planes, totals
+            _I, _I, _I, _I, _P,  # B, A, T, at_pad, stream
         ],
     },
     "resolve": {

@@ -30,7 +30,8 @@ slot resolve), the main path's entry:
   attributes stage B scores with, with no ``[P, L]`` strings in between. Given :class:`ScoreInputs` (the main
   path's instance) its epilogue also scores each slot as the JAX core does
   and writes only what the survivor compaction needs (:class:`SlotScore`:
-  the keep flag, five uint8 metrics, the per-query frequency maxima).
+  the keep flag, five uint8 metrics, the per-query frequency maxima, and
+  the kept slots of each of its blocks, :func:`slot_block`).
   For CPU tensors it takes :func:`dl_lcs_slots_plain`, the composition of
   :func:`gather_pairs`, :func:`dl_metrics_windowed_plain` and
   :func:`affix_metrics_aligned`, and with a score :func:`score_slots_plain`
@@ -51,6 +52,13 @@ PAD_A = -1
 PAD_B = -2
 KERNEL_WINDOWS = (3, 6, 12)
 KERNEL_MAX_LEN = 64  # compile-time cap of the kernel's per-thread arrays
+
+
+def slot_block(L: int) -> int:
+    """Slots per block of the slot entry for strings of width ``L``
+    (``slot_threads`` in ``csrc/dl_lcs.cu``): the blocks whose kept slots
+    :class:`SlotScore` counts."""
+    return 128 if L <= 32 else 64
 
 
 def _first_mismatch_len(x, y):
@@ -333,6 +341,8 @@ class SlotScore(NamedTuple):
     # int32
     max_freq: torch.Tensor  # int64 [B] over the slots within the edit tests
     score: Optional[torch.Tensor]  # float32 [P] with want_score
+    counts: torch.Tensor  # int32 [ceil(P / slot_block(L))]: kept slots of
+    # each block of slot_block(L) slots, which the survivor compaction sums
 
 
 def score_slots_plain(m: SlotMetrics, q, pc, valid, L: int,
@@ -343,7 +353,8 @@ def score_slots_plain(m: SlotMetrics, q, pc, valid, L: int,
     flag; the score; the edit-threshold test and, with ``use_exact``,
     StopAtExactMatch's exact test; keep at or above the threshold; the
     exact int64 frequency maximum of each query over its slots within the
-    edit tests, also those below the threshold (lib.rs:1455-1476)."""
+    edit tests, also those below the threshold (lib.rs:1455-1476); the kept
+    slots of each block of :func:`slot_block` slots."""
     w_ld, w_lcs, w_pf, w_sf, w_case, w_sum = s.weights.unbind()
     ld, ql = m.ld, m.ql
     lcs = torch.where(w_lcs > 0, m.lcs, 0)
@@ -378,7 +389,12 @@ def score_slots_plain(m: SlotMetrics, q, pc, valid, L: int,
     met = torch.stack([ld, lcs, pf, sf, samecase.to(torch.int32)])
     if L < 256:  # DL <= 3L + 8 and the rest <= L: bytes hold them
         met = met.to(torch.uint8)
-    return SlotScore(keep, met, max_freq, score if s.want_score else None)
+    T = slot_block(L)
+    P = keep.shape[0]
+    counts = torch.nn.functional.pad(keep, (0, -P % T)).view(-1, T).sum(
+        1, dtype=torch.int32)
+    return SlotScore(keep, met, max_freq, score if s.want_score else None,
+                     counts)
 
 
 def _check_score(s: ScoreInputs, B: int, P: int, Ni: int, dev) -> None:
@@ -456,7 +472,9 @@ def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
             B, dtype=torch.int64, device=dev)
         f32 = (torch.empty(P, dtype=torch.float32, device=dev)
                if s.want_score else None)
-        out = SlotScore(keep, met, max_freq, f32)
+        counts = torch.empty(-(-P // slot_block(L)), dtype=torch.int32,
+                             device=dev)
+        out = SlotScore(keep, met, max_freq, f32, counts)
         if not P:
             return out
 
@@ -470,7 +488,7 @@ def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
                 s.weights.data_ptr(), s.thr.data_ptr(), keep.data_ptr(),
                 met.data_ptr(),
                 ptr(max_freq if s.freqs is not None else None),
-                ptr(f32), P, L, window, stream)
+                ptr(f32), counts.data_ptr(), P, L, window, stream)
     dl_lcs_slots.launches += 1
     dl_lcs.launches += 1
     _build.check(err, "dl_lcs_slots kernel launch")

@@ -7,11 +7,14 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
   per-batch query arrays), the same pair budgets ``P`` (candidate-pair slots)
   and ``P2`` (survivor slots), and the same outputs ``o_q, o_c, o_ld, o_lcs,
   o_pf, o_sf, o_case`` (``[P2]``, unused slots filled with query ``B`` and
-  zeros), ``max_freq, total_match, total_keep``. On CUDA tensors stage A
-  (K1, ``ops/stage_a.py``), the slot resolve (K3, :func:`resolve_pairs`)
-  and the pair loading with DL+LCS, the affixes, the f32 score and the
-  keep tests (K2's slot entry and its epilogue, ``ops/dl.py``) run in
-  hand-written kernels; the survivor compaction after them is torch ops.
+  zeros), ``max_freq, total_match, total_keep``. On CUDA tensors a call
+  is a short chain of hand-written kernels: the query planes (K5,
+  :func:`query_planes`), stage A (K1, ``ops/stage_a.py``), the slot
+  resolve (K3, :func:`resolve_pairs`), the pair loading with DL+LCS, the
+  affixes, the f32 score and the keep tests (K2's slot entry and its
+  epilogue, ``ops/dl.py``) and the survivor compaction (K4,
+  :func:`compact_survivors`), which writes the ten outputs into the one
+  byte buffer that is copied to the host.
   It is the composition of :func:`query_stage_a` and
   :func:`query_stage_b`, which a sharded index
   (``parallel/mesh.py``) calls per shard, combining the shards' exact
@@ -23,8 +26,10 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
   band-row order. The kernel expands each query's hit bits into its slots
   from the per-query totals and block counts, in one launch; the plain
   version (:func:`resolve_pairs_plain`) searches each slot's block and
-  ranks its bit. Survivors move into the P2 slots by a cumsum and a search
-  (:func:`compact_index`). A batch whose totals pass
+  ranks its bit. Survivors move into the P2 slots in slot order
+  (:func:`compact_survivors`: the kernel ranks them from K2's per-block
+  kept counts; the plain version by a cumsum and a search,
+  :func:`compact_index`). A batch whose totals pass
   its budgets comes back truncated query-major, as in JAX, and is re-run.
   Nothing between ``submit``'s entry and its return waits for the card.
 * :class:`DevicePipeline` ports the host side: query preparation, the window
@@ -34,10 +39,11 @@ The port of ``analiticcl_tpu/ops/pipeline.py``'s query path:
   device ``submit`` packs the query arrays into one pinned host buffer and
   one copy, enqueues the core on the pipeline's own stream, packs its
   outputs into one byte buffer copied into pinned memory, and returns;
-  ``collect`` waits for the batch's event. Every launch costs host time
-  that the card cannot hide, so the glue is written for few launches. A
-  CPU pipeline runs the same code on the CPU, with no stream and no
-  pinning.
+  ``collect`` waits for the batch's event (the outputs are already one
+  buffer on the card: :func:`_pack` copies nothing). Every launch costs
+  host time that the card cannot hide, so the glue is written for few
+  launches. A CPU pipeline runs the same code on the CPU, with no stream
+  and no pinning.
 
 What the JAX version needed for XLA's static shapes on a TPU and the port
 leaves out:
@@ -82,7 +88,7 @@ from ..utils.profiling import StageTimer
 from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
 from ..device import resolve_device
 from . import _build
-from .dl import ScoreInputs, dl_lcs_slots
+from .dl import ScoreInputs, dl_lcs_slots, slot_block
 from .rank_batch import rank_fast_batch
 from .ranked import RankedResults
 from .stage_a import ROW_BLOCK, _b_tile, stage_a_masks
@@ -132,15 +138,56 @@ def _batch_rows(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
-def query_planes(index: DeviceIndex, q_counts):
+def query_planes_plain(index: DeviceIndex, q_counts):
     """int8 [B, at_pad] binarized count planes of the queries, zero-padded to
-    the index's plane width (ops/pipeline.py:403-409)."""
+    the index's plane width (ops/pipeline.py:403-409), as torch ops: the
+    plain version of :func:`query_planes`."""
     B, A = q_counts.shape
     T = index.at // A
     t_levels = torch.arange(T, dtype=torch.int32, device=q_counts.device)
     qbin = (q_counts.clamp(max=T)[:, :, None] > t_levels).reshape(B, A * T)
     pad = index.bins.shape[1] - A * T
     return torch.nn.functional.pad(qbin.to(torch.int8), (0, pad))
+
+
+def query_planes(index: DeviceIndex, q_counts, totals=None):
+    """The queries' int8 ``[B, at_pad]`` binarized count planes, as
+    :func:`query_planes_plain` gives them; ``totals`` (int32 ``[2, B]``,
+    stage A's ``nmatch`` and ``nexact``, which K1 adds to) is zeroed too.
+    Kernel K5 (``csrc/planes.cu``, one launch) for CUDA tensors, the plain
+    version (and ``zero_``) for CPU tensors."""
+    B, A = q_counts.shape
+    at_pad = index.bins.shape[1]
+    dev = q_counts.device
+    if (q_counts.dtype != torch.int32 or not q_counts.is_contiguous()
+            or index.bins.device != dev):
+        raise ValueError(f"query_planes: q_counts is {q_counts.dtype} on "
+                         f"{dev}, wants contiguous int32 on "
+                         f"{index.bins.device}")
+    if totals is not None and (
+            totals.dtype != torch.int32 or tuple(totals.shape) != (2, B)
+            or not totals.is_contiguous() or totals.device != dev):
+        raise ValueError(f"query_planes: totals is {totals.dtype} "
+                         f"{tuple(totals.shape)} on {totals.device}, wants "
+                         f"contiguous int32 (2, {B}) on {dev}")
+    if dev.type == "cpu":
+        if totals is not None:
+            totals.zero_()
+        return query_planes_plain(index, q_counts)
+    if dev.type != "cuda":
+        raise ValueError(f"query_planes: unsupported device {dev}")
+    planes = torch.empty((B, at_pad), dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load("planes").analiticcl_planes(
+            q_counts.data_ptr(), planes.data_ptr(),
+            None if totals is None else totals.data_ptr(), B, A,
+            index.at // A, at_pad, torch.cuda.current_stream(dev).cuda_stream)
+    query_planes.launches += 1
+    _build.check(err, "planes kernel launch")
+    return planes
+
+
+query_planes.launches = 0
 
 
 _TABLES: dict = {}
@@ -286,6 +333,95 @@ def compact_index(keep, P2: int):
     return idx.clamp_(max=n - 1), hit, csum[-1]
 
 
+def compact_survivors_plain(keep, counts, block: int, q, pc, met, max_freq,
+                            total_match, P2: int):
+    """:func:`compact_survivors` as torch ops (:func:`compact_index` and
+    three gathers; ``counts`` and ``block`` are not read): the kernel's
+    plain version."""
+    B = max_freq.shape[0]
+    idx, hit, total_keep = compact_index(keep, P2)
+    o_q = torch.where(hit, q[idx], B)
+    o_c = torch.where(hit, pc[idx], 0)
+    o_met = torch.where(hit, met[:, idx], 0)
+    return (o_q, o_c, *o_met.unbind(), max_freq, total_match, total_keep)
+
+
+def _output_views(flat, B: int, P2: int) -> tuple:
+    """The core's ten outputs as views of K4's buffer ``flat``, which holds
+    them as :func:`_pack` lays them out: ``max_freq`` (int64 ``[B]``),
+    ``total_match``, ``total_keep`` (int64), ``o_q``, ``o_c`` (int32
+    ``[P2]``), the five uint8 metric columns (``[P2]``). A few slices, for
+    the host's sake: every view op costs enqueue time."""
+    wide = 8 * (B + 2)
+    i64 = flat[:wide].view(torch.int64)
+    qc = flat[wide : wide + 8 * P2].view(torch.int32).view(2, P2)
+    met = flat[wide + 8 * P2 :].view(5, P2)
+    return (qc[0], qc[1], *met.unbind(), i64[:B], i64[B], i64[B + 1])
+
+
+def _check_compact(keep, counts, block, q, pc, met, max_freq, total_match):
+    P = keep.shape[0]
+    B = max_freq.shape[0]
+    want = {
+        "keep": (keep, torch.bool, (P,)),
+        "counts": (counts, torch.int32, (-(-P // block),)),
+        "q": (q, torch.int32, (P,)), "pc": (pc, torch.int32, (P,)),
+        "met": (met, met.dtype, (5, P)),
+        "max_freq": (max_freq, torch.int64, (B,)),
+        "total_match": (total_match, torch.int64, ()),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != keep.device):
+            raise ValueError(
+                f"compact_survivors: {name} is {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}, wants contiguous {dtype} {shape} on "
+                f"{keep.device}")
+    return P, B
+
+
+def compact_survivors(keep, counts, block: int, q, pc, met, max_freq,
+                      total_match, P2: int) -> tuple:
+    """The core's ten outputs from the scored slots: the kept slots of
+    ``keep`` moved in slot order into ``P2`` survivor slots (their query
+    ``q``, device row ``pc`` and five metric rows ``met``; the slots past
+    the survivors hold query ``B`` and zeros, the JAX ``_compact`` and its
+    fill, ``analiticcl_tpu/ops/pipeline.py:242-266, 726-750``), then
+    ``max_freq``, ``total_match`` and the number kept, ``total_keep`` (all
+    of them: survivors past ``P2`` are dropped). ``counts`` holds the kept
+    slots of each block of ``block`` slots (:class:`~.dl.SlotScore`).
+    Kernel K4 (``csrc/compact.cu``, one launch) for CUDA tensors: it writes
+    the ten into one byte buffer as :func:`_pack` lays them out and
+    returns their views of it, which :func:`_pack` passes on without a
+    copy. :func:`compact_survivors_plain` for CPU tensors; both give the
+    same values."""
+    P, B = _check_compact(keep, counts, block, q, pc, met, max_freq,
+                          total_match)
+    dev = keep.device
+    if dev.type == "cpu":
+        return compact_survivors_plain(keep, counts, block, q, pc, met,
+                                       max_freq, total_match, P2)
+    if dev.type != "cuda":
+        raise ValueError(f"compact_survivors: unsupported device {dev}")
+    if met.dtype != torch.uint8:
+        raise ValueError(f"compact_survivors kernel: met is {met.dtype}, "
+                         "wants uint8")
+    flat = torch.empty(8 * (B + 2) + 13 * P2, dtype=torch.uint8,
+                       device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load("compact").analiticcl_compact(
+            counts.data_ptr(), counts.numel(), block, keep.data_ptr(),
+            q.data_ptr(), pc.data_ptr(), met.data_ptr(), max_freq.data_ptr(),
+            total_match.data_ptr(), flat.data_ptr(), B, P, P2,
+            torch.cuda.current_stream(dev).cuda_stream)
+    compact_survivors.launches += 1
+    _build.check(err, "compact kernel launch")
+    return _output_views(flat, B, P2)
+
+
+compact_survivors.launches = 0
+
+
 class StageA(NamedTuple):
     packed_q: torch.Tensor  # uint8 [B, Nb / 8] hit bits
     exact_q: torch.Tensor  # uint8 [B, Nb / 8] exact-anagram bits
@@ -331,16 +467,21 @@ def probe(*tensors) -> tuple:
 def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,
                   start_blk, nb_band: int, *,
                   stop_stage: Optional[str] = None):
-    """Stage A of :func:`query_core`: banded retrieval (kernel K1) over
-    ``index``'s rows. ``stop_stage`` ``"noop"`` returns the probes of
-    ``(q_cc, k_ana)`` before any device work, ``"stageA"`` those of the
-    stage's outputs (every 64th byte column of the bits)."""
+    """Stage A of :func:`query_core`: the query planes (kernel K5), then
+    banded retrieval (kernel K1) over ``index``'s rows. ``stop_stage``
+    ``"noop"`` returns the probes of ``(q_cc, k_ana)`` before any device
+    work, ``"stageA"`` those of the stage's outputs (every 64th byte
+    column of the bits)."""
     _check_stop(stop_stage, STAGE_A_STOPS)
     if stop_stage == "noop":
         return probe(q_cc, k_ana)
+    # K5 writes the planes and zeroes the totals K1 adds to
+    totals = torch.empty((2, q_counts.shape[0]), dtype=torch.int32,
+                         device=q_counts.device)
     sa = StageA(*stage_a_masks(
-        index.bins, index.cc, index.validrows, query_planes(index, q_counts),
-        q_cc, k_ana, k_len, start_blk, nb_band,
+        index.bins, index.cc, index.validrows,
+        query_planes(index, q_counts, totals), q_cc, k_ana, k_len, start_blk,
+        nb_band, totals=totals,
     ))
     if stop_stage == "stageA":
         return probe(sa.packed_q[:, ::64], sa.exact_q[:, ::64], sa.counts_t,
@@ -406,9 +547,9 @@ def query_stage_b(
     """Stage B of :func:`query_core` over stage A's hits in ``index``: the
     slot resolve at ``P`` (kernel K3), the pair loading, DL + LCS, the
     affixes, the f32 score and the keep tests (K2's slot entry and its
-    epilogue), and the survivor compaction into ``P2`` slots. ``use_exact``
-    is separate because under a sharded index it depends on every shard's
-    exact count. ``stop_stage`` (one of
+    epilogue), and the survivor compaction into ``P2`` slots (kernel K4).
+    ``use_exact`` is separate because under a sharded index it depends on
+    every shard's exact count. ``stop_stage`` (one of
     :data:`STAGE_B_STOPS`) ends it after that stage with the probes the JAX
     core gives there."""
     _check_stop(stop_stage, STAGE_B_STOPS)
@@ -440,26 +581,44 @@ def query_stage_b(
         return probe(s.keep, s.max_freq) + ((s.score * s.keep).sum(),)
 
     # ---- survivor compaction into P2 slots, order kept; unused slots hold
-    # query B and zeros; the metrics are uint8 below L 256 ----
-    idx, hit, total_keep = compact_index(s.keep, P2)
-    o_q = torch.where(hit, q[idx], B)
-    o_c = torch.where(hit, pc[idx], 0)
-    met = torch.where(hit, s.met[:, idx], 0)
+    # query B and zeros; the metrics are uint8 below L 256 (K4) ----
+    out = compact_survivors(s.keep, s.counts, slot_block(q_norms.shape[1]),
+                            q, pc, s.met, s.max_freq, total_match, P2)
     if stop_stage == "compact_sum":
-        return probe(o_q, o_c, *met)
-    return (o_q, o_c, *met.unbind(), s.max_freq, total_match, total_keep)
+        return probe(*out[:7])
+    return out
+
+
+def _one_buffer(tensors, layout):
+    """The bytes of ``tensors`` as one flat view, where they already lie
+    back to back in ``layout``'s order in one buffer (K4's outputs), else
+    None."""
+    first = tensors[layout[0][0]]
+    storage = first.untyped_storage().data_ptr()
+    at = first.data_ptr()
+    for i, _, _ in layout:
+        t = tensors[i]
+        if (t.data_ptr() != at or not t.is_contiguous()
+                or t.untyped_storage().data_ptr() != storage):
+            return None
+        at += t.numel() * t.element_size()
+    head = first.view(-1).view(torch.uint8)
+    return head.as_strided((at - first.data_ptr(),), (1,))
 
 
 def _pack(tensors):
     """One flat byte tensor holding ``tensors``, widest dtype first so that
     every piece stays aligned, and the layout :func:`_unpack` reads it
-    back with: one copy moves them all."""
+    back with: one copy moves them all. Tensors that already lie so in one
+    buffer are passed on as its view, with no copy."""
     order = sorted(range(len(tensors)),
                    key=lambda i: -tensors[i].element_size())
-    flat = torch.cat([tensors[i].reshape(-1).view(torch.uint8)
-                      for i in order])
-    return flat, [(i, tensors[i].dtype, tuple(tensors[i].shape))
-                  for i in order]
+    layout = [(i, tensors[i].dtype, tuple(tensors[i].shape)) for i in order]
+    flat = _one_buffer(tensors, layout)
+    if flat is None:
+        flat = torch.cat([tensors[i].reshape(-1).view(torch.uint8)
+                          for i in order])
+    return flat, layout
 
 
 def _unpack(flat, layout) -> list:

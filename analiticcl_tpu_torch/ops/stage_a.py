@@ -119,13 +119,23 @@ def _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
 
 
 def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
-                  nb_band: int):
+                  nb_band: int, totals=None):
     """Banded stage-A outputs: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. The kernel wants ``AT`` (the plane width) a
     multiple of 32, one int8 MMA k-step; ``convert.py`` pads the index with
-    zero columns."""
+    zero columns. The kernel adds each query's totals into ``nmatch`` and
+    ``nexact``: the rows of ``totals`` (int32 ``[2, B]``, zeroed by the
+    caller: the query planes' kernel zeroes them in its launch) where it
+    is given, else two tensors of zeros made here. The plain version makes
+    its own."""
     B, AT, bt = _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len,
                               start_blk, nb_band)
+    if totals is not None and (
+            totals.dtype != torch.int32 or tuple(totals.shape) != (2, B)
+            or not totals.is_contiguous() or totals.device != bins.device):
+        raise ValueError(f"stage_a: totals is {totals.dtype} "
+                         f"{tuple(totals.shape)} on {totals.device}, wants "
+                         f"contiguous int32 (2, {B}) on {bins.device}")
     dev = bins.device
     if dev.type == "cpu":
         return stage_a_masks_plain(bins, cc, validrows, qbin, q_cc, k_ana,
@@ -138,8 +148,11 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
     packed_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
     exact_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
     counts_t = torch.empty((Nb // 128, B), dtype=torch.int32, device=dev)
-    nmatch = torch.zeros(B, dtype=torch.int32, device=dev)
-    nexact = torch.zeros(B, dtype=torch.int32, device=dev)
+    if totals is None:
+        nmatch = torch.zeros(B, dtype=torch.int32, device=dev)
+        nexact = torch.zeros(B, dtype=torch.int32, device=dev)
+    else:
+        nmatch, nexact = totals
     lib = _build.load("stage_a")
     with torch.cuda.device(dev):
         err = lib.analiticcl_stage_a(

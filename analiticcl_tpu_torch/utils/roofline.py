@@ -8,6 +8,8 @@ pairs' lengths, the candidate rows the pairs touch) is counted on the
 batch's own inputs, and planes at the alphabet's true width ``A * T``, not
 at the zero columns the device layout pads them to. The parts:
 
+* **K5** (the query planes): bytes only: the per-character counts read
+  once, the planes (at the true width) and the zeroed totals written once;
 * **K1** (stage A): the int8 multiply-adds of the binarized planes,
   ``2 * B * Nb * AT`` operations, against the band rows, the query planes
   and the hit bits, counts and totals;
@@ -24,9 +26,16 @@ at the zero columns the device layout pads them to. The parts:
   when the model has them), the exact-bit bytes the valid pairs test under
   StopAtExactMatch, and every slot's keep flag and five uint8 metrics and
   the ``[B]`` frequency maxima written once;
-* **the glue** (the survivor compaction, torch ops): bytes only: K3's query
-  and device row and the slot entry's keep flags and metrics read once, the
-  ``[P2]`` survivor columns and the two totals written once.
+* **K4** (the survivor compaction): bytes only: the slot entry's per-block
+  kept counts and keep flags read once, the query, device row and five
+  metrics of each kept slot that reaches a survivor slot read once, the
+  frequency maxima and the hit total read once; the batch's one output
+  buffer (the ``[P2]`` survivor columns, the maxima, the two totals)
+  written once;
+* **the glue** (the torch ops left between the kernels): bytes only: the
+  StopAtExactMatch flags and stage A's exact counts read and the per-query
+  flags written (``stop_exact & (nexact > 0)``), the threshold less its
+  slack, and the frequency maxima's initial values written.
 
 The parts' floors count the data that passes between them (K1's bits and
 counts, the pair strings) as memory traffic. **The program** does not: it
@@ -189,9 +198,23 @@ def k2_bound_ms(a_len, b_len, L: int, W: int, peaks: Peaks = H100_SXM):
 
 # bytes per slot: K3 writes query, band row and device row (int32) and the
 # validity; the slot entry, on the main path, the keep flag and five uint8
-# metrics
+# metrics; a survivor slot holds query and device row (int32) and five
+# uint8 metrics
 SLOT_BYTES = 13
 KEEP_BYTES = 6
+SURVIVOR_BYTES = 13
+
+
+def k5_work(B: int, A: int, at: int) -> Work:
+    """The query planes: the ``[B, A]`` int32 counts read once, the
+    ``[B, at]`` int8 planes at the true width and the two ``[B]`` int32
+    totals written once."""
+    return Work(4 * B * A + B * at + 8 * B)
+
+
+def k5_bound_ms(B: int, A: int, at: int, peaks: Peaks = H100_SXM):
+    """The least time of the query planes, and its bound."""
+    return k5_work(B, A, at).bound_ms(peaks)
 
 
 def k3_work(counts_t, nmatch, start_blk, P: int) -> Work:
@@ -247,15 +270,31 @@ def k2_slots_work(ql, cl, P: int, L: int, W: int, norm_bytes: int,
 def _output_bytes(B: int, P2: int) -> int:
     """The core's outputs: the survivor columns (two int32, five uint8 per
     slot), the int64 frequency maxima and the two int64 totals."""
-    return P2 * 13 + 8 * B + 16
+    return P2 * SURVIVOR_BYTES + 8 * B + 16
 
 
-def glue_work(P: int, P2: int) -> Work:
-    """The least bytes of the torch ops after the kernels (the survivor
-    compaction): K3's query and device row and the slot entry's keep flag
-    and five metrics of the ``P`` slots read once; the ``[P2]`` survivor
-    columns and the two int64 totals written once."""
-    return Work(P * (8 + KEEP_BYTES) + P2 * 13 + 16)
+def k4_work(P: int, P2: int, B: int, n_keep: int, block: int) -> Work:
+    """The survivor compaction of ``n_keep`` kept slots of ``P`` into
+    ``P2``: the ``ceil(P / block)`` int32 per-block counts and the ``P``
+    keep flags read once, the query, device row and five metrics of the
+    kept slots below ``P2`` read once, the ``B`` frequency maxima and the
+    hit total read once; the core's outputs written once."""
+    return Work(4 * -(-P // block) + P + SURVIVOR_BYTES * min(n_keep, P2)
+                + 8 * B + 8 + _output_bytes(B, P2))
+
+
+def k4_bound_ms(P: int, P2: int, B: int, n_keep: int, block: int,
+                peaks: Peaks = H100_SXM):
+    """The least time of the survivor compaction, and its bound."""
+    return k4_work(P, P2, B, n_keep, block).bound_ms(peaks)
+
+
+def glue_work(B: int) -> Work:
+    """The least bytes of the torch ops left between the kernels: the
+    ``B`` StopAtExactMatch flags and exact counts read and the per-query
+    flags written, the threshold read and written less its slack, and the
+    ``B`` int64 frequency maxima's initial values written."""
+    return Work(B * (1 + 4 + 1) + 4 + 4 + 8 * B)
 
 
 def program_work(args: Sequence[torch.Tensor], at: int, rows: int,
@@ -274,13 +313,19 @@ def program_work(args: Sequence[torch.Tensor], at: int, rows: int,
                 int32_ops=k2.int32_ops)
 
 
+# the main path's parts, in their order in a core call
+PARTS = ("k5", "k1", "k3", "k2_slots", "k4", "glue")
+
+
 class BatchFloor(NamedTuple):
     """One batch's parts and the program, as work."""
 
+    k5: Work
     k1: Work
     k3: Work
     k2_valid: Work  # the pair-string entry at the valid pairs
     k2_slots: Work  # the slot entry at the budget's P slots
+    k4: Work
     glue: Work
     program: Work
     n_valid: int
@@ -296,10 +341,10 @@ class BatchFloor(NamedTuple):
 
     @property
     def parts_ms(self) -> float:
-        """K1 + K3 + K2's slot entry + glue, the main path's parts: the
-        program with the data between its stages counted as memory
-        traffic."""
-        return sum(self.ms(p)[0] for p in ("k1", "k3", "k2_slots", "glue"))
+        """K5 + K1 + K3 + K2's slot entry + K4 + glue, the main path's
+        parts: the program with the data between its stages counted as
+        memory traffic."""
+        return sum(self.ms(p)[0] for p in PARTS)
 
 
 def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
@@ -308,8 +353,10 @@ def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
     """Count one batch of ``query_core`` (its arguments ``args`` on the
     index ``index``, at budgets P and P2): stage A and the slot resolve run
     once, to find the valid pairs, their lengths, and the query and
-    candidate rows they touch."""
-    from ..ops.pipeline import query_stage_a, resolve_pairs
+    candidate rows they touch, and the whole core once, for the number
+    kept."""
+    from ..ops.dl import slot_block
+    from ..ops.pipeline import query_core, query_stage_a, resolve_pairs
 
     (q_counts, q_cc, q_norms, q_lens, _q_fl, k_ana, _k_ed, k_len, _se,
      start_blk, _w, _thr) = args
@@ -333,14 +380,19 @@ def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
     nbytes = q_norms.element_size()
     k1 = k1_work(index.at, B, start_blk, nb_band)
     k2_valid = k2_work(ql, cl, L, window)
+    n_keep = int(query_core(
+        index, *args, have_freq=have_freq, P=P, P2=P2, window=window,
+        nb_band=nb_band, use_stop_exact=use_stop_exact)[9])
     return BatchFloor(
+        k5=k5_work(B, q_counts.shape[1], index.at),
         k1=k1,
         k3=k3_work(sa.counts_t, sa.nmatch, start_blk, P),
         k2_valid=k2_valid,
         k2_slots=k2_slots_work(ql, cl, P, L, window, nbytes, n_queries,
                                cand_rows, B=B, have_freq=have_freq,
                                exact_bytes=exact_bytes),
-        glue=glue_work(P, P2),
+        k4=k4_work(P, P2, B, n_keep, slot_block(L)),
+        glue=glue_work(B),
         program=program_work(args, index.at, band_rows(start_blk, nb_band),
                              cand_rows, L, nbytes, have_freq, P2, k1,
                              k2_valid),

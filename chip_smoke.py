@@ -3,23 +3,27 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line: the card; the build of the three CUDA
+Phases, each printing one line: the card; the build of the five CUDA
 sources in ``analiticcl_tpu_torch/csrc`` (one ``nvcc`` each, all at once;
 with ptxas's registers, shared memory and spills); the stage-A kernel (K1)
 against its plain PyTorch version (bit for bit) on seeded inputs with query
 tiles of 8, 64, 1,024 and (from 262,144 index rows) 256, and at the main
-path's shapes; on the main path's first batch the slot resolve (K3,
+path's shapes, after the query planes (K5, ``csrc/planes.cu``) bit for bit;
+on the main path's first batch the slot resolve (K3,
 ``csrc/resolve.cu``, one launch) bit for bit and the DL+LCS kernel's slot
 entry (K2 reading the pairs' strings from the tables) against their plain
 versions, at the batch's budget (the slot entry at windows 3, 6 and 12,
 int8 and int32 tables; its scoring epilogue, the main path's instance,
 against the plain score with StopAtExactMatch off and on, zero weights and
-seeded frequencies: keep, the frequency maxima and the compacted
-survivors exact) and at one below its hit total (the overflow); the
+seeded frequencies: keep, the frequency maxima, the per-block kept
+counts and the survivors exact) and the survivor compaction (K4,
+``csrc/compact.cu``, which writes the batch's one output buffer) bit for
+bit at the batch's P2 and at one below its survivors, all at the batch's
+budget and at one below its hit total (the overflow); the
 DL+LCS kernel's pair-string entry against its plain version (DL clipped at
 window + 1) on the main path's pairs at windows 3, 6 and 12, with the
 ptxas summary and the shared memory per block of each window's instance;
-CUDA-event and profiler times of the four beside their bounds at the
+CUDA-event and profiler times of the six beside their bounds at the
 card's peaks (the 32-bit rate from its SM count and maximum SM clock).
 Then the
 main path:
@@ -27,7 +31,9 @@ main path:
 eng.aspell's size, ``find_variants_stream`` over 16,384 corrupted queries,
 and 1,024 ratio-threshold queries that reach the W=12 window and the window
 split, held against the exact host oracle, and one ``torch.profiler`` window
-over a warm 16,384-query pass (device time per kernel, idle share). Then
+over a warm 16,384-query pass (device time per kernel, idle share), and
+the distinct core shapes (B, band, P, P2, window) of one pass of
+``bench_torch.py``'s 65,536-query window. Then
 search mode over 4,096 lines of running text (``find_all_matches_stream``,
 bigram segments), the same with a seeded bigram language model whose
 bigrams the text holds, and learn mode (strict over 4,096 corrupted words,
@@ -57,7 +63,8 @@ call of shard 0. Then profiling (phase 11): the ``stop_stage`` ladder of
 device ops per stop; the whole core after it equal to its outputs before),
 the batch's roofline (``utils/roofline.py``) beside the core's time by
 CUDA events and the main pass's wall time per batch, and one ``trace`` of two warm
-batches under ``build/chip_smoke_trace/`` that must name every kernel. The
+batches under ``build/chip_smoke_trace/`` that must name every kernel (taken
+again over 4, then 8 batches where it lost a kernel's records). The
 last two lines are the kernels' JSON record (stamped with the commit,
 launches per path) and ``{"ok": true, ...}``.
 
@@ -111,7 +118,8 @@ K1_DIRECT = ((8, 32_768, 4), (64, 32_768, 8), (8192, 32_768, 8),
 STAGES = ("search_prepare", "host_prep", "dispatch", "device", "device_get",
           "host_tail", "search_consolidate", "host_oracle_fallback")
 BATCH_CUT = 1024  # batches of the cut-bucket run (one batch size, B=1024)
-KERNEL_SOURCES = ("stage_a", "dl_lcs", "resolve")  # csrc/<name>.cu
+# csrc/<name>.cu
+KERNEL_SOURCES = ("stage_a", "dl_lcs", "resolve", "compact", "planes")
 N_LIGHT = 300  # queries of each light batch of the cut-bucket run
 
 
@@ -192,20 +200,24 @@ def ms4(x: float | None) -> str:
 def counted_wrappers() -> dict:
     """Each kernel's name in the ``kernels`` record and the wrapper that
     counts its launches: K1, K2 (either entry; the main path runs the slot
-    entry, which adds to both its own count and K2's), K3 and K2's slot
-    entry."""
+    entry, which adds to both its own count and K2's), K3, K2's slot
+    entry, K4 and K5."""
     from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_lcs_slots
-    from analiticcl_tpu_torch.ops.pipeline import resolve_pairs
+    from analiticcl_tpu_torch.ops.pipeline import (
+        compact_survivors, query_planes, resolve_pairs,
+    )
     from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
 
     return {"stage_a": stage_a_masks, "dl_lcs": dl_lcs,
-            "resolve": resolve_pairs, "dl_lcs_slots": dl_lcs_slots}
+            "resolve": resolve_pairs, "dl_lcs_slots": dl_lcs_slots,
+            "compact": compact_survivors, "planes": query_planes}
 
 
 # the device kernel name (a part of it) each count's launches run under
 TRACE_NAMES = {"stage_a": "stage_a_kernel", "dl_lcs": "dl_lcs",
                "resolve": "resolve_kernel",
-               "dl_lcs_slots": "dl_lcs_slots_kernel"}
+               "dl_lcs_slots": "dl_lcs_slots_kernel",
+               "compact": "compact_kernel", "planes": "planes_kernel"}
 
 
 def launch_counts() -> dict:
@@ -224,6 +236,15 @@ def require_launches(phase: str) -> dict:
     if min(counts.values()) <= 0:
         raise SystemExit(f"{phase}: a kernel was not launched: {counts}")
     return counts
+
+
+def require_one_buffer_per_call(phase: str, counts: dict) -> None:
+    """Every core call of a path launches K5 with K1 (stage A) and K4 with
+    K3 (stage B), once each."""
+    if (counts["planes"], counts["compact"]) != (counts["stage_a"],
+                                                 counts["resolve"]):
+        raise SystemExit(f"{phase}: K5/K4 launches differ from K1/K3's: "
+                         f"{counts}")
 
 
 def stage_line(stats) -> str:
@@ -325,6 +346,50 @@ def hold_k1(*args):
     return 0, _b_tile(B, args[0].shape[0]), int(want[4].sum())
 
 
+def hold_k5(idx, q_counts):
+    """Hold the query planes' kernel (K5) against its plain version on a
+    batch's counts, bit for bit, and its zeroing of stage A's totals;
+    returns the planes and the zeroed totals."""
+    import torch
+
+    from analiticcl_tpu_torch.ops.pipeline import (
+        query_planes, query_planes_plain,
+    )
+
+    totals = torch.full((2, q_counts.shape[0]), 7, dtype=torch.int32,
+                        device=q_counts.device)
+    got = query_planes(idx, q_counts, totals)
+    want = query_planes_plain(idx, q_counts)
+    torch.cuda.synchronize()
+    if (got.dtype != want.dtype or got.shape != want.shape
+            or not torch.equal(got, want) or bool((totals != 0).any())):
+        raise SystemExit(f"planes kernel differs from plain at "
+                         f"B={q_counts.shape[0]}, {tuple(got.shape)}")
+    return got, totals
+
+
+def hold_k4(name: str, args, P2: int) -> None:
+    """Hold the survivor compaction's kernel (K4) against its plain version
+    on ``args`` (its wrapper's arguments but P2) at ``P2``: the ten outputs
+    bit for bit, and the buffer passed on by ``_pack`` without a copy."""
+    import torch
+
+    from analiticcl_tpu_torch.ops import pipeline as ppl
+
+    got = ppl.compact_survivors(*args, P2)
+    want = ppl.compact_survivors_plain(*args, P2)
+    torch.cuda.synchronize()
+    bad = [k for k, (g, w) in enumerate(zip(got, want))
+           if g.dtype != w.dtype or g.shape != w.shape
+           or not torch.equal(g, w)]
+    flat, _ = ppl._pack(got)
+    if got[7].is_cuda and flat.data_ptr() != got[7].data_ptr():
+        bad.append("one buffer")
+    if bad:
+        raise SystemExit(f"{name}: compact kernel differs from plain in "
+                         f"outputs {bad} at P2={P2}")
+
+
 def prepared(pipe, lookups, params):
     """``pipe.prepare`` of ``lookups``, its uploads finished: they run on
     the pipeline's stream, and the caller reads them on the default one
@@ -339,13 +404,14 @@ def prepared(pipe, lookups, params):
 
 
 def stage_b_budget(pipe, B: int, sa) -> tuple:
-    """The pair budget a batch of size ``B`` with stage-A outputs ``sa``
-    runs with (the sticky budget, escalated to cover these hits as
-    ``collect`` escalates it), and the batch's hit total."""
+    """The pair budgets a batch of size ``B`` with stage-A outputs ``sa``
+    runs with (the sticky P, escalated to cover these hits as ``collect``
+    escalates it, and the sticky P2), and the batch's hit total."""
     from analiticcl_tpu_torch.ops import pipeline as ppl
 
     total = int(sa.nmatch.sum())
-    return max(pipe._budgets(B)[0], ppl._bucket(total, ppl.P_BUCKETS)), total
+    P, P2 = pipe._budgets(B)
+    return max(P, ppl._bucket(total, ppl.P_BUCKETS)), P2, total
 
 
 def score_variants(idx, sa, sc: dict, every: bool) -> list:
@@ -383,7 +449,7 @@ def score_variants(idx, sa, sc: dict, every: bool) -> list:
 
 
 def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
-              q_fl, W: int, sc: dict, every: bool = False):
+              q_fl, W: int, sc: dict, every: bool = False, P2: int = 0):
     """Hold K3 (the slot resolve) against its plain version on stage A's
     outputs ``sa`` at budget ``P``, all five outputs bit for bit; then K2's
     slot entry against its plain version (the gathers, the plain DL and
@@ -394,9 +460,13 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
     strings); and its main-path instance, the scoring epilogue, against
     the plain score on the plain metrics for each of
     :func:`score_variants` (``sc``, ``every``): the keep flags, the
-    frequency maxima and the survivors compacted into P slots (query,
-    device row, the five uint8 metrics) exactly. Returns K3's slots, the
-    pair strings and the valid count."""
+    frequency maxima, the per-block kept counts and, through the survivor
+    compaction (K4 on the kernels' outputs against its plain version on
+    the plain ones), the ten outputs at P survivor slots exactly; then K4
+    against its plain version on the kernels' own outputs
+    (:func:`hold_k4`) at the batch's ``P2`` and at half its survivors (the
+    overflow). Returns K3's slots, the pair strings and the valid
+    count."""
     import torch
 
     from analiticcl_tpu_torch.ops import dl as tdl
@@ -428,19 +498,20 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
         raise SystemExit(f"{name}: dl_lcs slot entry differs from plain in "
                          f"{bad} at P={P}, W={W}")
     L = q_norms.shape[1]
+    T = tdl.slot_block(L)
     for label, s in score_variants(idx, sa, dict(sc, pc_band=pcb), every):
         ks = tdl.dl_lcs_slots(*s_args, score=s)
         kp = tdl.score_slots_plain(mp, q, pc, valid, L, s)
         torch.cuda.synchronize()
         bad = [f for f, g, w in (("keep", ks.keep, kp.keep),
-                                 ("max_freq", ks.max_freq, kp.max_freq))
+                                 ("max_freq", ks.max_freq, kp.max_freq),
+                                 ("block counts", ks.counts, kp.counts))
                if g.dtype != w.dtype or not torch.equal(g, w)]
-        idx_k, hit, n_keep = ppl.compact_index(ks.keep, P)
-        idx_p, hit_p, _ = ppl.compact_index(kp.keep, P)
-        survivors = [torch.where(hit, x, 0) for x in (
-            q[idx_k], pc[idx_k], ks.met[:, idx_k])]
-        survivors_p = [torch.where(hit_p, x, 0) for x in (
-            q[idx_p], pc[idx_p], kp.met[:, idx_p])]
+        survivors = ppl.compact_survivors(ks.keep, ks.counts, T, q, pc,
+                                          ks.met, ks.max_freq, total, P)
+        survivors_p = ppl.compact_survivors_plain(
+            kp.keep, kp.counts, T, q, pc, kp.met, kp.max_freq, total, P)
+        torch.cuda.synchronize()
         if not all(g.dtype == w.dtype and torch.equal(g, w)
                    for g, w in zip(survivors, survivors_p)):
             bad.append("compacted survivors")
@@ -448,10 +519,16 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
             raise SystemExit(f"{name}: dl_lcs slot entry's epilogue differs "
                              f"from the plain score in {bad} ({label}) at "
                              f"P={P}, W={W}")
+        n_keep = int(survivors_p[9])
+        k4_args = (ks.keep, ks.counts, T, q, pc, ks.met, ks.max_freq, total)
+        P2_over = max(1, n_keep // 2)
+        for p2 in (P2 or P, P2_over):
+            hold_k4(name, k4_args, p2)
         if every:
             log(f"{name}: slot entry's epilogue ({label}) equal to the plain "
-                f"score: {int(n_keep)} kept of {min(int(total), P)} valid "
-                f"slots, max_freq max {int(ks.max_freq.max())}")
+                f"score: {n_keep} kept of {min(int(total), P)} valid "
+                f"slots, max_freq max {int(ks.max_freq.max())}; K4 equal to "
+                f"plain at P2={P2 or P} and {P2_over}")
     return got, pr, min(int(total), P)
 
 
@@ -463,9 +540,9 @@ def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
     (:func:`stage_b_budget`), both kernels held against their plain
     versions on it (:func:`hold_glue`). Returns the gathered pair strings
     (the pair-string entry's input), P, the valid slots and K3's slots."""
-    P, _total = stage_b_budget(pipe, B, sa)
+    P, P2, _total = stage_b_budget(pipe, B, sa)
     slots, pr, n = hold_glue(name, idx, sa, start_blk, P, q_norms, q_lens,
-                             k_ed, q_fl, W, sc, every)
+                             k_ed, q_fl, W, sc, every, P2=P2)
     return pr, P, n, slots
 
 
@@ -494,6 +571,7 @@ def k2_main_pairs(pipe, queries, params):
     (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
      start_blk, _w, _thr) = st["args"]
     idx = pipe.index
+    hold_k5(idx, q_counts)
     sa = query_stage_a(idx, q_counts, q_cc, k_ana, k_len, start_blk,
                        st["nb_band"])
     sc = score_args(pipe, st)
@@ -516,15 +594,18 @@ def k2_main_pairs(pipe, queries, params):
     pairs = tuple(x[:n].repeat((reps,) + (1,) * (x.dim() - 1))[:TARGET_PAIRS]
                   .contiguous() for x in slots)
     main = dict(idx=idx, sa=sa, start_blk=start_blk, P=P, P_over=P_over,
+                P2=pipe._budgets(st["B"])[1], q_counts=q_counts,
                 batch=(q_norms, q_lens, k_ed, q_fl), sc=sc)
     return pairs, n, slots, P, main
 
 
 def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
-    """K3 and K2's slot entry on the main path's first batch (held against
-    their plain versions in :func:`k2_main_pairs`): CUDA-event and profiler
-    times of the kernels, the plain versions' times and the bounds at the
-    card's ``peaks`` (``utils/roofline.py``). The slot entry's are its
+    """K3, K2's slot entry, K4 and K5 on the main path's first batch (held
+    against their plain versions in :func:`k2_main_pairs`): CUDA-event and
+    profiler times of the kernels, the plain versions' times and the bounds
+    at the card's ``peaks`` (``utils/roofline.py``); K4's beside one
+    library call's (``torch.nonzero_static`` of the keep flags and the
+    gathers of the survivors' columns). The slot entry's are its
     main-path instance's (the scoring epilogue, the batch's own inputs;
     the plain version the plain metrics and the plain score) at each of
     SLOT_WINDOWS (its record's own numbers are W=3's, the main batch's
@@ -536,7 +617,7 @@ def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
     from analiticcl_tpu_torch.ops import dl as tdl
     from analiticcl_tpu_torch.ops import pipeline as ppl
     from analiticcl_tpu_torch.utils.roofline import (
-        k2_slots_work, k3_bound_ms,
+        k2_slots_work, k3_bound_ms, k4_bound_ms, k5_bound_ms,
     )
 
     idx, sa, start_blk, P = (main[k] for k in ("idx", "sa", "start_blk",
@@ -552,7 +633,7 @@ def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
     }
     k3["bound_ms"], k3["bound_by"] = k3_bound_ms(sa.counts_t, sa.nmatch,
                                                  start_blk, P, peaks)
-    q, pcb, pc, valid, _total = ppl.resolve_pairs(*r_args)
+    q, pcb, pc, valid, total = ppl.resolve_pairs(*r_args)
     qv, pv = q[:n_valid].long(), pc[:n_valid].long()
     L, B = q_norms.shape[1], q_lens.shape[0]
     n_q, n_c = int(torch.unique(qv).numel()), int(torch.unique(pv).numel())
@@ -615,6 +696,55 @@ def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
             f"({w['bound_by']}) | {card}")
     W = SLOT_WINDOWS[0]
     se = dict(by_window[W])
+
+    # K4 on the batch's own scored slots at its P2, and K5 on its counts
+    T = tdl.slot_block(L)
+    P2 = main["P2"]
+    ks = tdl.dl_lcs_slots(idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W,
+                          score=score)
+    k4_args = (ks.keep, ks.counts, T, q, pc, ks.met, ks.max_freq, total, P2)
+    n_keep = int(ks.keep.sum())
+
+    def library():
+        at = torch.nonzero_static(ks.keep, size=P2)[:, 0]
+        return q[at], pc[at], ks.met[:, at]
+
+    k4 = {
+        "ms": time_ms(lambda: ppl.compact_survivors(*k4_args), 10, inner=10),
+        "device_ms": device_ms(lambda: ppl.compact_survivors(*k4_args),
+                               "compact_kernel", 10),
+        "plain_ms": time_ms(lambda: ppl.compact_survivors_plain(*k4_args),
+                            10, inner=10),
+        "library_ms": time_ms(library, 10, inner=10),
+    }
+    k4["bound_ms"], k4["bound_by"] = k4_bound_ms(P, P2, B, n_keep, T, peaks)
+    q_counts = main["q_counts"]
+    totals = torch.empty((2, B), dtype=torch.int32, device=q_counts.device)
+    k5 = {
+        "ms": time_ms(lambda: ppl.query_planes(idx, q_counts, totals), 10,
+                      inner=10),
+        "device_ms": device_ms(lambda: ppl.query_planes(idx, q_counts,
+                                                        totals),
+                               "planes_kernel", 10),
+        "plain_ms": time_ms(lambda: ppl.query_planes_plain(idx, q_counts),
+                            10, inner=10),
+    }
+    k5["bound_ms"], k5["bound_by"] = k5_bound_ms(B, q_counts.shape[1],
+                                                 idx.at, peaks)
+    log(f"K4 compact: P={P} slots ({n_keep} kept) into P2={P2}, one output "
+        f"buffer of {8 * (B + 2) + 13 * P2} bytes, bit-identical to plain, "
+        f"and at P2 below the survivors; kernel {k4['ms']:.4f} ms (CUDA "
+        f"events, 10 back-to-back calls; profiler device time "
+        f"{ms4(k4['device_ms'])}, one launch), plain (compact_index + "
+        f"gathers) {k4['plain_ms']:.4f} ms, library (nonzero_static + "
+        f"gathers) {k4['library_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms "
+        f"({k4['bound_by']}) | {card}")
+    log(f"K5 planes: B={B}, A={q_counts.shape[1]}, planes "
+        f"{idx.bins.shape[1]} wide (AT {idx.at}), bit-identical to plain, "
+        f"totals zeroed; kernel {k5['ms']:.4f} ms (CUDA events, 10 "
+        f"back-to-back calls; profiler device time {ms4(k5['device_ms'])}, "
+        f"one launch), plain {k5['plain_ms']:.4f} ms, bound "
+        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}) | {card}")
     log(f"K3 resolve: B={B}, {sa.counts_t.shape[0]} blocks of 128 band rows "
         f"per query, P={P} ({n_valid} valid), bit-identical to plain, and at "
         f"P={main['P_over']} below the hit total; kernel {k3['ms']:.4f} ms "
@@ -635,6 +765,19 @@ def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
          "replaces": "analiticcl_tpu/ops/pipeline.py:594-647, 671-722",
          "max_abs_err": 0, **se, "library_ms": None, "library_note": note,
          "P": P, "valid": n_valid, "window": W, "by_window": by_window},
+        {"name": "compact", "route": "cuda",
+         "source": "analiticcl_tpu_torch/csrc/compact.cu",
+         "replaces": "analiticcl_tpu/ops/pipeline.py:242-266, 726-750",
+         "max_abs_err": 0, **k4,
+         "library_note": "torch.nonzero_static(keep, size=P2) and the "
+                         "gathers of the survivors' query, row and metrics "
+                         "(no fill, no totals, no one buffer)",
+         "P": P, "P2": P2, "kept": n_keep},
+        {"name": "planes", "route": "cuda",
+         "source": "analiticcl_tpu_torch/csrc/planes.cu",
+         "replaces": "analiticcl_tpu/ops/pipeline.py:402-408",
+         "max_abs_err": 0, **k5, "library_ms": None, "library_note": note,
+         "B": B},
     ]
 
 
@@ -678,7 +821,7 @@ def dl_lcs_ptxas(report: str) -> dict:
 
 def profile_pass(fn) -> str:
     """One torch.profiler window over ``fn``: device time per kernel (the
-    two CUDA kernels, then the other device ops by time) and the device's
+    hand-written kernels, then the other device ops by time) and the device's
     idle share of the window's wall time (1 - the union of device intervals
     over the wall time). A window whose trace kept no device op (seen once
     on an H100) is taken again; fails when three windows saw no device
@@ -692,8 +835,9 @@ def profile_pass(fn) -> str:
     else:
         raise SystemExit("profile: the profiler saw no device time")
     by_name = prof.by_name
-    ours = {"K1 stage_a": "stage_a_kernel", "K3 resolve": "resolve_",
-            "K2 dl_lcs": "dl_lcs"}
+    ours = {"K5 planes": "planes_kernel", "K1 stage_a": "stage_a_kernel",
+            "K3 resolve": "resolve_", "K2 dl_lcs": "dl_lcs",
+            "K4 compact": "compact_kernel"}
     mine = {label: sum(v for k, v in by_name.items() if part in k)
             for label, part in ours.items()}
     rest = sorted(((v, k) for k, v in by_name.items()
@@ -710,7 +854,8 @@ def profile_pass(fn) -> str:
 
 def hold_kernels(name: str, pipe, lookups, params) -> None:
     """Prepare ``lookups`` as one device batch, as the path does, and hold
-    the stage-A kernel (bit for bit), the slot resolve and K2's slot entry
+    the query planes' kernel and the stage-A kernel (bit for bit), the slot
+    resolve, K2's slot entry and the survivor compaction
     (:func:`hold_glue`) and the DL+LCS kernel's pair-string entry (DL
     clipped at the batch's window + 1, LCS exact) against their plain
     versions on it; on a sharded pipeline, on the call of mesh row 0 and
@@ -719,7 +864,7 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     import torch
 
     from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_metrics_windowed_plain
-    from analiticcl_tpu_torch.ops.pipeline import StageA, query_planes
+    from analiticcl_tpu_torch.ops.pipeline import StageA
     from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
     from analiticcl_tpu_torch.parallel.mesh import ShardedPipeline
 
@@ -743,10 +888,11 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
                  f"rows)")
     else:
         idx = pipe.index
-    a_args = (idx.bins, idx.cc, idx.validrows, query_planes(idx, q_counts),
-              q_cc, k_ana, k_len, start_blk, nb_band)
+    qbin, totals = hold_k5(idx, q_counts)
+    a_args = (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
+              start_blk, nb_band)
     hold_k1(*a_args)
-    sa = StageA(*stage_a_masks(*a_args))
+    sa = StageA(*stage_a_masks(*a_args, totals=totals))
     W = st["window"]
     sc = score_args(pipe, st)
     if isinstance(pipe, ShardedPipeline):
@@ -763,11 +909,12 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
             and torch.equal(lcs, lcs_p)):
         raise SystemExit(f"{name}: dl_lcs kernel differs from plain at W={W}")
     pipe._oracle_memo.clear()  # the timed run meets over-long segments anew
-    log(f"{name} kernels: K1 bit-identical to plain on B={q_lens.shape[0]}"
-        f"{where} ({len(st['active'])} device lookups of {len(lookups)}, "
-        f"band {nb_band * 1024} rows); K3 bit-identical to plain and K2 "
-        f"(both entries) equal to plain at W={W} on the budget's P={P} "
-        f"slots, {n_valid} valid ({time.perf_counter() - t0:.2f} s)")
+    log(f"{name} kernels: K5 and K1 bit-identical to plain on "
+        f"B={q_lens.shape[0]}{where} ({len(st['active'])} device lookups of "
+        f"{len(lookups)}, band {nb_band * 1024} rows); K3 bit-identical to "
+        f"plain, K2 (both entries) equal to plain at W={W} on the budget's "
+        f"P={P} slots, {n_valid} valid, K4 bit-identical to plain "
+        f"({time.perf_counter() - t0:.2f} s)")
 
 
 def sync_free_submit(name: str, pipe, lookups, params, card: str) -> None:
@@ -1261,6 +1408,36 @@ def cli_phase(words, queries, texts, card: str) -> dict:
     return by_path
 
 
+def core_shapes(model, words, params) -> dict:
+    """The distinct static shapes (B, nb_band, P, P2, window) of the core
+    calls of one pass over a window of ``bench_torch.py``'s
+    ``query_synth120k`` cell (65,536 queries of its traffic, batches of
+    4,096), each with its number of calls: what CUDA graphs per shape
+    would have to cover. The pass runs after the path's counts are read."""
+    from bench_torch import BATCH as CELL_BATCH, N_QUERIES as CELL_QUERIES
+    from bench_torch import corrupted
+
+    from analiticcl_tpu_torch.ops import pipeline as ppl
+
+    window = corrupted(words[::7], CELL_QUERIES, SEED, 0)
+    seen: dict = {}
+    core = ppl.query_core
+
+    def recording(index, *args, **kw):
+        key = (args[0].shape[0], kw["nb_band"], kw["P"], kw["P2"],
+               kw["window"])
+        seen[key] = seen.get(key, 0) + 1
+        return core(index, *args, **kw)
+
+    ppl.query_core = recording
+    try:
+        list(model.find_variants_stream(window, params, CELL_BATCH))
+    finally:
+        ppl.query_core = core
+    return {"queries": len(window), "calls": sum(seen.values()),
+            "distinct": sorted(seen.items())}
+
+
 def cuda_mesh(n_dp: int, n_lex: int):
     """A ("dp", "lex") mesh whose devices are all ``cuda:0``."""
     from analiticcl_tpu_torch.parallel.mesh import make_mesh
@@ -1335,6 +1512,7 @@ def mesh_query_phase(words, queries, params, card: str) -> dict:
         if counts["stage_a"] != n_dp * n_lex * base["stage_a"] \
                 or counts["dl_lcs"] <= 0:
             raise SystemExit(f"{name}: launches {counts}, single {base}")
+        require_one_buffer_per_call(name, counts)
         require_equal(name, got, single, queries)
         require_equal(f"{name} StopAtExactMatch",
                       list(model.find_variants_stream(queries[:BATCH], stop,
@@ -1537,7 +1715,8 @@ def profiling_phase(words, queries, params, wall_ms: float,
     events (the profiler's device records in this process can come back
     short, PERF.md section 6) and the main pass's wall time per batch
     (``wall_ms``), and one ``trace`` of
-    two warm batches under ``build/``, which must name every kernel."""
+    two warm batches under ``build/``, which must name every kernel (taken
+    again over 4, then 8 batches where it lost a kernel's records)."""
     import shutil
 
     import torch
@@ -1587,10 +1766,10 @@ def profiling_phase(words, queries, params, wall_ms: float,
     prog, prog_by = floor.ms("program")
     parts = ", ".join(
         f"{name} {floor.ms(part)[0]:.4f} ms ({floor.ms(part)[1]})"
-        for name, part in (("K1", "k1"), ("K3", "k3"),
+        for name, part in (("K5", "k5"), ("K1", "k1"), ("K3", "k3"),
                            ("K2 at valid pairs", "k2_valid"),
                            ("K2's slot entry at P slots", "k2_slots"),
-                           ("glue", "glue")))
+                           ("K4", "k4"), ("glue", "glue")))
     log(f"roofline: B={st['B']} band {st['nb_band'] * 1024} rows, AT "
         f"{pipe.index.at}, P={P} ({floor.n_valid} valid pairs over "
         f"{floor.cand_rows} candidate rows), P2={P2}: {parts}; the parts "
@@ -1602,27 +1781,37 @@ def profiling_phase(words, queries, params, wall_ms: float,
 
     # two warm batches: in this process, after the earlier phases, a
     # profiler window comes back without some of its device records, and a
-    # one-batch trace has lacked K1 (PERF.md section 6); a fresh process
-    # keeps them all
-    d = Path("build/chip_smoke_trace")
-    shutil.rmtree(d, ignore_errors=True)
-    before = launch_counts()
-    with trace(str(d)):
-        list(pipe.find_variants_stream(iter([batch, batch]), params))
-    in_trace = {k: v - before[k] for k, v in launch_counts().items()}
+    # trace has lacked K1 (and K5 with it: PERF.md section 6), so a trace
+    # that names a kernel no time is taken again over twice the batches,
+    # up to three times; a fresh process keeps them all
+    root = Path("build/chip_smoke_trace")
+    shutil.rmtree(root, ignore_errors=True)
+    for attempt in range(3):
+        d = root / str(attempt)
+        n_batches = 2 << attempt
+        before = launch_counts()
+        with trace(str(d)):
+            list(pipe.find_variants_stream(iter([batch] * n_batches),
+                                           params))
+        in_trace = {k: v - before[k] for k, v in launch_counts().items()}
+        files = sorted(d.glob("*.json"))
+        events = (json.loads(files[0].read_text(encoding="utf-8"))
+                  ["traceEvents"] if len(files) == 1 else [])
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        counts = {k: sum(TRACE_NAMES[k] in n for n in kernels)
+                  for k in in_trace}
+        if min(counts.values()) > 0:
+            break
+        log(f"profiling: the trace {files} names a kernel no time: "
+            f"{counts} for the launches {in_trace}; its kernels: "
+            f"{sorted(set(n[:60] for n in kernels))}")
+    else:
+        raise SystemExit("profiling: three traces each named a kernel no "
+                         "time")
     launches = require_launches("profiling")
-    files = sorted(d.glob("*.json"))
-    events = (json.loads(files[0].read_text(encoding="utf-8"))["traceEvents"]
-              if len(files) == 1 else [])
-    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    counts = {k: sum(TRACE_NAMES[k] in n for n in kernels) for k in in_trace}
-    if min(counts.values()) == 0:
-        raise SystemExit(f"profiling: the trace {files} names a kernel no "
-                         f"time: {counts}; its kernels: "
-                         f"{sorted(set(n[:60] for n in kernels))}")
-    log(f"profiling: trace {files[0]} of two warm batches: {len(kernels)} "
-        f"kernel records, {counts} for the launches {in_trace}; launches "
-        f"{launches} | {card}")
+    log(f"profiling: trace {files[0]} of {n_batches} warm batches (attempt "
+        f"{attempt + 1}): {len(kernels)} kernel records, {counts} for the "
+        f"launches {in_trace}; launches {launches} | {card}")
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     return {"profiling": launches}
 
@@ -1639,7 +1828,6 @@ def main() -> int:
     from analiticcl_tpu_torch.ops.dl import (
         dl_lcs, dl_metrics_windowed_plain,
     )
-    from analiticcl_tpu_torch.ops.pipeline import query_planes
     from analiticcl_tpu_torch.ops.stage_a import (
         stage_a_masks, stage_a_masks_plain,
     )
@@ -1710,7 +1898,7 @@ def main() -> int:
     st = prepared(pipe, queries[:BATCH], params)
     (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se,
      start_blk, _w, _thr) = st["args"]
-    qbin = query_planes(idx, q_counts)
+    qbin, _totals = hold_k5(idx, q_counts)
     a_args = (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
               start_blk, st["nb_band"])
     k1_err, _bt, _ne = hold_k1(*a_args)
@@ -1854,6 +2042,7 @@ def main() -> int:
         raise SystemExit("main path returned the wrong number of results")
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel was not launched on the main path: {launches}")
+    require_one_buffer_per_call("main path", launches)
     rlens = model.enc.normalize_batch_padded(rq, pipe.L)[1]
     n_w12 = int((rlens >= 14).sum())  # k_ed = len * 0.5 > 6 -> window 12
     if not 0 < n_w12 < N_RATIO:
@@ -1873,10 +2062,15 @@ def main() -> int:
     if bad:
         raise SystemExit(f"{len(bad)} queries differ from the oracle: {bad[:5]}")
     n_found = sum(1 for r in results if r)
+    shapes = core_shapes(model, words, params)
     log(f"main path: {N_QUERIES} queries in batches of {BATCH}: "
         f"{N_QUERIES / dt:.1f} q/s warm ({dt:.3f} s), "
         f"{cand / N_QUERIES:.2f} candidates and {surv / N_QUERIES:.2f} "
-        f"survivors per query, {n_found} with a result | {card}")
+        f"survivors per query, {n_found} with a result; one "
+        f"query_synth120k window ({shapes['queries']} queries, "
+        f"{shapes['calls']} core calls) runs {len(shapes['distinct'])} "
+        f"distinct (B, nb_band, P, P2, window) shapes: "
+        f"{shapes['distinct']} | {card}")
     log(f"main path host stages over the {N_QUERIES} queries: {stages}")
     log(f"main path async: {async_stages}; budgets (P, P2) by batch size "
         f"{budgets} | {card}")

@@ -297,12 +297,14 @@ def host_slots_fn(build_dir):
         max_freq = (torch.zeros if s.freqs is not None else torch.ones)(
             B, dtype=torch.int64)
         f32 = torch.full((P,), float("nan")) if s.want_score else None
+        counts = torch.full((-(-P // tdl.slot_block(L)),), -7,
+                            dtype=torch.int32)
         scored(*ins, ptr(s.pc_band), ptr(s.exact_q),
                ctypes.c_int(s.exact_q.shape[1]), ptr(s.use_exact),
                ptr(s.freqs), ptr(s.weights), ptr(s.thr), ptr(keep), ptr(met),
                ptr(max_freq if s.freqs is not None else None), ptr(f32),
-               *size)
-        return tdl.SlotScore(keep, met, max_freq, f32)
+               ptr(counts), *size)
+        return tdl.SlotScore(keep, met, max_freq, f32, counts)
 
     return host
 
@@ -443,8 +445,9 @@ def test_host_scored_slot_entry_equals_plain(host_slots, L, window, dtype,
     on and off, with and without frequencies, and with the threshold set to
     one slot's score exactly (kept: the test is ``score >= thr``):
     - on the host build's own metrics, every output bit for bit: the keep
-      flags, the gated uint8 metrics, the score and the int64 frequency
-      maxima;
+      flags, the gated uint8 metrics, the score, the int64 frequency
+      maxima and the kept slots of each block (128 slots a block, 64 at
+      L 64; 240 slots leave the last block partial);
     - against the whole plain route (the gathers, the plain DL, the
       affixes, the plain score), with every edit threshold within the
       window as the pipeline sets them: the keep flags and the frequency
@@ -485,6 +488,7 @@ def test_host_scored_slot_entry_equals_plain(host_slots, L, window, dtype,
             keep = got.keep
             assert torch.equal(plain.keep, keep)
             assert torch.equal(plain.max_freq, got.max_freq)
+            assert torch.equal(plain.counts, got.counts)
             assert torch.equal(plain.met[:, keep], got.met[:, keep])
             assert torch.equal(plain.score[keep], got.score[keep])
     # a zero weight gates its metric to 0 (the case flag to 1)

@@ -297,11 +297,34 @@ def test_k2_and_glue_counts():
                                 norm_bytes=1, n_queries=2, cand_rows=3, B=8,
                                 have_freq=True, exact_bytes=3)
     assert s2.nbytes == s.nbytes + 3 * 8 + 8 * 8 + 100 * 4 + 3 + 8
-    # the glue after the kernels (the compaction): K3's query and row and
-    # the slot entry's keep flag and metrics in, the survivors out
-    g = roofline.glue_work(P=100, P2=64)
-    assert g.nbytes == 100 * (8 + 6) + 64 * 13 + 16
+    # the glue left between the kernels at B 8: the StopAtExactMatch
+    # flags and exact counts in and the per-query flags out, the threshold
+    # in and out, the frequency maxima's initial values out
+    g = roofline.glue_work(B=8)
+    assert g.nbytes == 8 * (1 + 4 + 1) + 4 + 4 + 8 * 8
     assert g.int8_ops == g.int32_ops == 0
+
+
+def test_k4_and_k5_counts():
+    """K4 at 1,000 slots (blocks of 128: 8 counts), 40 kept, 64 survivor
+    slots, 8 queries: the counts and keep flags in, the kept slots' 13
+    bytes in (all 40 fit), the maxima and the hit total in, the outputs
+    out; at P2 16 only 16 kept slots are read. K5 at 8 queries of 30
+    symbols, planes 210 wide: the counts in, the planes and the totals
+    out."""
+    w = roofline.k4_work(P=1000, P2=64, B=8, n_keep=40, block=128)
+    assert w.nbytes == 8 * 4 + 1000 + 40 * 13 + 8 * 8 + 8 + (64 * 13 + 8 * 8
+                                                             + 16)
+    assert w.int8_ops == w.int32_ops == 0
+    assert roofline.k4_work(1000, 16, 8, 40, 64).nbytes == (
+        16 * 4 + 1000 + 16 * 13 + 72 + 16 * 13 + 80)
+    assert roofline.k4_bound_ms(1000, 64, 8, 40, 128) == (
+        pytest.approx(w.nbytes / 3.35e12 * 1e3), "bytes")
+    k5 = roofline.k5_work(B=8, A=30, at=210)
+    assert k5.nbytes == 8 * 30 * 4 + 8 * 210 + 8 * 8
+    assert k5.int8_ops == k5.int32_ops == 0
+    assert roofline.k5_bound_ms(8, 30, 210) == (
+        pytest.approx(k5.nbytes / 3.35e12 * 1e3), "bytes")
 
 
 def test_k3_counts_the_blocks_it_expands():
@@ -412,16 +435,21 @@ def test_batch_floor_counts_this_batch(batch):
         P_BUDGET * (9 + 6) + n_queries * (L * nb + 9)
         + cand_rows * (L * nb + 5 + freq) + freq * B + 28
         + (P_BUDGET * 4 + exact_bytes + B if exact_bytes is not None else 0))
-    assert f.glue == roofline.glue_work(P_BUDGET, P_BUDGET)
+    assert f.glue == roofline.glue_work(B)
     assert f.k3.nbytes > P_BUDGET * 13 and f.k3.int32_ops == 0
+    # K5 on the batch's counts; K4 on its survivors (all fit in P_BUDGET)
+    assert f.k5 == roofline.k5_work(B, q_counts.shape[1], index.at)
+    assert f.k4 == roofline.k4_work(P_BUDGET, P_BUDGET, B, total_keep,
+                                    128 if L <= 32 else 64)
     assert f.parts_ms == pytest.approx(
-        f.ms("k1")[0] + f.ms("k3")[0] + f.ms("k2_slots")[0]
-        + f.ms("glue")[0])
+        f.ms("k5")[0] + f.ms("k1")[0] + f.ms("k3")[0] + f.ms("k2_slots")[0]
+        + f.ms("k4")[0] + f.ms("glue")[0])
     assert f.program.int8_ops == f.k1.int8_ops > 0
     assert f.program.int32_ops == f.k2_valid.int32_ops
     # the program moves less than its parts: K1's bits and counts, the
     # slots and the metrics stay between its stages
-    assert f.program.nbytes < (f.k1.nbytes + f.k3.nbytes + f.k2_slots.nbytes
+    assert f.program.nbytes < (f.k5.nbytes + f.k1.nbytes + f.k3.nbytes
+                               + f.k2_slots.nbytes + f.k4.nbytes
                                + f.glue.nbytes)
     assert f.program_ms == f.ms("program")[0] <= f.parts_ms
 
@@ -461,6 +489,16 @@ def test_profile_device_stages_tool_splits_the_kernels_ops():
     })
     assert split == ("stage_a_kernel 1.0, resolve_kernel 1.0, "
                      "dl_lcs_slots_kernel 1.0, other 6.0")
+    # a core call since K4 and K5: every kernel once, in the call's order
+    split = tool._kernel_ops({
+        "compact_kernel(...)": 1.0, "planes_kernel(...)": 1.0,
+        "void stage_a_kernel<64>(...)": 1.0, "resolve_kernel(...)": 1.0,
+        "void dl_lcs_slots_kernel<signed char, 3>(...)": 1.0,
+        "Memcpy DtoH (Device -> Pinned)": 1.0,
+    })
+    assert split == ("planes_kernel 1.0, stage_a_kernel 1.0, "
+                     "resolve_kernel 1.0, dl_lcs_slots_kernel 1.0, "
+                     "compact_kernel 1.0, other 1.0")
     # the other ops that changed from the rung before, by name
     moved = tool._other_delta(
         {"resolve_kernel(...)": 1.0, "reduce_kernel<...>": 4.0,

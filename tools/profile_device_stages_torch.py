@@ -37,8 +37,8 @@ import common_torch  # noqa: E402
 
 
 # the device names (a part of each) of the port's hand-written kernels
-KERNELS = ("stage_a_kernel", "resolve_kernel", "dl_lcs_kernel",
-           "dl_lcs_slots_kernel")
+KERNELS = ("planes_kernel", "stage_a_kernel", "resolve_kernel",
+           "dl_lcs_kernel", "dl_lcs_slots_kernel", "compact_kernel")
 
 
 def _kernel_ops(n_by_name) -> str:

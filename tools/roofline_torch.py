@@ -5,10 +5,11 @@ The counterpart of ``tools/roofline.py`` for the PyTorch port. One batch of
 ``--batch`` corrupted queries (default 4,096) on the model
 (``tools/common_torch.py``), budgets settled by two submit/collect rounds;
 its work counted from its shapes by ``analiticcl_tpu_torch/utils/
-roofline.py`` (K1, the slot resolve K3, K2's pair-string entry at the
-valid pairs and its slot entry at the budget's P slots, the glue's bytes,
-the main path's parts together, and the program, which reads only its
-inputs and writes only its outputs) and bounded by the card's peaks; then,
+roofline.py`` (the query planes K5, K1, the slot resolve K3, K2's
+pair-string entry at the valid pairs and its slot entry at the budget's P
+slots, the survivor compaction K4, the bytes of the glue left between
+them, the main path's parts together, and the program, which reads only
+its inputs and writes only its outputs) and bounded by the card's peaks; then,
 on the
 card, the core's device busy time per call (one ``torch.profiler`` window
 over 10 back-to-back calls) and the wall
@@ -81,16 +82,19 @@ def main(argv=None) -> int:
           f"P={static['P']} ({floor.n_valid} valid pairs over "
           f"{floor.cand_rows} candidate rows), P2={static['P2']}, "
           f"window {static['window']}")
-    for name, part in (("K1", "k1"), ("K3 (slot resolve)", "k3"),
+    for name, part in (("K5 (query planes)", "k5"), ("K1", "k1"),
+                       ("K3 (slot resolve)", "k3"),
                        ("K2 at the valid pairs", "k2_valid"),
                        ("K2 at the P slots", "k2_slots"),
+                       ("K4 (survivor compaction)", "k4"),
                        ("glue", "glue"), ("program floor", "program")):
         w = getattr(floor, part)
         ms, by = floor.ms(part)
         print(f"{name}: {w.nbytes:.6g} bytes, {w.int8_ops:.6g} int8 and "
               f"{w.int32_ops:.6g} 32-bit operations: {ms:.4f} ms ({by})")
     prog = floor.program_ms
-    print(f"the parts together (K1 + K3 + K2's slot entry + glue, the data "
+    print(f"the parts together (K5 + K1 + K3 + K2's slot entry + K4 + glue, "
+          f"the data "
           f"between them counted as traffic): {floor.parts_ms:.4f} ms; the "
           f"program floor {prog:.4f} ms per batch, a ceiling of "
           f"{st['B'] / prog * 1e3:.1f} q/s")
