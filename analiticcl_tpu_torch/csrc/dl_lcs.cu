@@ -69,8 +69,32 @@
 // memory was measured slower on the H100: the copy's loads waited one by
 // one, or, issued together, raised the registers to 204-255 with spills.)
 
+// Width: the byte DP above takes pairs whose two strings are both at most
+// NARROW = 64 long (3 * 64 + 8 = 200 fits a byte), at any table width L: a
+// pair's DP depends on its own lengths, so above L 64 it runs at DP width
+// 64 on rows read at stride L. A pair with a longer string (possible only
+// above L 64, and rare: stage A pairs strings of near-equal length) takes
+// the wide path, a second launch over the same slots: one warp per pair,
+// lane k holding band column jstart + k of a row (the band's 2W + 3
+// columns fit a warp up to W 14). The del chain along a row is a warp
+// prefix minimum, the last match left of a column a ballot; the band
+// values of the last W + 3 rows (the transposition's lookback) and the
+// last-match row of the band's columns live in shared memory as int
+// cells, band-relative, so a warp's state is O(W) at any L. It computes
+// the same cells as the full-width DP: a row's band plus its margins
+// covers every column a later row reads of it, so a read outside a stored
+// band is a margin, `big` (or column 0, or row 0/1's initial values). The
+// LCS (not banded) is the longest run of matches along a diagonal: the
+// lanes walk the diagonals, O(1) state each. A wide
+// pair's outputs and its keep test are the same functions as the byte
+// path's; its frequency maximum and its block's kept count are one
+// atomicMax and one atomicAdd after the first launch's stores. From L 256
+// the scored entry writes its five metrics as int32 (the JAX pipeline's
+// rule; an LCS, prefix or suffix can pass 255 there).
+
 // With -DANALITICCL_HOST_TEST the per-pair DP compiles as plain C++ (for
 // checking its arithmetic on a machine without a card).
+#include <climits>
 #ifndef ANALITICCL_HOST_TEST
 #include <cuda_runtime.h>
 #define DEVFN __device__ __forceinline__
@@ -87,9 +111,12 @@ using std::min;
 
 namespace {
 
-constexpr int KERNEL_MAX_L = 64;
-static_assert(3 * KERNEL_MAX_L + 8 <= 255,
+constexpr int NARROW = 64;  // the byte DP's widest pair
+static_assert(3 * NARROW + 8 <= 255,
               "every stored DP value (at most 3L + 8) must fit in a byte");
+
+// The scored entry's metric columns: uint8 below L 256, int32 from it.
+HDFN constexpr int met_bytes(int L) { return L >= 256 ? 4 : 1; }
 
 template <int LMAX>
 struct MaskOf {
@@ -260,13 +287,15 @@ struct ScoreIn {
 };
 
 // Its outputs: the keep flag, the metrics the survivor compaction moves
-// (one uint8 [5, P] block: ld, and lcs, prefix, suffix and the case flag
-// as the weights gate them), the per-query frequency maxima (zeroed by the
-// caller; null without frequencies), for the `score` stop the score, and
-// the kept slots of each block of slot_threads slots (null: none).
+// (one [5, P] block of met_bytes(L)-byte elements: ld, and lcs, prefix,
+// suffix and the case flag as the weights gate them), the per-query
+// frequency maxima (zeroed by the caller; null without frequencies), for
+// the `score` stop the score, and the kept slots of each block of
+// slot_threads slots (null: none).
 struct ScoreOut {
   unsigned char* keep;
-  unsigned char* met;
+  void* met;
+  int met_bytes;
   unsigned long long* max_freq;
   float* score;
   int* counts;
@@ -278,34 +307,56 @@ HDFN constexpr int slot_threads() {
   return LMAX > 32 ? 64 : 128;
 }
 
+
 // One slot's metrics.
 struct SlotMetrics {
   int ld, lcs, pf, sf, ql;
   bool same_first;
 };
 
-// Slot p of query qi and device row ci: its strings ap and bp (the rows
-// of the tables as they are), empty for an invalid slot; the common prefix
-// and suffix (the suffix from the ends of the forward strings), the case
-// flags compared, and the DP on the rows; what gather_pairs,
-// affix_metrics_aligned and the DL+LCS of the pair strings give.
+// A slot's query length (0 for an invalid slot) and its two strings'
+// lengths; a length above L is invalid input, and clamping keeps every
+// read in the row.
+struct SlotLens {
+  int ql, al, bl;
+};
+
+template <typename Ch>
+HDFN SlotLens slot_lens(const SlotTables<Ch>& t, int qi, int ci, bool v,
+                        int L) {
+  SlotLens n;
+  n.ql = v ? t.q_lens[qi] : 0;
+  n.al = min(n.ql, L);
+  n.bl = min(v ? t.norm_lens[ci] : 0, L);
+  return n;
+}
+
+// The common prefix and suffix of a[0, al) and b[0, bl), the suffix from
+// the ends of the forward strings.
+template <typename Ch>
+HDFN void affixes(const Ch* ap, int al, const Ch* bp, int bl, int& pf,
+                  int& sf) {
+  const int n = min(al, bl);
+  pf = 0;
+  while (pf < n && ap[pf] == bp[pf]) ++pf;
+  sf = 0;
+  while (sf < n && ap[al - 1 - sf] == bp[bl - 1 - sf]) ++sf;
+}
+
+// Slot p of query qi and device row ci on the byte path: its strings ap
+// and bp (the rows of the tables as they are; empty for an invalid slot),
+// the affixes, the case flags compared, and the DP on the rows at width
+// Ldp; what gather_pairs, affix_metrics_aligned and the DL+LCS of the pair
+// strings give.
 template <typename Cell, int W, int LMAX, typename Ch>
-DEVFN SlotMetrics slot_pair(int qi, int ci, bool v, const Ch* ap,
-                            const Ch* bp, int L, const SlotTables<Ch>& t,
+DEVFN SlotMetrics slot_pair(int qi, int ci, const SlotLens& n, const Ch* ap,
+                            const Ch* bp, int Ldp, const SlotTables<Ch>& t,
                             Cell* st, int stride) {
   SlotMetrics r;
-  r.ql = v ? t.q_lens[qi] : 0;
-  // a length above L is invalid input; clamping keeps every read in the row
-  const int al = min(r.ql, L), bl = min(v ? t.norm_lens[ci] : 0, L);
-  const int n = min(al, bl);
-  int pf = 0;
-  while (pf < n && ap[pf] == bp[pf]) ++pf;
-  int sf = 0;
-  while (sf < n && ap[al - 1 - sf] == bp[bl - 1 - sf]) ++sf;
-  r.pf = pf;
-  r.sf = sf;
+  r.ql = n.ql;
+  affixes(ap, n.al, bp, n.bl, r.pf, r.sf);
   r.same_first = (t.first_lower[ci] != 0) == (t.q_first_lower[qi] != 0);
-  dl_lcs_pair<Cell, W, LMAX, Ch>(ap, al, bp, bl, L, st, stride, &r.ld,
+  dl_lcs_pair<Cell, W, LMAX, Ch>(ap, n.al, bp, n.bl, Ldp, st, stride, &r.ld,
                                  &r.lcs);
   return r;
 }
@@ -323,6 +374,16 @@ inline float f_add(float a, float b) { return a + b; }
 inline float f_sub(float a, float b) { return a - b; }
 inline float f_div(float a, float b) { return a / b; }
 #endif
+
+template <typename T>
+DEVFN void store_met(T* m, int P, int p, int ld, int lcs, int pf, int sf,
+                     bool samecase) {
+  m[p] = (T)ld;
+  m[(size_t)P + p] = (T)lcs;
+  m[2 * (size_t)P + p] = (T)pf;
+  m[3 * (size_t)P + p] = (T)sf;
+  m[4 * (size_t)P + p] = (T)samecase;
+}
 
 // Slot p's outputs. The metrics instance writes r as it is; the epilogue
 // the JAX core's f32 score of r in its operation order (the weights gate
@@ -367,17 +428,101 @@ DEVFN unsigned long long write_slot(int p, int P, int qi, int ci, bool v,
   }
   kept = pass_ed && score >= *in.thr;
   so.keep[p] = kept;
-  unsigned char* const m8 = so.met;
-  m8[p] = (unsigned char)r.ld;
-  m8[(size_t)P + p] = (unsigned char)lcs;
-  m8[2 * (size_t)P + p] = (unsigned char)pf;
-  m8[3 * (size_t)P + p] = (unsigned char)sf;
-  m8[4 * (size_t)P + p] = samecase;
+  if (so.met_bytes == 4)
+    store_met((int*)so.met, P, p, r.ld, lcs, pf, sf, samecase);
+  else
+    store_met((unsigned char*)so.met, P, p, r.ld, lcs, pf, sf, samecase);
   if (so.score) so.score[p] = score;
   return pass_ed && in.freqs ? (unsigned long long)in.freqs[ci] : 0ull;
 }
 
+// ---- The wide path: one warp per pair with a string over NARROW ----
+
+template <int W>
+struct Wide {
+  static constexpr int R = W + 3;            // ring depth, the byte DP's
+  static constexpr int B1 = W + 1;           // band half-width
+  static constexpr int BW = 2 * B1 + 1;      // band columns of a row
+  static constexpr int STATE = R * BW + BW;  // the rows' bands, last matches
+  static_assert(BW <= 32, "a row's band fits in a warp");
+};
+
+// Cell (r, c) of the DP, 0 <= c <= L, as the full-width DP holds it when a
+// later row reads it: row 0 is big, row 1 is 0..L, column 0 of row r is
+// r - 1; from row 2 on, columns inside the row's band are stored (ring
+// slot r % R, band-relative) and those outside it are its margins, big.
+template <int W>
+HDFN int wide_cell(const int* ring, int r, int c, int L) {
+  using D = Wide<W>;
+  if (r == 0) return 2 * L + 8;
+  if (r == 1) return c;
+  if (c == 0) return r - 1;
+  const int lo = max(1, r - 1 - D::B1);
+  if (c < lo || c > min(L, r - 1 + D::B1)) return 2 * L + 8;
+  return ring[(r % D::R) * D::BW + c - lo];
+}
+
+// Band column j of the row written from row i: min(sub, ins, transp), the
+// byte DP's terms (transp big unless its tests pass); db is the last column
+// left of j in the row's band with a match, 0 for none. The last-match row
+// of column j is slot (j - 1) % BW; a column entering the band (j = i + B1)
+// has none yet.
+template <int W>
+HDFN int wide_candidate(const int* st, int i, int j, bool match, int db,
+                        int L) {
+  using D = Wide<W>;
+  const int sub = wide_cell<W>(st, i, j - 1, L) + (match ? 0 : 1);
+  const int ins = wide_cell<W>(st, i, j, L) + 1;
+  const int last = j == i + D::B1 ? 0 : st[D::R * D::BW + (j - 1) % D::BW];
+  const int d = i - last, smax = min(W, j - 1);
+  int transp = 2 * L + 8;
+  if (smax >= 1 && d >= 1 && d <= min(W, i) && db >= j - smax)
+    transp = min(transp,
+                 wide_cell<W>(st, last, db - 1, L) + d - 1 + j - db);
+  return min(min(sub, ins), transp);
+}
+
+// Cell (i + 1, j) = nv into its ring slot, and column j's last match.
+template <int W>
+HDFN void wide_store(int* st, int i, int j, int jstart, bool match, int nv) {
+  using D = Wide<W>;
+  st[((i + 1) % D::R) * D::BW + j - jstart] = nv;
+  if (match || j == i + D::B1)
+    st[D::R * D::BW + (j - 1) % D::BW] = match ? i : 0;
+}
+
+// The longest run of matches along the diagonals first, first + step, ...
+// (offset j - i from -(al - 1) to bl - 1): the LCS, over every lane's
+// diagonals. Four steps of a diagonal are loaded at once; a diagonal, or
+// its rest, that cannot beat the best (even continuing the current run)
+// is skipped.
+template <typename Ch>
+HDFN int lcs_diagonals(const Ch* ap, int al, const Ch* bp, int bl, int first,
+                       int step) {
+  int best = 0;
+  for (int d = first - (al - 1); d < bl; d += step) {
+    const int i0 = max(0, -d);
+    const int n = min(al - i0, bl - i0 - d);
+    const Ch* const x = ap + i0;
+    const Ch* const y = bp + i0 + d;
+    int run = 0;
+    for (int k = 0; k < n && run + n - k > best; k += 4) {
+      bool eq[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) eq[u] = k + u < n && x[k + u] == y[k + u];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        run = eq[u] ? run + 1 : 0;
+        best = max(best, run);
+      }
+    }
+  }
+  return best;
+}
+
 #ifndef ANALITICCL_HOST_TEST
+constexpr unsigned FULL = 0xffffffffu;
+
 // Element k of every thread is one row of THREADS equal bytes: the block
 // fills the rows with 16-byte stores.
 template <int W, int LMAX, int THREADS>
@@ -392,24 +537,26 @@ __device__ __forceinline__ void init_state(unsigned char* smem, int L) {
   __syncthreads();
 }
 
+// The byte path of the pair-string entry. Rows are at stride L; the DP
+// runs at width Ldp = min(L, NARROW), and the LMAX 64 instance leaves a
+// pair with a longer string to the wide path.
 template <int W, int LMAX, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 dl_lcs_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
               const int* __restrict__ b, const int* __restrict__ b_len,
-              int* __restrict__ ld, int* __restrict__ lcs, int P, int L) {
+              int* __restrict__ ld, int* __restrict__ lcs, int P, int L,
+              int Ldp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  init_state<W, LMAX, THREADS>(smem, L);
+  init_state<W, LMAX, THREADS>(smem, Ldp);
   const int p = blockIdx.x * THREADS + threadIdx.x;
   if (p >= P) return;
   // a length above L is invalid input; clamping keeps every read in the row
+  const int al = min(a_len[p], L), bl = min(b_len[p], L);
+  if (LMAX > 32 && max(al, bl) > Ldp) return;
   dl_lcs_pair<unsigned char, W, LMAX>(
-      a + (size_t)p * L, min(a_len[p], L), b + (size_t)p * L,
-      min(b_len[p], L), L, smem + threadIdx.x, THREADS, ld + p, lcs + p);
+      a + (size_t)p * L, al, b + (size_t)p * L, bl, Ldp, smem + threadIdx.x,
+      THREADS, ld + p, lcs + p);
 }
-#endif
-
-#ifndef ANALITICCL_HOST_TEST
-constexpr unsigned FULL = 0xffffffffu;
 
 // The frequency maxima: each lane offers its slot's frequency v for query
 // qi. A segmented max down the warp over runs of lanes with equal queries
@@ -428,19 +575,20 @@ __device__ __forceinline__ void max_freq_update(unsigned long long v, int qi,
   if ((lane == 0 || qu != qi) && v > 0) atomicMax(max_freq + qi, v);
 }
 
-// The slot entry: one thread per slot, the same state and DP as
-// dl_lcs_kernel, the strings read from the tables (both stay in L2: about
-// 200 KB of queries and 6 MB of candidate rows at the main batch). With
-// the epilogue (ScoreIn's weights) it writes the keep flag and the
-// compaction's uint8 metrics instead of the int32 metrics, and the
-// block's kept count; every lane, past P too, takes part in the warp's
-// frequency maxima and in the block's count (those past P count 0).
+// The slot entry's byte path: one thread per slot, the same state and DP
+// as dl_lcs_kernel, the strings read from the tables (both stay in L2:
+// about 200 KB of queries and 6 MB of candidate rows at the main batch).
+// With the epilogue (ScoreIn's weights) it writes the keep flag and the
+// compaction's metrics instead of the int32 metrics, and the block's kept
+// count; every lane, past P too, takes part in the warp's frequency maxima
+// and in the block's count (those past P, and the wide path's slots,
+// count 0).
 template <int W, int LMAX, int THREADS, typename Ch>
 __global__ void __launch_bounds__(THREADS)
 dl_lcs_slots_kernel(SlotTables<Ch> t, SlotOut out, ScoreIn in, ScoreOut so,
-                    int P, int L) {
+                    int P, int L, int Ldp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  init_state<W, LMAX, THREADS>(smem, L);
+  init_state<W, LMAX, THREADS>(smem, Ldp);
   const int p = blockIdx.x * THREADS + threadIdx.x;
   const bool live = p < P;
   const int qi = live ? t.q[p] : -1;
@@ -449,16 +597,160 @@ dl_lcs_slots_kernel(SlotTables<Ch> t, SlotOut out, ScoreIn in, ScoreOut so,
   if (live) {
     const int ci = t.pc[p];
     const bool v = t.valid[p] != 0;
-    const SlotMetrics r = slot_pair<unsigned char, W, LMAX, Ch>(
-        qi, ci, v, t.q_norms + (size_t)qi * L, t.norms2 + (size_t)ci * 2 * L,
-        L, t, smem + threadIdx.x, THREADS);
-    f = write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so, kept);
+    const SlotLens n = slot_lens(t, qi, ci, v, L);
+    if (LMAX == 32 || max(n.al, n.bl) <= Ldp) {
+      const SlotMetrics r = slot_pair<unsigned char, W, LMAX, Ch>(
+          qi, ci, n, t.q_norms + (size_t)qi * L,
+          t.norms2 + (size_t)ci * 2 * L, Ldp, t, smem + threadIdx.x,
+          THREADS);
+      f = write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so, kept);
+    }
   }
   if (so.max_freq) max_freq_update(f, qi, so.max_freq);
   if (so.counts) {  // uniform: the whole block reaches the barrier
     const int n = __syncthreads_count(kept);
     if (threadIdx.x == 0) so.counts[blockIdx.x] = n;
   }
+}
+
+// The wide path's DP of one pair by the calling warp over its state st
+// (Wide<W>::STATE ints): lane k takes band column jstart + k of each row.
+// Every lane returns the pair's DL and LCS.
+template <int W, typename Ch>
+__device__ void wide_pair(const Ch* ap, int al, const Ch* bp, int bl, int L,
+                          int* st, int* ld_out, int* lcs_out) {
+  using D = Wide<W>;
+  const int lane = threadIdx.x & 31;
+  const int big = 2 * L + 8;
+  for (int k = lane; k < D::BW; k += 32) st[D::R * D::BW + k] = 0;
+  __syncwarp();
+  int mine = INT_MAX;  // cell (al, bl), in the lane that computes it
+  for (int i = 1; i <= al; ++i) {
+    const int s = ap[i - 1];
+    const int jstart = max(1, i - D::B1), jend = min(L, i + D::B1);
+    const int j = jstart + lane;
+    const bool in = j <= jend;
+    const bool match = in && bp[j - 1] == s;
+    const unsigned below = __ballot_sync(FULL, match) & ((1u << lane) - 1);
+    const int db = below ? jstart + 31 - __clz(below) : 0;
+    // the del chain: nv(k) = k + min(min over m <= k of cand(m) - m,
+    // del(jstart - 1) + 1), a prefix minimum over the lanes
+    int x = in ? wide_candidate<W>(st, i, j, match, db, L) - lane : INT_MAX;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, o);
+      if (lane >= o) x = min(x, y);
+    }
+    const int nv = lane + min(x, (jstart == 1 ? i : big) + 1);
+    if (in) {
+      wide_store<W>(st, i, j, jstart, match, nv);
+      if (i == al && j == bl) mine = nv;
+    }
+    __syncwarp();
+  }
+  int best = lcs_diagonals(ap, al, bp, bl, lane, 32);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mine = min(mine, __shfl_xor_sync(FULL, mine, o));
+    best = max(best, __shfl_xor_sync(FULL, best, o));
+  }
+  int res = mine == INT_MAX ? big : mine;
+  if (al == 0) res = bl;
+  if (bl == 0) res = al;
+  *ld_out = res;
+  *lcs_out = best;
+}
+
+constexpr int WIDE_WARPS = 16;
+constexpr int WIDE_THREADS = 32 * WIDE_WARPS;
+
+// The wide path's launch (either entry): each warp of a block checks a run
+// of 32 consecutive slots, a lane a slot (coalesced), and neighbouring runs
+// go to neighbouring blocks (run (turn * WIDE_WARPS + warp) * grid +
+// block), so a cluster of long pairs (a long query's slots, long queries
+// sorted together) spreads over the grid. A turn's wide slots go into a
+// list in shared memory (in any order: each writes only its own outputs
+// and adds to the maxima and counts atomically), and the block's warps take
+// them in turn. `wide(p)` says whether slot p is the wide path's; `run(p,
+// st)` does it by the warp.
+template <int W, typename IsWide, typename Run>
+__device__ __forceinline__ void wide_slots(int P, IsWide wide, Run run) {
+  __shared__ int st[WIDE_WARPS][Wide<W>::STATE];
+  __shared__ int list[WIDE_THREADS];
+  __shared__ int nlist;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long runs = (P + 31) / 32;
+  for (long long turn = 0; turn * WIDE_WARPS * gridDim.x < runs; ++turn) {
+    if (threadIdx.x == 0) nlist = 0;
+    __syncthreads();
+    const long long r = (turn * WIDE_WARPS + warp) * gridDim.x + blockIdx.x;
+    const long long p = r * 32 + lane;
+    if (p < P && wide((int)p)) list[atomicAdd(&nlist, 1)] = (int)p;
+    __syncthreads();
+    for (int k = warp; k < nlist; k += WIDE_WARPS) run(list[k], st[warp]);
+    __syncthreads();
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(WIDE_THREADS)
+dl_lcs_wide_kernel(const int* __restrict__ a, const int* __restrict__ a_len,
+                   const int* __restrict__ b, const int* __restrict__ b_len,
+                   int* __restrict__ ld, int* __restrict__ lcs, int P, int L) {
+  wide_slots<W>(
+      P,
+      [&](int p) { return max(min(a_len[p], L), min(b_len[p], L)) > NARROW; },
+      [&](int p, int* st) {
+        int d, c;
+        wide_pair<W, int>(a + (size_t)p * L, min(a_len[p], L),
+                          b + (size_t)p * L, min(b_len[p], L), L, st, &d, &c);
+        if ((threadIdx.x & 31) == 0) {
+          ld[p] = d;
+          lcs[p] = c;
+        }
+        __syncwarp();
+      });
+}
+
+template <int W, typename Ch>
+__global__ void __launch_bounds__(WIDE_THREADS)
+dl_lcs_slots_wide_kernel(SlotTables<Ch> t, SlotOut out, ScoreIn in,
+                         ScoreOut so, int P, int L) {
+  wide_slots<W>(
+      P,
+      [&](int p) {
+        const SlotLens n = slot_lens(t, t.q[p], t.pc[p], t.valid[p] != 0, L);
+        return max(n.al, n.bl) > NARROW;
+      },
+      [&](int p, int* st) {
+        const int qi = t.q[p], ci = t.pc[p];
+        const bool v = t.valid[p] != 0;
+        const SlotLens n = slot_lens(t, qi, ci, v, L);
+        const Ch* const ap = t.q_norms + (size_t)qi * L;
+        const Ch* const bp = t.norms2 + (size_t)ci * 2 * L;
+        SlotMetrics r;
+        r.ql = n.ql;
+        affixes(ap, n.al, bp, n.bl, r.pf, r.sf);
+        r.same_first =
+            (t.first_lower[ci] != 0) == (t.q_first_lower[qi] != 0);
+        wide_pair<W, Ch>(ap, n.al, bp, n.bl, L, st, &r.ld, &r.lcs);
+        if ((threadIdx.x & 31) == 0) {
+          bool kept = false;
+          const unsigned long long f =
+              write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so, kept);
+          if (so.max_freq && f > 0) atomicMax(so.max_freq + qi, f);
+          if (so.counts && kept)
+            atomicAdd(so.counts + p / slot_threads<NARROW>(), 1);
+        }
+        __syncwarp();
+      });
+}
+
+// The wide path's grid: a block per WIDE_WARPS runs of 32 slots, up to
+// 1,024 blocks (a few waves of 16 warps a block).
+inline unsigned wide_grid(int P) {
+  const int blocks = (P + WIDE_THREADS - 1) / WIDE_THREADS;
+  return (unsigned)min(max(blocks, 1), 1024);
 }
 
 // Above 48 KB a block's dynamic shared memory needs the attribute; it is
@@ -485,20 +777,26 @@ int launch(const int* a, const int* al, const int* b, const int* bl, int* ld,
                              (size_t)state_elems<W, LMAX>(LMAX) * THREADS,
                              attr_set);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)state_elems<W, LMAX>(L) * THREADS;
+  const int Ldp = min(L, NARROW);
+  const size_t smem = (size_t)state_elems<W, LMAX>(Ldp) * THREADS;
   dl_lcs_kernel<W, LMAX, THREADS><<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(
-      a, al, b, bl, ld, lcs, P, L);
+      a, al, b, bl, ld, lcs, P, L, Ldp);
   return (int)cudaGetLastError();
 }
 
+// The byte path's launch, then above L 64 the wide path's.
 template <int W>
 int launch_w(const int* a, const int* al, const int* b, const int* bl, int* ld,
              int* lcs, int P, int L, cudaStream_t st) {
   // 128 threads: at L 32, 230 B a thread at W=3 (29 KB a block), 527 B at
   // W=12 (67 KB, three blocks per SM); LMAX 64 takes 64 threads (W=12, L 64:
   // 71 KB)
-  if (L <= 32) return launch<W, 32, 128>(a, al, b, bl, ld, lcs, P, L, st);
-  return launch<W, 64, 64>(a, al, b, bl, ld, lcs, P, L, st);
+  const int e = L <= 32 ? launch<W, 32, 128>(a, al, b, bl, ld, lcs, P, L, st)
+                        : launch<W, 64, 64>(a, al, b, bl, ld, lcs, P, L, st);
+  if (e != 0 || L <= NARROW) return e;
+  dl_lcs_wide_kernel<W><<<wide_grid(P), WIDE_THREADS, 0, st>>>(
+      a, al, b, bl, ld, lcs, P, L);
+  return (int)cudaGetLastError();
 }
 
 template <int W, int LMAX, int THREADS, typename Ch>
@@ -509,22 +807,29 @@ int launch_slots(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
                              (size_t)state_elems<W, LMAX>(LMAX) * THREADS,
                              attr_set);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)state_elems<W, LMAX>(L) * THREADS;
+  const int Ldp = min(L, NARROW);
+  const size_t smem = (size_t)state_elems<W, LMAX>(Ldp) * THREADS;
   dl_lcs_slots_kernel<W, LMAX, THREADS, Ch>
       <<<(P + THREADS - 1) / THREADS, THREADS, smem, st>>>(t, out, in, so, P,
-                                                          L);
+                                                          L, Ldp);
   return (int)cudaGetLastError();
 }
 
+// The instances of launch_w, then above L 64 the wide path's launch, which
+// adds its kept slots to the byte launch's block counts.
 template <int W, typename Ch>
 int launch_slots_w(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
                    ScoreOut so, int P, int L, cudaStream_t st) {
-  // the instances of launch_w
-  if (L <= 32)
-    return launch_slots<W, 32, slot_threads<32>(), Ch>(t, out, in, so, P, L,
-                                                       st);
-  return launch_slots<W, 64, slot_threads<64>(), Ch>(t, out, in, so, P, L,
-                                                     st);
+  const int e =
+      L <= 32
+          ? launch_slots<W, 32, slot_threads<32>(), Ch>(t, out, in, so, P, L,
+                                                        st)
+          : launch_slots<W, 64, slot_threads<64>(), Ch>(t, out, in, so, P, L,
+                                                        st);
+  if (e != 0 || L <= NARROW) return e;
+  dl_lcs_slots_wide_kernel<W, Ch><<<wide_grid(P), WIDE_THREADS, 0, st>>>(
+      t, out, in, so, P, L);
+  return (int)cudaGetLastError();
 }
 
 template <typename Ch>
@@ -561,9 +866,9 @@ ScoreIn score_in(const void* pc_band, const void* exact_q, int nb8,
                  (const unsigned char*)use_exact, (const long long*)freqs};
 }
 
-ScoreOut score_out(void* keep, void* met, void* max_freq, void* score,
+ScoreOut score_out(void* keep, void* met, int L, void* max_freq, void* score,
                    void* counts) {
-  return ScoreOut{(unsigned char*)keep, (unsigned char*)met,
+  return ScoreOut{(unsigned char*)keep, met, met_bytes(L),
                   (unsigned long long*)max_freq, (float*)score, (int*)counts};
 }
 
@@ -579,7 +884,7 @@ int slots_entry(const void* q, const void* pc, const void* valid,
                 const ScoreIn& in, ScoreOut so, int P, int L, int W,
                 void* stream) {
   if (P <= 0) return 0;
-  if (L < 1 || L > KERNEL_MAX_L) return (int)cudaErrorInvalidValue;
+  if (L < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   if (elem_bytes == 1)
     return launch_slots_all(
@@ -595,14 +900,18 @@ int slots_entry(const void* q, const void* pc, const void* valid,
 }
 }  // namespace
 
+// Each entry launches K2's byte path on `stream` (every pair whose two
+// strings are at most 64 long; all of them up to L 64) and, above L 64, the
+// wide path after it (the rest): one launch, or two in order.
+//
 // a, b: int32 [P, L] (PAD_A / PAD_B padded); a_len, b_len: int32 [P];
-// ld, lcs: int32 [P] outputs. W in {3, 6, 12}, 1 <= L <= 64.
+// ld, lcs: int32 [P] outputs. W in {3, 6, 12}, L >= 1.
 extern "C" int analiticcl_dl_lcs(const void* a, const void* a_len,
                                  const void* b, const void* b_len, void* ld,
                                  void* lcs, int P, int L, int W,
                                  void* stream) {
   if (P <= 0) return 0;
-  if (L < 1 || L > KERNEL_MAX_L) return (int)cudaErrorInvalidValue;
+  if (L < 1) return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto A = (const int*)a, AL = (const int*)a_len, B = (const int*)b,
        BL = (const int*)b_len;
@@ -620,7 +929,7 @@ extern "C" int analiticcl_dl_lcs(const void* a, const void* a_len,
 // int32 (4); norm_lens: int32 [Ni]; first_lower: bool [Ni]; q_lens, k_ed:
 // int32 [B]; q_first_lower: bool [B]. metrics: int32 [6, P] out (ld, lcs,
 // prefix, suffix, query length, edit threshold); same_first: bool [P] out.
-// W in {3, 6, 12}, 1 <= L <= 64.
+// W in {3, 6, 12}, L >= 1.
 extern "C" int analiticcl_dl_lcs_slots(
     const void* q, const void* pc, const void* valid, const void* norms2,
     const void* norm_lens, const void* first_lower, const void* q_norms,
@@ -636,11 +945,12 @@ extern "C" int analiticcl_dl_lcs_slots(
 // The slot entry with the scoring epilogue, the main path's: the inputs of
 // analiticcl_dl_lcs_slots, then pc_band: int32 [P]; exact_q: uint8
 // [B, nb8]; use_exact: bool [B] or null; freqs: int64 [Ni] or null;
-// weights: float32 [6]; thr: float32 [1]. keep: bool [P] out; met: uint8
-// [5, P] out (ld, lcs, prefix, suffix, case flag, gated); max_freq: int64
-// [B] in/out, zeros in (null with freqs); score: float32 [P] out or null;
-// counts: int32 [ceil(P / T)] out, the kept slots of each block of T = 128
-// slots (64 above L 32), or null.
+// weights: float32 [6]; thr: float32 [1]. keep: bool [P] out; met: [5, P]
+// out (ld, lcs, prefix, suffix, case flag, gated), uint8 below L 256 and
+// int32 from it; max_freq: int64 [B] in/out, zeros in (null with freqs);
+// score: float32 [P] out or null; counts: int32 [ceil(P / T)] out, the kept
+// slots of each block of T = 128 slots (64 above L 32), or null: the byte
+// launch stores them, the wide launch adds its slots to them.
 extern "C" int analiticcl_dl_lcs_slots_scored(
     const void* q, const void* pc, const void* valid, const void* norms2,
     const void* norm_lens, const void* first_lower, const void* q_norms,
@@ -656,22 +966,74 @@ extern "C" int analiticcl_dl_lcs_slots_scored(
                      q_lens, q_first_lower, k_ed, elem_bytes, SlotOut{},
                      score_in(pc_band, exact_q, nb8, use_exact, freqs,
                               weights, thr),
-                     score_out(keep, met, max_freq, score, counts), P, L, W,
-                     stream);
+                     score_out(keep, met, L, max_freq, score, counts), P, L,
+                     W, stream);
 }
 #else
 namespace {
-// The kernel's instances on the host, one pair at a time over state of
-// stride 1: LMAX 32 (LCS row in registers) up to L 32, else LMAX 64.
+// The wide path's warp on the host: each row's lanes walked in order (the
+// ballot a bit mask, the prefix minimum a running one), then their stores.
+template <int W, typename Ch>
+void wide_pair_host(const Ch* ap, int al, const Ch* bp, int bl, int L,
+                    int* st, int* ld_out, int* lcs_out) {
+  using D = Wide<W>;
+  const int big = 2 * L + 8;
+  for (int k = 0; k < D::BW; ++k) st[D::R * D::BW + k] = 0;
+  int res = big;
+  for (int i = 1; i <= al; ++i) {
+    const int s = ap[i - 1];
+    const int jstart = max(1, i - D::B1), jend = min(L, i + D::B1);
+    const int n = jend - jstart + 1;
+    bool match[32];
+    unsigned bits = 0;
+    for (int lane = 0; lane < n; ++lane) {
+      match[lane] = bp[jstart + lane - 1] == s;
+      bits |= (unsigned)match[lane] << lane;
+    }
+    int nv[32], x = 1 << 30;
+    for (int lane = 0; lane < n; ++lane) {
+      const unsigned below = bits & ((1u << lane) - 1);
+      const int db = below ? jstart + 31 - __builtin_clz(below) : 0;
+      x = min(x, wide_candidate<W>(st, i, jstart + lane, match[lane], db, L) -
+                     lane);
+      nv[lane] = lane + min(x, (jstart == 1 ? i : big) + 1);
+    }
+    for (int lane = 0; lane < n; ++lane) {
+      const int j = jstart + lane;
+      wide_store<W>(st, i, j, jstart, match[lane], nv[lane]);
+      if (i == al && j == bl) res = nv[lane];
+    }
+  }
+  if (al == 0) res = bl;
+  if (bl == 0) res = al;
+  int best = 0;
+  for (int lane = 0; lane < 32; ++lane)
+    best = max(best, lcs_diagonals(ap, al, bp, bl, lane, 32));
+  *ld_out = res;
+  *lcs_out = best;
+}
+
+// The kernels' instances on the host, one pair at a time over state of
+// stride 1: LMAX 32 (LCS row in registers) up to L 32, else LMAX 64 at DP
+// width min(L, 64), and a pair with a longer string on the wide path.
 template <typename Cell, int W, int LMAX>
 void host_pairs(const int* a, const int* a_len, const int* b, const int* b_len,
                 int* ld, int* lcs, int P, int L) {
-  std::vector<Cell> st(state_elems<W, LMAX>(L));
+  const int Ldp = min(L, NARROW);
+  std::vector<Cell> st(state_elems<W, LMAX>(Ldp));
+  std::vector<int> wide(Wide<W>::STATE);
   for (int p = 0; p < P; ++p) {
-    for (size_t k = 0; k < st.size(); ++k) st[k] = Cell(state_init<W>((int)k, L));
-    dl_lcs_pair<Cell, W, LMAX>(a + (size_t)p * L, min(a_len[p], L),
-                               b + (size_t)p * L, min(b_len[p], L), L,
-                               st.data(), 1, ld + p, lcs + p);
+    const int al = min(a_len[p], L), bl = min(b_len[p], L);
+    const int* ap = a + (size_t)p * L;
+    const int* bp = b + (size_t)p * L;
+    if (max(al, bl) > Ldp) {
+      wide_pair_host<W>(ap, al, bp, bl, L, wide.data(), ld + p, lcs + p);
+      continue;
+    }
+    for (size_t k = 0; k < st.size(); ++k)
+      st[k] = Cell(state_init<W>((int)k, Ldp));
+    dl_lcs_pair<Cell, W, LMAX>(ap, al, bp, bl, Ldp, st.data(), 1, ld + p,
+                               lcs + p);
   }
 }
 
@@ -685,14 +1047,14 @@ void host_w(const int* a, const int* a_len, const int* b, const int* b_len,
 template <typename Cell>
 void host_all(const int* a, const int* a_len, const int* b, const int* b_len,
               int* ld, int* lcs, int P, int L, int W) {
-  if (L < 1 || L > KERNEL_MAX_L) return;
+  if (L < 1) return;
   if (W == 3) host_w<Cell, 3>(a, a_len, b, b_len, ld, lcs, P, L);
   if (W == 6) host_w<Cell, 6>(a, a_len, b, b_len, ld, lcs, P, L);
   if (W == 12) host_w<Cell, 12>(a, a_len, b, b_len, ld, lcs, P, L);
 }
 }  // namespace
 
-// the kernel's byte cells
+// the kernel's byte cells (and the wide path's int cells)
 extern "C" void analiticcl_dl_lcs_host(const int* a, const int* a_len,
                                        const int* b, const int* b_len, int* ld,
                                        int* lcs, int P, int L, int W) {
@@ -700,24 +1062,37 @@ extern "C" void analiticcl_dl_lcs_host(const int* a, const int* a_len,
 }
 
 namespace {
-// The slot entry's per-slot work on the host, one slot at a time over byte
-// cells of stride 1: the loads, affixes, DP and outputs; the frequency
-// maxima a plain max per slot, the blocks' kept counts a plain sum.
+// The slot entry's per-slot work on the host, one slot at a time: the byte
+// path over cells of stride 1, the wide path's warp walked lane by lane;
+// the loads, affixes, DP and outputs; the frequency maxima a plain max per
+// slot, the blocks' kept counts a plain sum.
 template <typename Ch, int W, int LMAX>
 void host_slots_pairs(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
                       ScoreOut so, int P, int L) {
-  std::vector<unsigned char> st(state_elems<W, LMAX>(L));
+  const int Ldp = min(L, NARROW);
+  std::vector<unsigned char> st(state_elems<W, LMAX>(Ldp));
+  std::vector<int> wide(Wide<W>::STATE);
   constexpr int THREADS = slot_threads<LMAX>();
   if (so.counts)
     for (int b = 0; b < (P + THREADS - 1) / THREADS; ++b) so.counts[b] = 0;
   for (int p = 0; p < P; ++p) {
-    for (size_t k = 0; k < st.size(); ++k)
-      st[k] = (unsigned char)state_init<W>((int)k, L);
     const int qi = t.q[p], ci = t.pc[p];
     const bool v = t.valid[p] != 0;
-    const SlotMetrics r = slot_pair<unsigned char, W, LMAX, Ch>(
-        qi, ci, v, t.q_norms + (size_t)qi * L, t.norms2 + (size_t)ci * 2 * L,
-        L, t, st.data(), 1);
+    const SlotLens n = slot_lens(t, qi, ci, v, L);
+    const Ch* const ap = t.q_norms + (size_t)qi * L;
+    const Ch* const bp = t.norms2 + (size_t)ci * 2 * L;
+    SlotMetrics r;
+    if (max(n.al, n.bl) > Ldp) {
+      r.ql = n.ql;
+      affixes(ap, n.al, bp, n.bl, r.pf, r.sf);
+      r.same_first = (t.first_lower[ci] != 0) == (t.q_first_lower[qi] != 0);
+      wide_pair_host<W>(ap, n.al, bp, n.bl, L, wide.data(), &r.ld, &r.lcs);
+    } else {
+      for (size_t k = 0; k < st.size(); ++k)
+        st[k] = (unsigned char)state_init<W>((int)k, Ldp);
+      r = slot_pair<unsigned char, W, LMAX, Ch>(qi, ci, n, ap, bp, Ldp, t,
+                                                st.data(), 1);
+    }
     bool kept = false;
     const unsigned long long f =
         write_slot(p, P, qi, ci, v, r, t.k_ed[qi], out, in, so, kept);
@@ -736,7 +1111,7 @@ void host_slots_w(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
 template <typename Ch>
 void host_slots(const SlotTables<Ch>& t, SlotOut out, const ScoreIn& in,
                 ScoreOut so, int P, int L, int W) {
-  if (L < 1 || L > KERNEL_MAX_L) return;
+  if (L < 1) return;
   if (W == 3) host_slots_w<Ch, 3>(t, out, in, so, P, L);
   if (W == 6) host_slots_w<Ch, 6>(t, out, in, so, P, L);
   if (W == 12) host_slots_w<Ch, 12>(t, out, in, so, P, L);
@@ -760,7 +1135,7 @@ void host_slots_any(const void* q, const void* pc, const void* valid,
 }
 }  // namespace
 
-// the slot entry's metrics instance on the host, arguments as
+// the slot entry's metrics instance on the host (both paths), arguments as
 // analiticcl_dl_lcs_slots's
 extern "C" void analiticcl_dl_lcs_slots_host(
     const void* q, const void* pc, const void* valid, const void* norms2,
@@ -773,8 +1148,8 @@ extern "C" void analiticcl_dl_lcs_slots_host(
                  ScoreIn{}, ScoreOut{}, P, L, W);
 }
 
-// the slot entry with the scoring epilogue on the host, arguments as
-// analiticcl_dl_lcs_slots_scored's
+// the slot entry with the scoring epilogue on the host (both paths),
+// arguments as analiticcl_dl_lcs_slots_scored's
 extern "C" void analiticcl_dl_lcs_slots_scored_host(
     const void* q, const void* pc, const void* valid, const void* norms2,
     const void* norm_lens, const void* first_lower, const void* q_norms,
@@ -787,7 +1162,7 @@ extern "C" void analiticcl_dl_lcs_slots_scored_host(
                  q_lens, q_first_lower, k_ed, elem_bytes, SlotOut{},
                  score_in(pc_band, exact_q, nb8, use_exact, freqs, weights,
                           thr),
-                 score_out(keep, met, max_freq, score, counts), P, L, W);
+                 score_out(keep, met, L, max_freq, score, counts), P, L, W);
 }
 
 // the same DP on int cells

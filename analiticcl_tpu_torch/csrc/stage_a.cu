@@ -39,11 +39,16 @@
 // 128 queries; query tiles vary fastest in the grid, so the blocks
 // on the card at one time share a few band blocks. Two blocks fit on an SM
 // (111.6 KB of shared memory, at most 128 registers a thread at AT 224), so
-// one block's epilogue overlaps the other's loads and products. Planes are
-// padded to a multiple of 32 bytes (one k-step) by convert.py; shared-memory
-// rows carry 16 spare bytes so that ldmatrix's eight row reads hit distinct
-// banks. When bt < 128 the unused MMA rows hold zero planes and their bits
-// are never stored; a warp whose 32 queries are all unused skips its work.
+// one block's epilogue overlaps the other's loads and products. Wider
+// planes (AT = A x T, T the largest count of one character in one entry:
+// long lexicon entries) take 64 queries a block from AT 608 and 32 from
+// AT 832, so that the planes, the ring and the bit tiles still fit the
+// block's 227 KB; above AT 960 nothing fits and the launch refuses.
+// Planes are padded to a multiple of 32 bytes (one k-step) by convert.py;
+// shared-memory rows carry 16 spare bytes so that ldmatrix's eight row
+// reads hit distinct banks. When qt < 128 the unused MMA rows hold zero
+// planes and their bits are never stored; a warp whose 32 queries are all
+// unused skips its work.
 //   The epilogue is fused, straight from the accumulators. With the queries
 // as A, a lane holds 4 queries x 8 band rows of its warp's tile; per element
 // it makes one multiply-add and four compares (the L1, length and exact
@@ -65,6 +70,7 @@
 #ifndef ANALITICCL_HOST_TEST
 #include <cuda_runtime.h>
 #define DEVFN __device__ __forceinline__
+#define HDFN __host__ __device__ __forceinline__
 #define POPC(x) __popc(x)
 #define ATOMIC_ADD(p, v) atomicAdd((p), (v))
 #else
@@ -72,6 +78,7 @@
 #include <cstring>
 #include <vector>
 #define DEVFN inline
+#define HDFN inline
 #define POPC(x) __builtin_popcount(x)
 #define ATOMIC_ADD(p, v) (*(p) += (v))
 #endif
@@ -91,6 +98,10 @@ constexpr int WORDS = ROW_BLOCK / 32;      // bit words per query and block
 constexpr int WSTRIDE = WORDS + 1;         // odd: conflict-free bit tile
 constexpr int NACC = 32;                   // accumulators per lane
 constexpr int NEVER = -2147483647 - 1;     // a term no element meets
+
+// Query rows a block holds in shared memory (planes, bit tiles): its qt
+// queries rounded up to whole warp query groups of 32.
+HDFN int tile_rows(int qt) { return (qt + 31) & ~31; }
 
 // A warp's tile is 32 queries x 32 band rows, 2 x 4 m16n8 tiles. Accumulator
 // acc[(mi * 4 + ni) * 4 + reg] of lane (g = lane / 4, t = lane % 4) is the
@@ -244,7 +255,7 @@ __device__ __forceinline__ void load_a(unsigned (*a)[4], unsigned a_addr,
 // KS > 0: at_pad == 32 * KS, and each warp keeps its queries' A fragments
 // in registers for the whole block (2 x 4 x KS of them); KS == 0: any
 // at_pad, A fragments reloaded by ldmatrix at every k-step.
-template <int KS>
+template <int KS, int QS>
 __global__ void __launch_bounds__(NTHREAD, 2)
 stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
                const uint8_t* __restrict__ validrows,
@@ -256,11 +267,12 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
   extern __shared__ __align__(16) unsigned char smem[];
   const int rstride = at_pad + 16;  // bytes per plane row in shared memory
   const int stage_bytes = CHUNK * rstride + CHUNK * 4 + CHUNK;
-  unsigned char* q_s = smem;                          // [QT_MAX][rstride]
-  unsigned char* stages = q_s + QT_MAX * rstride;     // NSTAGE x stage
+  const int qs = QS ? QS : tile_rows(qt);  // QS 0: wide planes
+  unsigned char* q_s = smem;                          // [qs][rstride]
+  unsigned char* stages = q_s + qs * rstride;         // NSTAGE x stage
   unsigned* hit_w =
-      reinterpret_cast<unsigned*>(stages + NSTAGE * stage_bytes);  // [QT_MAX][WSTRIDE]
-  unsigned* ex_w = hit_w + QT_MAX * WSTRIDE;
+      reinterpret_cast<unsigned*>(stages + NSTAGE * stage_bytes);  // [qs][WSTRIDE]
+  unsigned* ex_w = hit_w + qs * WSTRIDE;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -295,7 +307,7 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
     cp_async_commit();
   }
   // the block's query planes stay resident; unused tile rows are zero
-  for (int i = tid; i < QT_MAX * at16; i += NTHREAD) {
+  for (int i = tid; i < qs * at16; i += NTHREAD) {
     const int c = i / at16, col = i - c * at16;
     int4 v = make_int4(0, 0, 0, 0);
     if (c < qt)
@@ -384,10 +396,46 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
     add_totals(c, hit_w, ex_w, q0, nmatch, nexact);
 }
 
-size_t smem_bytes(int at_pad) {
+// Dynamic shared memory of a block holding `rows` query rows.
+size_t smem_bytes(int at_pad, int rows) {
   const size_t rstride = (size_t)at_pad + 16;
-  return QT_MAX * rstride + NSTAGE * (CHUNK * rstride + CHUNK * 4 + CHUNK) +
-         2 * sizeof(unsigned) * QT_MAX * WSTRIDE;
+  return rows * rstride + NSTAGE * (CHUNK * rstride + CHUNK * 4 + CHUNK) +
+         2 * sizeof(unsigned) * rows * WSTRIDE;
+}
+
+template <int KS, int QS>
+int launch_q(const void* bins, const void* cc, const void* validrows,
+             const void* qbin, const void* q_cc, const void* k_ana,
+             const void* k_len, const void* start_blk, void* packed_q,
+             void* exact_q, void* counts_t, void* nmatch, void* nexact, int B,
+             int at_pad, int nb_band, int bt, int qt, cudaStream_t stream) {
+  const size_t smem = smem_bytes(at_pad, QS ? QS : tile_rows(qt));
+  cudaError_t e = cudaFuncSetAttribute(
+      stage_a_kernel<KS, QS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(B / qt, nb_band), block(NTHREAD);
+  stage_a_kernel<KS, QS><<<grid, block, smem, stream>>>(
+      (const int8_t*)bins, (const int*)cc, (const uint8_t*)validrows,
+      (const int8_t*)qbin, (const int*)q_cc, (const int*)k_ana,
+      (const int*)k_len, (const int*)start_blk, (uint8_t*)packed_q,
+      (uint8_t*)exact_q, (int*)counts_t, (int*)nmatch, (int*)nexact, B, at_pad,
+      nb_band, bt, qt);
+  return (int)cudaGetLastError();
+}
+
+// The largest dynamic shared memory a block of the current device may ask
+// for, read once per device.
+cudaError_t smem_limit(size_t& limit) {
+  static int limits[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev >= 64) return e ? e : cudaErrorInvalidDevice;
+  if (!limits[dev])
+    e = cudaDeviceGetAttribute(&limits[dev],
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  limit = (size_t)limits[dev];
+  return e;
 }
 
 template <int KS>
@@ -396,18 +444,23 @@ int launch(const void* bins, const void* cc, const void* validrows,
            const void* k_len, const void* start_blk, void* packed_q,
            void* exact_q, void* counts_t, void* nmatch, void* nexact, int B,
            int at_pad, int nb_band, int bt, int qt, cudaStream_t stream) {
-  const size_t smem = smem_bytes(at_pad);
-  cudaError_t e = cudaFuncSetAttribute(
-      stage_a_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  size_t limit = 0;
+  const cudaError_t e = smem_limit(limit);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B / qt, nb_band), block(NTHREAD);
-  stage_a_kernel<KS><<<grid, block, smem, stream>>>(
-      (const int8_t*)bins, (const int*)cc, (const uint8_t*)validrows,
-      (const int8_t*)qbin, (const int*)q_cc, (const int*)k_ana,
-      (const int*)k_len, (const int*)start_blk, (uint8_t*)packed_q,
-      (uint8_t*)exact_q, (int*)counts_t, (int*)nmatch, (int*)nexact, B, at_pad,
-      nb_band, bt, qt);
-  return (int)cudaGetLastError();
+  if (KS > 0 || smem_bytes(at_pad, QT_MAX) <= limit)
+    return launch_q<KS, QT_MAX>(bins, cc, validrows, qbin, q_cc, k_ana,
+                                k_len, start_blk, packed_q, exact_q,
+                                counts_t, nmatch, nexact, B, at_pad, nb_band,
+                                bt, qt, stream);
+  // wide planes (a lexicon whose entries hold many of one character): fewer
+  // queries a block, so that their planes and bit tiles still fit
+  while (smem_bytes(at_pad, tile_rows(qt)) > limit && qt > 32 && qt % 2 == 0)
+    qt /= 2;
+  if (smem_bytes(at_pad, tile_rows(qt)) > limit)
+    return (int)cudaErrorInvalidValue;
+  return launch_q<0, 0>(bins, cc, validrows, qbin, q_cc, k_ana, k_len,
+                        start_blk, packed_q, exact_q, counts_t, nmatch,
+                        nexact, B, at_pad, nb_band, bt, qt, stream);
 }
 #endif
 

@@ -62,8 +62,8 @@ SIGNATURES = {
     "compact": {
         "analiticcl_compact": [
             _P, _I, _I,  # counts, their number, slots per count
-            _P, _P, _P, _P, _P, _P,  # keep, q, pc, metrics, max_freq,
-            # total_match
+            _P, _P, _P, _P, _I, _P, _P,  # keep, q, pc, metrics, their
+            # element bytes, max_freq, total_match
             _P, _I, _I, _I, _P,  # out, B, P, P2, stream
         ],
     },

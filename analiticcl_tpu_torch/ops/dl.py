@@ -12,6 +12,13 @@ On pair strings, three functions:
   hand-written kernel ``csrc/dl_lcs.cu``; for a CPU tensor it takes the plain
   version. Anything else raises.
 
+The kernel takes any width ``L``, on two paths: a pair whose two strings
+are both at most :data:`NARROW_LEN` long runs the byte-cell DP (one thread a
+pair; every pair up to L 64); above L 64 a pair with a longer string runs
+the wide path (one warp a pair, O(W) state), a second launch that the same
+C entry makes after the first. Its launches are counted in
+:data:`wide_path`.
+
 Inputs are int32 ``[P, L]`` strings, queries padded with ``PAD_A`` and
 candidates with ``PAD_B`` so that padding never matches, and int32 ``[P]``
 lengths.
@@ -42,6 +49,7 @@ slot resolve), the main path's entry:
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -51,7 +59,17 @@ from . import _build
 PAD_A = -1
 PAD_B = -2
 KERNEL_WINDOWS = (3, 6, 12)
-KERNEL_MAX_LEN = 64  # compile-time cap of the kernel's per-thread arrays
+NARROW_LEN = 64  # the byte DP's longest string; longer ones take the wide path
+# K2's wide path, launched by either entry after its byte path whenever L >
+# NARROW_LEN: the entries' wrappers count its launches here
+wide_path = SimpleNamespace(launches=0)
+
+
+def met_dtype(L: int) -> torch.dtype:
+    """The scored slot entry's metric columns at width ``L``: uint8 below
+    L 256, where DL <= 3L + 8 wraps only above the window and the rest are
+    <= L; int32 from L 256, as the JAX pipeline carries them."""
+    return torch.uint8 if L < 256 else torch.int32
 
 
 def slot_block(L: int) -> int:
@@ -189,21 +207,18 @@ def dl_lcs(a, a_len, b, b_len, max_len: int, window: int):
         raise ValueError(f"dl_lcs: unsupported device {a.device}")
     if window not in KERNEL_WINDOWS:
         raise ValueError(f"dl_lcs kernel: window {window} not in {KERNEL_WINDOWS}")
-    if max_len > KERNEL_MAX_LEN:
-        raise ValueError(f"dl_lcs kernel: L={max_len} above the cap {KERNEL_MAX_LEN}")
     P = a.shape[0]
     ld = torch.empty(P, dtype=torch.int32, device=a.device)
     lcs = torch.empty(P, dtype=torch.int32, device=a.device)
     if P == 0:
         return ld, lcs
-    lib = _build.load("dl_lcs")
     with torch.cuda.device(a.device):
-        err = lib.analiticcl_dl_lcs(
+        err = _build.load("dl_lcs").analiticcl_dl_lcs(
             a.data_ptr(), a_len.data_ptr(), b.data_ptr(), b_len.data_ptr(),
             ld.data_ptr(), lcs.data_ptr(), P, max_len, window,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        )
+            torch.cuda.current_stream(a.device).cuda_stream)
     dl_lcs.launches += 1
+    wide_path.launches += max_len > NARROW_LEN
     _build.check(err, "dl_lcs kernel launch")
     return ld, lcs
 
@@ -386,9 +401,8 @@ def score_slots_plain(m: SlotMetrics, q, pc, valid, L: int,
             0, q.long(), torch.where(pass_ed, s.freqs[pc.long()], 0), "amax")
     else:
         max_freq = torch.ones(B, dtype=torch.int64, device=q.device)
-    met = torch.stack([ld, lcs, pf, sf, samecase.to(torch.int32)])
-    if L < 256:  # DL <= 3L + 8 and the rest <= L: bytes hold them
-        met = met.to(torch.uint8)
+    met = torch.stack([ld, lcs, pf, sf, samecase.to(torch.int32)]).to(
+        met_dtype(L))
     T = slot_block(L)
     P = keep.shape[0]
     counts = torch.nn.functional.pad(keep, (0, -P % T)).view(-1, T).sum(
@@ -445,29 +459,24 @@ def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
     if window not in KERNEL_WINDOWS:
         raise ValueError(f"dl_lcs_slots kernel: window {window} not in "
                          f"{KERNEL_WINDOWS}")
-    if L > KERNEL_MAX_LEN:
-        raise ValueError(f"dl_lcs_slots kernel: L={L} above the cap "
-                         f"{KERNEL_MAX_LEN}")
     tables = (q.data_ptr(), pc.data_ptr(), valid.data_ptr(),
               index.norms2.data_ptr(), index.norm_lens.data_ptr(),
               index.first_lower.data_ptr(), q_norms.data_ptr(),
               q_lens.data_ptr(), q_first_lower.data_ptr(), k_ed.data_ptr(),
               q_norms.element_size())
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if score is None:
         metrics = torch.empty((6, P), dtype=torch.int32, device=dev)
         same_first = torch.empty(P, dtype=torch.bool, device=dev)
         out = SlotMetrics(*metrics.unbind(), same_first)
         if not P:
             return out
-        with torch.cuda.device(dev):
-            err = _build.load("dl_lcs").analiticcl_dl_lcs_slots(
-                *tables, metrics.data_ptr(), same_first.data_ptr(), P, L,
-                window, stream)
+        entry = "analiticcl_dl_lcs_slots"
+        args = (*tables, metrics.data_ptr(), same_first.data_ptr(), P, L,
+                window)
     else:
         s = score
         keep = torch.empty(P, dtype=torch.bool, device=dev)
-        met = torch.empty((5, P), dtype=torch.uint8, device=dev)
+        met = torch.empty((5, P), dtype=met_dtype(L), device=dev)
         max_freq = (torch.zeros if s.freqs is not None else torch.ones)(
             B, dtype=torch.int64, device=dev)
         f32 = (torch.empty(P, dtype=torch.float32, device=dev)
@@ -481,16 +490,19 @@ def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        with torch.cuda.device(dev):
-            err = _build.load("dl_lcs").analiticcl_dl_lcs_slots_scored(
-                *tables, s.pc_band.data_ptr(), s.exact_q.data_ptr(),
+        entry = "analiticcl_dl_lcs_slots_scored"
+        args = (*tables, s.pc_band.data_ptr(), s.exact_q.data_ptr(),
                 s.exact_q.shape[1], ptr(s.use_exact), ptr(s.freqs),
                 s.weights.data_ptr(), s.thr.data_ptr(), keep.data_ptr(),
                 met.data_ptr(),
                 ptr(max_freq if s.freqs is not None else None),
-                ptr(f32), counts.data_ptr(), P, L, window, stream)
+                ptr(f32), counts.data_ptr(), P, L, window)
+    with torch.cuda.device(dev):
+        err = getattr(_build.load("dl_lcs"), entry)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
     dl_lcs_slots.launches += 1
     dl_lcs.launches += 1
+    wide_path.launches += L > NARROW_LEN
     _build.check(err, "dl_lcs_slots kernel launch")
     return out
 

@@ -346,16 +346,20 @@ def compact_survivors_plain(keep, counts, block: int, q, pc, met, max_freq,
     return (o_q, o_c, *o_met.unbind(), max_freq, total_match, total_keep)
 
 
-def _output_views(flat, B: int, P2: int) -> tuple:
+def _output_views(flat, B: int, P2: int, met_dtype=torch.uint8) -> tuple:
     """The core's ten outputs as views of K4's buffer ``flat``, which holds
     them as :func:`_pack` lays them out: ``max_freq`` (int64 ``[B]``),
     ``total_match``, ``total_keep`` (int64), ``o_q``, ``o_c`` (int32
-    ``[P2]``), the five uint8 metric columns (``[P2]``). A few slices, for
-    the host's sake: every view op costs enqueue time."""
+    ``[P2]``), the five metric columns (``[P2]``, ``met_dtype``: uint8, or
+    int32 from L 256). A few slices, for the host's sake: every view op
+    costs enqueue time."""
     wide = 8 * (B + 2)
     i64 = flat[:wide].view(torch.int64)
     qc = flat[wide : wide + 8 * P2].view(torch.int32).view(2, P2)
-    met = flat[wide + 8 * P2 :].view(5, P2)
+    met = flat[wide + 8 * P2 :]
+    if met_dtype != torch.uint8:
+        met = met.view(met_dtype)
+    met = met.view(5, P2)
     return (qc[0], qc[1], *met.unbind(), i64[:B], i64[B], i64[B + 1])
 
 
@@ -366,7 +370,8 @@ def _check_compact(keep, counts, block, q, pc, met, max_freq, total_match):
         "keep": (keep, torch.bool, (P,)),
         "counts": (counts, torch.int32, (-(-P // block),)),
         "q": (q, torch.int32, (P,)), "pc": (pc, torch.int32, (P,)),
-        "met": (met, met.dtype, (5, P)),
+        "met": (met, torch.int32 if met.dtype == torch.int32
+                else torch.uint8, (5, P)),
         "max_freq": (max_freq, torch.int64, (B,)),
         "total_match": (total_match, torch.int64, ()),
     }
@@ -394,7 +399,8 @@ def compact_survivors(keep, counts, block: int, q, pc, met, max_freq,
     the ten into one byte buffer as :func:`_pack` lays them out and
     returns their views of it, which :func:`_pack` passes on without a
     copy. :func:`compact_survivors_plain` for CPU tensors; both give the
-    same values."""
+    same values. ``met`` is uint8, or int32 from L 256
+    (:func:`~.dl.met_dtype`); the outputs keep its dtype."""
     P, B = _check_compact(keep, counts, block, q, pc, met, max_freq,
                           total_match)
     dev = keep.device
@@ -403,20 +409,22 @@ def compact_survivors(keep, counts, block: int, q, pc, met, max_freq,
                                        max_freq, total_match, P2)
     if dev.type != "cuda":
         raise ValueError(f"compact_survivors: unsupported device {dev}")
-    if met.dtype != torch.uint8:
-        raise ValueError(f"compact_survivors kernel: met is {met.dtype}, "
-                         "wants uint8")
-    flat = torch.empty(8 * (B + 2) + 13 * P2, dtype=torch.uint8,
+    if keep.data_ptr() % 16 or counts.data_ptr() % 16:
+        raise ValueError("compact_survivors: keep and counts must start at a "
+                         "16-byte boundary (the kernel loads them 16 bytes "
+                         "at a time)")
+    mb = met.element_size()
+    flat = torch.empty(8 * (B + 2) + (8 + 5 * mb) * P2, dtype=torch.uint8,
                        device=dev)
     with torch.cuda.device(dev):
         err = _build.load("compact").analiticcl_compact(
             counts.data_ptr(), counts.numel(), block, keep.data_ptr(),
-            q.data_ptr(), pc.data_ptr(), met.data_ptr(), max_freq.data_ptr(),
-            total_match.data_ptr(), flat.data_ptr(), B, P, P2,
-            torch.cuda.current_stream(dev).cuda_stream)
+            q.data_ptr(), pc.data_ptr(), met.data_ptr(), mb,
+            max_freq.data_ptr(), total_match.data_ptr(), flat.data_ptr(), B,
+            P, P2, torch.cuda.current_stream(dev).cuda_stream)
     compact_survivors.launches += 1
     _build.check(err, "compact kernel launch")
-    return _output_views(flat, B, P2)
+    return _output_views(flat, B, P2, met.dtype)
 
 
 compact_survivors.launches = 0
@@ -581,7 +589,8 @@ def query_stage_b(
         return probe(s.keep, s.max_freq) + ((s.score * s.keep).sum(),)
 
     # ---- survivor compaction into P2 slots, order kept; unused slots hold
-    # query B and zeros; the metrics are uint8 below L 256 (K4) ----
+    # query B and zeros; the metrics are uint8 below L 256, int32 from it
+    # (K4) ----
     out = compact_survivors(s.keep, s.counts, slot_block(q_norms.shape[1]),
                             q, pc, s.met, s.max_freq, total_match, P2)
     if stop_stage == "compact_sum":

@@ -34,6 +34,10 @@ B_TILE = 1024  # queries per band tile
 BIG_NI_ROWS = 262_144  # above this many rows the query tile shrinks ...
 BIG_NI_B_TILE = 256  # ... to this, so each tile's charcount band narrows
 KERNEL_QT = 128  # queries per CUDA block (never straddles a band tile)
+# the widest planes a block's shared memory holds (at 32 queries a block;
+# 128 up to AT 576, 64 up to 800): AT = A x T grows with the largest count
+# of one character in one entry
+KERNEL_MAX_AT = 960
 
 
 def _b_tile(B: int, Ni: int = 0) -> int:
@@ -144,6 +148,11 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
         raise ValueError(f"stage_a: unsupported device {dev}")
     if AT % 32:
         raise ValueError(f"stage_a kernel: AT={AT} is not a multiple of 32")
+    if AT > KERNEL_MAX_AT:
+        raise ValueError(f"stage_a kernel: planes of width AT={AT} above "
+                         f"{KERNEL_MAX_AT}: the index holds an entry with "
+                         f"too many of one character for a block's shared "
+                         f"memory")
     Nb = nb_band * ROW_BLOCK
     packed_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
     exact_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)

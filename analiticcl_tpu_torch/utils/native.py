@@ -373,7 +373,7 @@ def _ptr(arr: "np.ndarray", ctype):
 def rank_tail_native(
     o_q: "np.ndarray",
     o_c_dev: "np.ndarray",
-    metrics,  # (o_ld, o_lcs, o_pf, o_sf, o_case) uint8 arrays
+    metrics,  # (o_ld, o_lcs, o_pf, o_sf, o_case) uint8, or int32 from L 256
     canon_of: "np.ndarray",  # int64 [ni_pad]
     q_lens: "np.ndarray",  # int32 [>= nseg]
     freq_tab,  # float64 [index_size] or None
@@ -389,7 +389,10 @@ def rank_tail_native(
     have_freq: bool,
     stop_before_cutoff: bool,
 ):
-    """One-call native ranking tail; returns None if the library is absent.
+    """One-call native ranking tail; returns None if the library is absent,
+    and for int32 metrics (an index of width 256 or more): the library
+    reads them as bytes, and an LCS, prefix or suffix above 255 would wrap,
+    so those batches take the numpy tail.
 
     Returns (n_out, out_seg, out_vid, out_ds, out_fq, elig, perm, bounds):
     survivors of every ELIGIBLE segment in final rank order (seg-major), an
@@ -397,7 +400,7 @@ def rank_tail_native(
     the host's exact object path), and the (seg, canonical)-sorted pair
     permutation + per-segment bounds for those fallback rows."""
     lib = _load()
-    if lib is None:
+    if lib is None or any(np.asarray(m).dtype != np.uint8 for m in metrics):
         return None
     n_pairs = int(len(o_q))
     o_q = np.ascontiguousarray(o_q, dtype=np.int32)

@@ -198,11 +198,9 @@ def k2_bound_ms(a_len, b_len, L: int, W: int, peaks: Peaks = H100_SXM):
 
 # bytes per slot: K3 writes query, band row and device row (int32) and the
 # validity; the slot entry, on the main path, the keep flag and five uint8
-# metrics; a survivor slot holds query and device row (int32) and five
-# uint8 metrics
+# metrics (a survivor slot: :func:`_survivor_bytes`)
 SLOT_BYTES = 13
 KEEP_BYTES = 6
-SURVIVOR_BYTES = 13
 
 
 def k5_work(B: int, A: int, at: int) -> Work:
@@ -267,26 +265,34 @@ def k2_slots_work(ql, cl, P: int, L: int, W: int, norm_bytes: int,
     return Work(nbytes, int32_ops=_dl_ops(ql, cl, L, W))
 
 
-def _output_bytes(B: int, P2: int) -> int:
-    """The core's outputs: the survivor columns (two int32, five uint8 per
-    slot), the int64 frequency maxima and the two int64 totals."""
-    return P2 * SURVIVOR_BYTES + 8 * B + 16
+def _survivor_bytes(met_bytes: int = 1) -> int:
+    """A survivor slot: query and device row (int32) and five metrics of
+    ``met_bytes`` each (uint8 below L 256, int32 from it)."""
+    return 8 + 5 * met_bytes
 
 
-def k4_work(P: int, P2: int, B: int, n_keep: int, block: int) -> Work:
+def _output_bytes(B: int, P2: int, met_bytes: int = 1) -> int:
+    """The core's outputs: the survivor columns, the int64 frequency maxima
+    and the two int64 totals."""
+    return P2 * _survivor_bytes(met_bytes) + 8 * B + 16
+
+
+def k4_work(P: int, P2: int, B: int, n_keep: int, block: int,
+            met_bytes: int = 1) -> Work:
     """The survivor compaction of ``n_keep`` kept slots of ``P`` into
     ``P2``: the ``ceil(P / block)`` int32 per-block counts and the ``P``
     keep flags read once, the query, device row and five metrics of the
     kept slots below ``P2`` read once, the ``B`` frequency maxima and the
     hit total read once; the core's outputs written once."""
-    return Work(4 * -(-P // block) + P + SURVIVOR_BYTES * min(n_keep, P2)
-                + 8 * B + 8 + _output_bytes(B, P2))
+    return Work(4 * -(-P // block) + P
+                + _survivor_bytes(met_bytes) * min(n_keep, P2) + 8 * B + 8
+                + _output_bytes(B, P2, met_bytes))
 
 
 def k4_bound_ms(P: int, P2: int, B: int, n_keep: int, block: int,
-                peaks: Peaks = H100_SXM):
+                peaks: Peaks = H100_SXM, met_bytes: int = 1):
     """The least time of the survivor compaction, and its bound."""
-    return k4_work(P, P2, B, n_keep, block).bound_ms(peaks)
+    return k4_work(P, P2, B, n_keep, block, met_bytes).bound_ms(peaks)
 
 
 def glue_work(B: int) -> Work:

@@ -64,9 +64,21 @@ device ops per stop; the whole core after it equal to its outputs before),
 the batch's roofline (``utils/roofline.py``) beside the core's time by
 CUDA events and the main pass's wall time per batch, and one ``trace`` of two warm
 batches under ``build/chip_smoke_trace/`` that must name every kernel (taken
-again over 4, then 8 batches where it lost a kernel's records). The
+again over 4, then 8 batches where it lost a kernel's records). Then a
+lexicon wider than 64 (phase 12): the main lexicon plus seeded entries of
+70, 100 and 300 letters (L 300, int32 metrics) serves queries (512 of
+2,048 near a long entry), search over lines with long tokens and a 1x4
+mesh of ``cuda:0``, each holding every kernel against its plain version on
+its first 256 lookups (K4 at int32 metrics), launching K2's wide path (a
+second launch, by the same C entry, for the pairs with a string over 64)
+once after each slot-entry launch and equal to the oracle; then both K2
+entries at L 100 and 300 against their plain versions, the wide path's
+times on the phase's batch and per 1M pairs, and K1 at planes 608, 864
+and 960 wide (64 and 32 queries a block). K4's record also gives the
+library call's device time. The
 last two lines are the kernels' JSON record (stamped with the commit,
-launches per path) and ``{"ok": true, ...}``.
+launches per path; the wide path's launches are phase 12's) and
+``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
 card is visible. Imports no JAX. Writes nothing outside the checkout's
@@ -120,6 +132,23 @@ STAGES = ("search_prepare", "host_prep", "dispatch", "device", "device_get",
 BATCH_CUT = 1024  # batches of the cut-bucket run (one batch size, B=1024)
 # csrc/<name>.cu
 KERNEL_SOURCES = ("stage_a", "dl_lcs", "resolve", "compact", "planes")
+# the wide phase: the main lexicon plus seeded entries of these normalized
+# lengths, so L = 300; K2's wide path takes the pairs over 64
+WIDE_LENGTHS = (70, 100, 300)
+N_WIDE_EACH = 8  # long entries of each length
+WIDE_BATCH = 1024
+# lookups of the first batch that each wide path's holds and sync-free
+# submit check take (the over-long queries of a batch go to the host
+# oracle, which is slow at L 300)
+WIDE_HOLD = 256
+N_WIDE_QUERIES = 2048
+N_WIDE_NEAR = 512  # of them near a long entry
+N_WIDE_ORACLE = 64
+N_WIDE_LINES = 256
+N_WIDE_HOST_LINES = 8  # of them through the oracle-lookup host search
+WIDE_PAIRS = 1 << 20  # the wide path's timing per 1M pairs
+WIDE_TIMED = ((100, 3), (300, 3))  # (L, W) of that timing
+WIDE_K1_T = (20, 28, 32)  # K1 at planes 30 x T wide: 64, 32, 32 queries
 N_LIGHT = 300  # queries of each light batch of the cut-bucket run
 
 
@@ -192,6 +221,26 @@ def device_ms(fn, kernel: str, reps: int, per_call: int = 1,
     return None
 
 
+def device_all_ms(fn, reps: int) -> float | None:
+    """The device time per call of ``fn`` summed over every CUDA kernel it
+    launches (a library call's several), from one torch.profiler window
+    over ``reps`` calls; None when the window kept no device record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return None
+    return sum(tr.end - tr.start for tr in spans) / reps / 1e3
+
+
 def ms4(x: float | None) -> str:
     """A device time as the log lines print it."""
     return "not measured" if x is None else f"{x:.4f} ms"
@@ -220,21 +269,43 @@ TRACE_NAMES = {"stage_a": "stage_a_kernel", "dl_lcs": "dl_lcs",
                "compact": "compact_kernel", "planes": "planes_kernel"}
 
 
-def launch_counts() -> dict:
-    return {k: fn.launches for k, fn in counted_wrappers().items()}
+def launch_counts(wide: bool = False) -> dict:
+    """The launch counts since the last reset; with ``wide`` (a lexicon
+    wider than 64) also K2's wide path's, ``dl_lcs_wide``."""
+    from analiticcl_tpu_torch.ops.dl import wide_path
+
+    counts = {k: fn.launches for k, fn in counted_wrappers().items()}
+    if wide:
+        counts["dl_lcs_wide"] = wide_path.launches
+    return counts
 
 
 def reset_counts() -> None:
+    from analiticcl_tpu_torch.ops.dl import wide_path
+
     for fn in counted_wrappers().values():
         fn.launches = 0
+    wide_path.launches = 0
 
 
-def require_launches(phase: str) -> dict:
-    """The launch counts since the last reset; fails unless every kernel
-    was launched."""
-    counts = launch_counts()
+def require_launches(phase: str, wide: bool = False,
+                     counts: dict | None = None) -> dict:
+    """The launch counts since the last reset (:func:`launch_counts`), or
+    ``counts``; fails unless every kernel was launched. With ``wide``, K2's
+    wide path must follow each launch of its slot entry once; without, it
+    must not have run."""
+    from analiticcl_tpu_torch.ops.dl import wide_path
+
+    if counts is None:
+        counts = launch_counts(wide)
     if min(counts.values()) <= 0:
         raise SystemExit(f"{phase}: a kernel was not launched: {counts}")
+    if wide and counts["dl_lcs_wide"] != counts["dl_lcs_slots"]:
+        raise SystemExit(f"{phase}: K2's wide path launched other than once "
+                         f"a slot-entry launch: {counts}")
+    if not wide and wide_path.launches:
+        raise SystemExit(f"{phase}: K2's wide path ran at L <= 64: "
+                         f"{wide_path.launches} launches")
     return counts
 
 
@@ -457,7 +528,8 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
     query length, threshold and case flag bit for bit, DL clipped at
     ``W + 1`` (the kernel's contract), and DL and LCS bit for bit against
     K2's pair-string entry on the gathered strings (the same DP on the same
-    strings); and its main-path instance, the scoring epilogue, against
+    strings), which is held against the same plain DL and LCS (DL clipped
+    at ``W + 1``); and its main-path instance, the scoring epilogue, against
     the plain score on the plain metrics for each of
     :func:`score_variants` (``sc``, ``every``): the keep flags, the
     frequency maxima, the per-block kept counts and, through the survivor
@@ -494,6 +566,9 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
         bad.append("ld")
     if not (torch.equal(m.ld, ld_k2) and torch.equal(m.lcs, lcs_k2)):
         bad.append("ld/lcs against the pair-string entry")
+    if not (torch.equal(ld_k2.clamp(max=W + 1), mp.ld.clamp(max=W + 1))
+            and torch.equal(lcs_k2, mp.lcs)):
+        bad.append("the pair-string entry's ld/lcs")
     if bad:
         raise SystemExit(f"{name}: dl_lcs slot entry differs from plain in "
                          f"{bad} at P={P}, W={W}")
@@ -716,8 +791,10 @@ def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
         "plain_ms": time_ms(lambda: ppl.compact_survivors_plain(*k4_args),
                             10, inner=10),
         "library_ms": time_ms(library, 10, inner=10),
+        "library_device_ms": device_all_ms(library, 10),
     }
-    k4["bound_ms"], k4["bound_by"] = k4_bound_ms(P, P2, B, n_keep, T, peaks)
+    k4["bound_ms"], k4["bound_by"] = k4_bound_ms(P, P2, B, n_keep, T, peaks,
+                                                 ks.met.element_size())
     q_counts = main["q_counts"]
     totals = torch.empty((2, B), dtype=torch.int32, device=q_counts.device)
     k5 = {
@@ -731,13 +808,15 @@ def glue_records(main: dict, n_valid: int, card: str, peaks) -> list:
     }
     k5["bound_ms"], k5["bound_by"] = k5_bound_ms(B, q_counts.shape[1],
                                                  idx.at, peaks)
+    mb = ks.met.element_size()
     log(f"K4 compact: P={P} slots ({n_keep} kept) into P2={P2}, one output "
-        f"buffer of {8 * (B + 2) + 13 * P2} bytes, bit-identical to plain, "
-        f"and at P2 below the survivors; kernel {k4['ms']:.4f} ms (CUDA "
-        f"events, 10 back-to-back calls; profiler device time "
+        f"buffer of {8 * (B + 2) + (8 + 5 * mb) * P2} bytes, bit-identical "
+        f"to plain, and at P2 below the survivors; kernel {k4['ms']:.4f} ms "
+        f"(CUDA events, 10 back-to-back calls; profiler device time "
         f"{ms4(k4['device_ms'])}, one launch), plain (compact_index + "
         f"gathers) {k4['plain_ms']:.4f} ms, library (nonzero_static + "
-        f"gathers) {k4['library_ms']:.4f} ms, bound {k4['bound_ms']:.4f} ms "
+        f"gathers) {k4['library_ms']:.4f} ms (device time of its kernels "
+        f"{ms4(k4['library_device_ms'])}), bound {k4['bound_ms']:.4f} ms "
         f"({k4['bound_by']}) | {card}")
     log(f"K5 planes: B={B}, A={q_counts.shape[1]}, planes "
         f"{idx.bins.shape[1]} wide (AT {idx.at}), bit-identical to plain, "
@@ -855,15 +934,15 @@ def profile_pass(fn) -> str:
 def hold_kernels(name: str, pipe, lookups, params) -> None:
     """Prepare ``lookups`` as one device batch, as the path does, and hold
     the query planes' kernel and the stage-A kernel (bit for bit), the slot
-    resolve, K2's slot entry and the survivor compaction
-    (:func:`hold_glue`) and the DL+LCS kernel's pair-string entry (DL
-    clipped at the batch's window + 1, LCS exact) against their plain
-    versions on it; on a sharded pipeline, on the call of mesh row 0 and
-    lex shard 0.
+    resolve, K2's slot entry, the DL+LCS kernel's pair-string entry (DL
+    clipped at the batch's window + 1, LCS exact) and the survivor
+    compaction (:func:`hold_glue`) against their plain versions on it; on
+    a sharded pipeline, on the call of mesh row 0 and lex shard 0. Above
+    L 64 the batch must hold a pair over 64.
     Its launches count, so call it before the path's counts are reset."""
     import torch
 
-    from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_metrics_windowed_plain
+    from analiticcl_tpu_torch.ops.dl import NARROW_LEN
     from analiticcl_tpu_torch.ops.pipeline import StageA
     from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
     from analiticcl_tpu_torch.parallel.mesh import ShardedPipeline
@@ -897,23 +976,22 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     sc = score_args(pipe, st)
     if isinstance(pipe, ShardedPipeline):
         sc["stop_exact"] = sc["stop_exact"][rows]
+    # K3, K2's two entries and K4 (hold_glue)
     pr, P, n_valid, _slots = stage_b_slots(
         pipe, idx, sa, st["B"], q_norms, q_lens, k_ed, q_fl, start_blk, W,
         name, sc)
-    ld, lcs = dl_lcs(pr.a, pr.ql, pr.b, pr.cl, pipe.L, W)
-    ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(
-        pr.a, pr.ql, pr.b, pr.cl, pipe.L, W
-    )
-    torch.cuda.synchronize()
-    if not (torch.equal(ld.clamp(max=W + 1), ld_p.clamp(max=W + 1))
-            and torch.equal(lcs, lcs_p)):
-        raise SystemExit(f"{name}: dl_lcs kernel differs from plain at W={W}")
+    wide = ""
+    if pipe.L > NARROW_LEN:  # the batch must reach K2's wide path
+        n_wide = int((torch.maximum(pr.ql, pr.cl) > NARROW_LEN).sum())
+        if not n_wide:
+            raise SystemExit(f"{name}: no pair over {NARROW_LEN} to hold")
+        wide = f" ({n_wide} over {NARROW_LEN})"
     pipe._oracle_memo.clear()  # the timed run meets over-long segments anew
     log(f"{name} kernels: K5 and K1 bit-identical to plain on "
         f"B={q_lens.shape[0]}{where} ({len(st['active'])} device lookups of "
         f"{len(lookups)}, band {nb_band * 1024} rows); K3 bit-identical to "
         f"plain, K2 (both entries) equal to plain at W={W} on the budget's "
-        f"P={P} slots, {n_valid} valid, K4 bit-identical to plain "
+        f"P={P} slots, {n_valid} valid{wide}, K4 bit-identical to plain "
         f"({time.perf_counter() - t0:.2f} s)")
 
 
@@ -1044,22 +1122,27 @@ def cut_bucket_phase(model, queries, params, default, oracle, card) -> None:
     del pipe
 
 
-def search_phase(name: str, model, texts, params, card: str) -> dict:
+def search_phase(name: str, model, texts, params, card: str,
+                 hold_n: int = 0, n_host: int = N_LINES_ORACLE) -> dict:
     """Search ``texts`` through the device path; hold the array-native
     consolidation against the object path and the first lines against a
-    host-only search with the oracle's lookups, and every kernel against
-    its plain version on the path's first lookup batch."""
+    host-only search with the oracle's lookups (the first ``n_host``
+    lines), and every kernel against its plain version on the path's first
+    lookup batch (its first ``hold_n`` lookups, if given; the sync-free
+    ``submit`` check takes the same lookups)."""
     import torch
 
     from analiticcl_tpu_torch.models import search_fast
     from analiticcl_tpu_torch.models.variant_model import SEARCH_BATCH
+    from analiticcl_tpu_torch.ops.dl import NARROW_LEN
     from analiticcl_tpu_torch.testing import lm_bigram_hits
 
     pipe = model._pipeline()
     list(model.find_all_matches_stream(texts[:64], params))  # warm-up
     lookups = search_fast.prepare_unit(texts, params.max_ngram).all_texts
-    hold_kernels(name, pipe, lookups[:SEARCH_BATCH], params)
-    sync_free_submit(name, pipe, lookups[:SEARCH_BATCH], params, card)
+    hold_kernels(name, pipe, lookups[:hold_n or SEARCH_BATCH], params)
+    sync_free_submit(name, pipe, lookups[:hold_n or SEARCH_BATCH], params,
+                     card)
     reset_counts()
     pipe.stats.clear()
     torch.cuda.synchronize()
@@ -1067,7 +1150,7 @@ def search_phase(name: str, model, texts, params, card: str) -> dict:
     got = list(model.find_all_matches_stream(texts, params))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = require_launches(name)
+    launches = require_launches(name, wide=pipe.L > NARROW_LEN)
     stages = stage_line(pipe.stats)
     if len(got) != len(texts):
         raise SystemExit(f"{name}: {len(got)} results for {len(texts)} lines")
@@ -1083,12 +1166,12 @@ def search_phase(name: str, model, texts, params, card: str) -> dict:
         bad = sum(a != b for a, b in zip(obj, sig))
         raise SystemExit(f"{name}: {bad} lines differ from the object path")
     t1 = time.perf_counter()
-    head = texts[:N_LINES_ORACLE]
+    head = texts[:n_host]
     preps, uniq, head_lookups = model._fam_prepare(head, params)
     found = [model._find_variants_oracle(q, params) for q in head_lookups]
     host = match_signature(model._fam_consolidate(preps, uniq, found, params))
     t_host = time.perf_counter() - t1
-    if host != sig[:N_LINES_ORACLE]:
+    if host != sig[:n_host]:
         bad = sum(a != b for a, b in zip(host, sig))
         raise SystemExit(f"{name}: {bad} lines differ from the host search")
     n_tok = sum(len(t.split()) for t in texts)
@@ -1445,9 +1528,10 @@ def cuda_mesh(n_dp: int, n_lex: int):
     return make_mesh(["cuda:0"] * (n_dp * n_lex), dp=n_dp)
 
 
-def timed_stream(model, queries, params, batch: int):
+def timed_stream(model, queries, params, batch: int, wide: bool = False):
     """One warm pass of ``find_variants_stream``: (results, seconds,
-    launches); the counts are reset just before it."""
+    launches, with K2's wide path's if ``wide``); the counts are reset
+    just before it."""
     import torch
 
     list(model.find_variants_stream(queries[:batch], params, batch))  # warm
@@ -1458,7 +1542,7 @@ def timed_stream(model, queries, params, batch: int):
     t0 = time.perf_counter()
     got = list(model.find_variants_stream(queries, params, batch))
     torch.cuda.synchronize()
-    return got, time.perf_counter() - t0, launch_counts()
+    return got, time.perf_counter() - t0, launch_counts(wide)
 
 
 def require_equal(name: str, got, want, queries) -> None:
@@ -1816,6 +1900,384 @@ def profiling_phase(words, queries, params, wall_ms: float,
     return {"profiling": launches}
 
 
+def wide_words() -> list:
+    """The wide phase's long entries: N_WIDE_EACH seeded strings of each of
+    WIDE_LENGTHS lowercase letters (as many normalized characters)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 20)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    return ["".join(rng.choice(letters, n)) for n in WIDE_LENGTHS
+            for _ in range(N_WIDE_EACH)]
+
+
+def wide_pair_strings(seed: int, L: int, n: int):
+    """``n`` seeded int32 pairs at width ``L`` for K2's pair-string entry,
+    made on the card: three in four of lengths 65 to L (the wide path), the
+    rest of 1 to 64 (the byte path); each candidate its query under up to
+    three substitutions, so the DL is within W=3 for most."""
+    import torch
+
+    from analiticcl_tpu_torch.ops.dl import PAD_A, PAD_B
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=g, device="cuda", dtype=torch.int32)
+    a = torch.randint(1, 27, (n, L), **kw)
+    short = torch.rand(n, generator=g, device="cuda") < 0.25
+    al = torch.where(short, torch.randint(1, 65, (n,), **kw),
+                     torch.randint(65, L + 1, (n,), **kw))
+    b = a.clone()
+    rows = torch.arange(n, device="cuda")
+    for _ in range(3):
+        at = (torch.rand(n, generator=g, device="cuda") * al).long()
+        keep = torch.rand(n, generator=g, device="cuda") < 0.5
+        b[rows, at] = torch.where(keep, b[rows, at],
+                                  torch.randint(1, 27, (n,), **kw))
+    pos = torch.arange(L, device="cuda", dtype=torch.int32)[None, :]
+    a = torch.where(pos < al[:, None], a, PAD_A).contiguous()
+    b = torch.where(pos < al[:, None], b, PAD_B).contiguous()
+    return a, al.contiguous(), b, al.clone()
+
+
+def hold_wide_pairs(L: int, W: int, n: int, card: str) -> None:
+    """K2's pair-string entry at width ``L`` (both launches) against its
+    plain version on :func:`wide_pair_strings`: DL clipped at W + 1, LCS
+    exact."""
+    import torch
+
+    from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_metrics_windowed_plain
+
+    a, al, b, bl = wide_pair_strings(SEED + L + W, L, n)
+    ld, lcs = dl_lcs(a, al, b, bl, L, W)
+    ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(a, al, b, bl, L, W)
+    torch.cuda.synchronize()
+    if not (torch.equal(ld.clamp(max=W + 1), ld_p.clamp(max=W + 1))
+            and torch.equal(lcs, lcs_p)):
+        raise SystemExit(f"dl_lcs pair-string entry differs from plain at "
+                         f"L={L}, W={W}")
+    n_wide = int((al > 64).sum())
+    log(f"K2 pair-string entry L={L} W={W}: {n} pairs, {n_wide} on the "
+        f"wide path, equal to plain (DL clipped at W+1, "
+        f"{int((ld <= W).sum())} within W) | {card}")
+
+
+def hold_wide_slots(L: int, W: int, card: str, B: int = 256) -> None:
+    """K2's slot entry at width ``L`` (both launches; metrics and scored
+    instances) against its plain version on seeded tables: B queries of
+    lengths 1 to L, each paired with a row made from it by up to three
+    substitutions and with an unrelated row. The metrics as in
+    :func:`hold_glue`; the epilogue's keep flags, frequency maxima and
+    block counts exactly, and K4 on its outputs (int32 metrics from L 256)
+    bit for bit against its plain version."""
+    import torch
+
+    from analiticcl_tpu_torch.ops import dl as tdl
+
+    a, al, b, _bl = wide_pair_strings(SEED + 3 * L + W, L, B)
+    g = torch.Generator(device="cuda").manual_seed(SEED + L)
+    other = torch.randint(1, 27, (B, L), generator=g, device="cuda",
+                          dtype=torch.int32)
+    ol = torch.randint(1, L + 1, (B,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    pos = torch.arange(L, device="cuda")[None, :]
+    rows = torch.stack([b.clamp(min=0), torch.where(pos < ol[:, None], other,
+                                                    0)], 1).view(2 * B, L)
+    lens = torch.stack([al, ol], 1).view(2 * B)
+    rev = torch.where(pos < lens[:, None],
+                      rows.gather(1, (lens[:, None] - 1 - pos).clamp(min=0)),
+                      0)
+    idx = SimpleNamespace(
+        norms2=torch.cat([rows, rev], 1).to(torch.int8).contiguous(),
+        norm_lens=lens.contiguous(),
+        first_lower=(torch.rand(2 * B, generator=g, device="cuda") < 0.5))
+    q_norms = a.clamp(min=0).to(torch.int8).contiguous()
+    k_ed = torch.full((B,), W, dtype=torch.int32, device="cuda")
+    q_fl = torch.rand(B, generator=g, device="cuda") < 0.5
+    q = torch.arange(B, device="cuda", dtype=torch.int32).repeat_interleave(2)
+    pc = torch.arange(2 * B, device="cuda", dtype=torch.int32)
+    valid = torch.ones(2 * B, dtype=torch.bool, device="cuda")
+    s_args = (idx, q_norms, al, k_ed, q_fl, q, pc, valid, W)
+    m = tdl.dl_lcs_slots(*s_args)
+    mp = tdl.dl_lcs_slots_plain(*s_args)
+    torch.cuda.synchronize()
+    bad = [f for f, x, y in zip(tdl.SlotMetrics._fields[1:], m[1:], mp[1:])
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    if not torch.equal(m.ld.clamp(max=W + 1), mp.ld.clamp(max=W + 1)):
+        bad.append("ld")
+    score = tdl.ScoreInputs(
+        torch.zeros(2 * B, dtype=torch.int32, device="cuda"),
+        torch.zeros((B, 1), dtype=torch.uint8, device="cuda"), None,
+        torch.tensor([0.5, 0.125, 0.125, 0.125, 0.125, 1.0], device="cuda"),
+        torch.tensor(0.25, device="cuda"), None)
+    ks = tdl.dl_lcs_slots(*s_args, score=score)
+    kp = tdl.score_slots_plain(mp, q, pc, valid, L, score)
+    torch.cuda.synchronize()
+    bad += [f for f, x, y in (("keep", ks.keep, kp.keep),
+                              ("max_freq", ks.max_freq, kp.max_freq),
+                              ("counts", ks.counts, kp.counts),
+                              ("kept metrics", ks.met[:, ks.keep],
+                               kp.met[:, kp.keep]))
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+    if bad:
+        raise SystemExit(f"dl_lcs slot entry differs from plain at L={L}, "
+                         f"W={W} in {bad}")
+    total = torch.tensor(2 * B, dtype=torch.int64, device="cuda")
+    hold_k4(f"wide slots L={L}", (ks.keep, ks.counts, tdl.slot_block(L), q,
+                                  pc, ks.met, ks.max_freq, total), 2 * B)
+    wide = int((torch.maximum(al.repeat_interleave(2), lens) > 64).sum())
+    log(f"K2 slot entry L={L} W={W}: {2 * B} slots, {wide} on the wide "
+        f"path, equal to plain; its epilogue exact ({int(ks.keep.sum())} "
+        f"kept, {ks.met.dtype} metrics), K4 bit-identical to plain on them "
+        f"| {card}")
+
+
+def wide_batch(pipe, lookups, params):
+    """The slots of ``lookups`` as one device batch at its budget: stage A
+    and K3 on the card; returns the slot entry's arguments, its scoring
+    inputs, the gathered pair strings, P and the valid slots."""
+    import torch
+
+    from analiticcl_tpu_torch.ops import dl as tdl
+    from analiticcl_tpu_torch.ops import pipeline as ppl
+
+    st = prepared(pipe, lookups, params)
+    (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
+     start_blk, _w, _thr) = st["args"]
+    idx = pipe.index
+    sa = ppl.query_stage_a(idx, q_counts, q_cc, k_ana, k_len, start_blk,
+                           st["nb_band"])
+    P, _P2, total = stage_b_budget(pipe, st["B"], sa)
+    q, pcb, pc, valid, _t = ppl.resolve_pairs(
+        sa.packed_q, sa.counts_t, sa.nmatch, start_blk, idx.bins.shape[0], P)
+    W = st["window"]
+    s_args = (idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid, W)
+    (_, score), = score_variants(idx, sa, dict(score_args(pipe, st),
+                                               pc_band=pcb), False)
+    pr = tdl.gather_pairs(idx, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
+    torch.cuda.synchronize()
+    return s_args, score, pr, P, min(total, P)
+
+
+def wide_records(pipe, lookups, params, card: str, peaks) -> dict:
+    """The wide path's numbers: on the first batch of the wide phase (its
+    pairs with a string over 64, as gathered strings through the
+    pair-string entry, whose byte launch has none of them to do, against
+    the plain version on the same pairs and their bound; the scored slot
+    entry's two launches at the batch's budget), and per 1M pairs at
+    WIDE_TIMED. The wide kernel's device time is read by its name."""
+    import torch
+
+    from analiticcl_tpu_torch.ops import dl as tdl
+    from analiticcl_tpu_torch.utils.roofline import k2_bound_ms
+
+    s_args, score, pr, P, n_valid = wide_batch(pipe, lookups, params)
+    L, W = pipe.L, s_args[-1]
+    wide = (torch.maximum(pr.ql, pr.cl) > tdl.NARROW_LEN).nonzero()[:, 0]
+    n_wide = int(wide.numel())
+    if not n_wide:
+        raise SystemExit("wide phase: the first batch has no pair over 64")
+    a, al, b, bl = (x[wide].contiguous() for x in (pr.a, pr.ql, pr.b, pr.cl))
+    ld, lcs = tdl.dl_lcs(a, al, b, bl, L, W)
+    ld_p, lcs_p, _, _ = tdl.dl_metrics_windowed_plain(a, al, b, bl, L, W)
+    torch.cuda.synchronize()
+    err = max(int((ld.clamp(max=W + 1) - ld_p.clamp(max=W + 1)).abs().max()),
+              int((lcs - lcs_p).abs().max()))
+    if err:
+        raise SystemExit("wide phase: the wide path differs from plain on "
+                         "the batch's pairs")
+
+    def wide_only():  # both launches; the byte launch has none of these
+        tdl.dl_lcs(a, al, b, bl, L, W)
+
+    rec = {
+        "ms": time_ms(wide_only, 10, inner=10),
+        "device_ms": device_ms(wide_only, "dl_lcs_wide_kernel", 10),
+        "plain_ms": time_ms(lambda: tdl.dl_metrics_windowed_plain(
+            a, al, b, bl, L, W), 1),
+        "max_abs_err": err, "pairs": n_wide, "L": L, "W": W,
+    }
+    rec["bound_ms"], rec["bound_by"] = k2_bound_ms(al, bl, L, W, peaks)
+    slot = {
+        "P": P, "valid": n_valid, "wide": n_wide,
+        "ms": time_ms(lambda: tdl.dl_lcs_slots(*s_args, score=score), 10,
+                      inner=10),
+        "byte_device_ms": device_ms(
+            lambda: tdl.dl_lcs_slots(*s_args, score=score),
+            "dl_lcs_slots_kernel", 10),
+        "wide_device_ms": device_ms(
+            lambda: tdl.dl_lcs_slots(*s_args, score=score),
+            "dl_lcs_slots_wide_kernel", 10),
+    }
+    rec["at_batch"] = slot
+    log(f"K2 wide path on the wide batch: {n_wide} of {n_valid} valid "
+        f"slots have a string over 64 (L={L}, W={W}); the pair-string "
+        f"entry on them {rec['ms']:.4f} ms (both launches, CUDA events, 10 "
+        f"back-to-back calls; the wide kernel's profiler device time "
+        f"{ms4(rec['device_ms'])}), plain {rec['plain_ms']:.3f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); the scored slot "
+        f"entry at P={P}: {slot['ms']:.4f} ms both launches (device: byte "
+        f"path {ms4(slot['byte_device_ms'])}, wide path "
+        f"{ms4(slot['wide_device_ms'])}) | {card}")
+    per = {}
+    for Lt, Wt in WIDE_TIMED:
+        a, al, b, bl = wide_pair_strings(SEED + 7 * Lt + Wt, Lt, WIDE_PAIRS)
+        n_w = int((al > 64).sum())
+
+        def run():  # both launches: a quarter of the pairs fit in 64
+            tdl.dl_lcs(a, al, b, bl, Lt, Wt)
+
+        r = {"wide_pairs": n_w, "ms": time_ms(run, 3),
+             "device_ms": device_ms(run, "dl_lcs_wide_kernel", 3)}
+        sel = al > 64
+        r["bound_ms"], r["bound_by"] = k2_bound_ms(al[sel], bl[sel], Lt, Wt,
+                                                   peaks)
+        per[f"L{Lt}_W{Wt}"] = r
+        log(f"K2 wide path per 1M pairs L={Lt} W={Wt}: {n_w} of "
+            f"{WIDE_PAIRS} pairs over 64: the entry {r['ms']:.3f} ms (both "
+            f"launches, CUDA events; the wide kernel's profiler device time "
+            f"{ms4(r['device_ms'])}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | {card}")
+        del a, b
+    rec["per_1M_pairs"] = per
+    return rec
+
+
+def wide_phase(words, card: str, peaks) -> tuple:
+    """Phase 12: a lexicon wider than 64 on the card. The main lexicon plus
+    :func:`wide_words` (L 300) serves 2,048 queries, 512 of them near a
+    long entry, in batches of 1,024; 256 lines of text with long tokens
+    through search (``max_ngram`` 2); and the same queries on a 1x4 mesh of
+    ``cuda:0``. Each path holds every kernel against its plain version on
+    its first 256 lookups (K4 at int32 metrics; pairs over 64 among them),
+    must launch K2's wide path once after each slot-entry launch, and
+    equals the oracle (search: the object path and the host search);
+    the mesh equals the single-device pipeline. Then both K2 entries at
+    L 100 and 300 against their plain versions, the wide path's times, and
+    K1 at planes wide enough for its 64- and 32-query blocks. Logs the
+    seconds of each part. Returns the wide path's record and the paths'
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from analiticcl_tpu_torch import (
+        DistanceThreshold, SearchParameters, VariantModel,
+    )
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, corrupt_queries, populate, synthetic_text,
+    )
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = round(time.perf_counter() - t_phase - sum(
+            parts.values()), 2)
+
+    longs = wide_words()
+    model = populate(VariantModel(alphabet=ALPHABET, device="cuda"),
+                     list(words) + longs)
+    pipe = model._pipeline()
+    if pipe.L != max(WIDE_LENGTHS):
+        raise SystemExit(f"wide phase: L={pipe.L}, not {max(WIDE_LENGTHS)}")
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+        score_threshold=0.25,
+    )
+    near = corrupt_queries(longs, SEED + 21, N_WIDE_NEAR - len(longs)) + longs
+    rest = corrupt_queries(words, SEED + 22, N_WIDE_QUERIES - len(near))
+    order = np.random.default_rng(SEED + 23).permutation(N_WIDE_QUERIES)
+    queries = [(near + rest)[i] for i in order]
+    lap("model")
+    hold_kernels("wide query", pipe, queries[:WIDE_HOLD], params)
+    sync_free_submit("wide query", pipe, queries[:WIDE_HOLD], params, card)
+    list(model.find_variants_stream(queries[:WIDE_BATCH], params, WIDE_BATCH))
+    lap("query holds")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(model.find_variants_stream(queries, params, WIDE_BATCH))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_path = {"wide_query": require_launches("wide query", wide=True)}
+    lap("query")
+    require_one_buffer_per_call("wide query", by_path["wide_query"])
+
+    def tuples(res):
+        return [[(model.decoder[r.vocab_id].text, r.dist_score,
+                  r.freq_score, r.via) for r in x] for x in res]
+
+    t1 = time.perf_counter()
+    check = sorted(range(N_WIDE_QUERIES),
+                   key=lambda i: len(queries[i]), reverse=True)
+    check = check[:N_WIDE_ORACLE // 2] + check[-(N_WIDE_ORACLE // 2):]
+    oracle = {i: model._find_variants_oracle(queries[i], params)
+              for i in check}
+    require_equal("wide query vs oracle", tuples(got[i] for i in check),
+                  tuples(oracle[i] for i in check),
+                  [queries[i] for i in check])
+    n_long_found = sum(1 for i in check[:N_WIDE_ORACLE // 2] if got[i])
+    log(f"wide query: {N_WIDE_QUERIES} queries ({len(near)} near a long "
+        f"entry) in batches of {WIDE_BATCH} on L={pipe.L}: "
+        f"{N_WIDE_QUERIES / dt:.1f} q/s warm ({dt:.3f} s); equal to the "
+        f"oracle on the {N_WIDE_ORACLE // 2} longest queries "
+        f"({n_long_found} with a result) and the {N_WIDE_ORACLE // 2} "
+        f"shortest ({time.perf_counter() - t1:.1f} s); launches "
+        f"{by_path['wide_query']} | {card}")
+    lap("query oracle")
+    record = wide_records(pipe, queries[:WIDE_BATCH], params, card, peaks)
+    lap("wide times")
+
+    # search over lines that carry long tokens
+    texts = synthetic_text(list(words[:2000]) + longs * 40, SEED + 24,
+                           N_WIDE_LINES)
+    s_params = dataclasses.replace(params, max_ngram=2)
+    by_path["wide_search"] = search_phase(
+        "wide search", model, texts, s_params, card, hold_n=WIDE_HOLD,
+        n_host=N_WIDE_HOST_LINES)
+    lap("search")
+
+    # the same queries on a 1x4 mesh of cuda:0
+    model.use_mesh(cuda_mesh(1, 4))
+    hold_kernels("wide mesh_1x4", model._device, queries[:WIDE_HOLD],
+                 params)
+    mgot, mdt, mcounts = timed_stream(model, queries, params, WIDE_BATCH,
+                                      wide=True)
+    require_launches("wide mesh_1x4", wide=True, counts=mcounts)
+    require_equal("wide mesh_1x4", tuples(mgot), tuples(got), queries)
+    require_one_buffer_per_call("wide mesh_1x4", mcounts)
+    by_path["wide_mesh_1x4"] = mcounts
+    log(f"wide mesh_1x4: {N_WIDE_QUERIES} queries {N_WIDE_QUERIES / mdt:.1f} "
+        f"q/s warm, equal to the single-device pipeline (and so to the "
+        f"oracle on {N_WIDE_ORACLE}); launches {mcounts} | {card}")
+    del model, pipe
+    gc.collect()
+    lap("mesh")
+
+    # both K2 entries at L 100 and 300, directly
+    for L in (100, 300):
+        hold_wide_pairs(L, 3, 4096, card)
+        hold_wide_slots(L, 3, card)
+    hold_wide_slots(300, 12, card)
+    lap("K2 entries")
+
+    # K1 at planes too wide for 128 queries a block: 64 (AT 608) and 32
+    # (AT 864 and 960, the widest it takes)
+    for T in WIDE_K1_T:
+        args = k1_direct_inputs(SEED + 40 + T, 32_768, 1024, 8, T=T)
+        _err, _bt, n_exact = hold_k1(*args, 8)
+        if n_exact == 0:
+            raise SystemExit(f"K1 at AT={args[0].shape[1]} saw no exact hits")
+        log(f"K1 stage_a at planes {args[0].shape[1]} wide (A=30, T={T}), "
+            f"B=1024: bit-identical to plain ({n_exact} exact hits) | {card}")
+    lap("K1 wide planes")
+    log(f"phase 12 (wide): {time.perf_counter() - t_phase:.1f} s: {parts}")
+    return record, by_path
+
+
 def main() -> int:
     import torch
 
@@ -2125,9 +2587,29 @@ def main() -> int:
     by_path.update(profiling_phase(words, queries, params,
                                    dt * 1e3 / (N_QUERIES // BATCH), card))
 
+    # ---- 12. a lexicon wider than 64: K2's wide path ----
+    gc.collect()
+    wide_rec, wide_paths = wide_phase(words, card, peaks)
+    by_path.update(wide_paths)
+
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
+    records.append({
+        "name": "dl_lcs_wide", "route": "cuda",
+        "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
+        "replaces": "analiticcl_tpu/ops/dl_pallas.py:47",
+        **wide_rec, "library_ms": None,
+        "library_note": "no PyTorch call computes banded Damerau-Levenshtein",
+        "launches": wide_paths["wide_query"]["dl_lcs_wide"],
+        "launches_note": "K2's wide path (one warp a pair with a string "
+                         "over 64), which either entry launches after its "
+                         "byte path above L 64 (once a slot-entry launch, "
+                         "checked on each path); counted on phase 12's "
+                         "query path",
+        "launches_by_path": {k: v["dl_lcs_wide"]
+                             for k, v in wide_paths.items()},
+    })
     log(json.dumps(stamp({"kernels": records})))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,22 +2,25 @@
 planes (kernel K5, ``csrc/planes.cu``) of the port's query core.
 
 * K4's compaction, compiled as plain C++ with ``-DANALITICCL_HOST_TEST``
-  (the kernel's blocks, warps and runs walked in order, a run's kept lanes
-  ranked by the popcount below them, its fill, copy and totals), equals
-  ``compact_survivors_plain`` and the JAX ``_compact``
+  (the kernel's blocks walked in order, each lane's 16 keep flags into the
+  block's list, the list at consecutive ranks, its fill, copy and
+  totals), equals ``compact_survivors_plain`` and the JAX ``_compact``
   (``analiticcl_tpu/ops/pipeline.py:242``, on JAX's CPU backend, with the
   core's fill) exactly on seeded keep masks: no survivors, every slot
-  kept, survivors on the edges of K2's blocks, K4's warps and its chunks,
-  P not a multiple of K2's block at both block sizes (128 and 64 slots),
-  survivors past P2 (dropped, the total exact), P2 above P, and batches of
-  13 and 4,096 queries. The host build writes the one output buffer;
+  kept, survivors on the edges of K4's lanes, K2's blocks, K4's warps and
+  its chunks, P not a multiple of K2's block at both block sizes (128 and
+  64 slots), survivors past P2 (dropped, the total exact), P2 above P,
+  batches of 13 and 4,096 queries, and uint8 and int32 metrics (the
+  latter from L 256). The host build writes the one output buffer;
   ``_unpack`` reads it at ``_pack``'s layout of the core's ten outputs,
   and its bytes equal ``_pack`` of the plain version's outputs.
 * ``_pack`` passes K4's buffer on as it is: no copy, the same layout.
-* K5's host build equals ``query_planes`` (its plain version on the CPU)
-  and the JAX core's planes (``analiticcl_tpu/ops/pipeline.py:402-408``)
-  at widths padded to 32 and unpadded, counts above the plane depth
-  included, and zeroes stage A's totals.
+* K5's host build (its 16-byte pieces) equals ``query_planes`` (its
+  plain version on the CPU) and the JAX core's planes
+  (``analiticcl_tpu/ops/pipeline.py:402-408``) at widths padded to 32 and
+  unpadded, a row of one piece and one of more pieces than a block has
+  threads, counts above the plane depth included, and zeroes stage A's
+  totals.
 * Both wrappers take the plain versions for CPU tensors, launch nothing
   there, and raise on inputs the kernels do not take.
 * The port's CPU core with K3, K2's slot entry, K4 and K5 all replaced by
@@ -95,11 +98,14 @@ def host_compact_flat(tmp_path_factory):
 
     def run(keep, counts, block, q, pc, met, max_freq, total_match, P2):
         B, P = max_freq.shape[0], keep.shape[0]
-        flat = torch.full((8 * (B + 2) + 13 * P2,), 0xA5, dtype=torch.uint8)
+        mb = met.element_size()
+        flat = torch.full((8 * (B + 2) + (8 + 5 * mb) * P2,), 0xA5,
+                          dtype=torch.uint8)
         err = fn(_ptr(counts), ctypes.c_int(counts.numel()),
                  ctypes.c_int(block),
-                 *[_ptr(t.contiguous()) for t in (keep, q, pc, met, max_freq,
-                                                  total_match)],
+                 *[_ptr(t.contiguous()) for t in (keep, q, pc, met)],
+                 ctypes.c_int(mb),
+                 *[_ptr(t.contiguous()) for t in (max_freq, total_match)],
                  _ptr(flat), ctypes.c_int(B), ctypes.c_int(P),
                  ctypes.c_int(P2))
         assert err == 0
@@ -143,17 +149,19 @@ def host_planes(tmp_path_factory):
     return run
 
 
-# slots K2's blocks, K4's warps (256 slots) and its chunks (2,048) start at,
-# and their last slots
-EDGES = (0, 31, 32, 63, 64, 127, 128, 255, 256, 2047, 2048, 2049, 4095,
-         4096)
+# slots K2's blocks, K4's lanes (16 slots), warps (512) and chunks (2,048)
+# start at, and their last slots
+EDGES = (0, 15, 16, 31, 32, 63, 64, 127, 128, 255, 256, 511, 512, 2047,
+         2048, 2049, 4095, 4096)
 
 
-def _slots(seed: int, B: int, P: int, block: int, pattern: str):
+def _slots(seed: int, B: int, P: int, block: int, pattern: str,
+           met_dtype=np.uint8):
     """Seeded scored slots as K2's slot entry leaves them: keep flags by
     ``pattern`` ("none", "all", "edges" or "random"), query-major queries,
-    random rows and uint8 metrics, per-query frequency maxima, the hit
-    total, and the kept slots of each block of ``block`` slots."""
+    random rows and metrics (uint8, or int32 up to 2**20 as from L 256),
+    per-query frequency maxima, the hit total, and the kept slots of each
+    block of ``block`` slots."""
     rng = np.random.default_rng(seed)
     if pattern == "none":
         keep = np.zeros(P, bool)
@@ -167,7 +175,8 @@ def _slots(seed: int, B: int, P: int, block: int, pattern: str):
         keep[rng.random(P) < 0.02] = True
     q = np.sort(rng.integers(0, B, P)).astype(np.int32)
     pc = rng.integers(0, 1 << 20, P).astype(np.int32)
-    met = rng.integers(0, 256, (5, P)).astype(np.uint8)
+    met = rng.integers(0, 256 if met_dtype == np.uint8 else 1 << 20,
+                       (5, P)).astype(met_dtype)
     max_freq = rng.integers(1, 1 << 40, B).astype(np.int64)
     keep_t = torch.from_numpy(keep)
     counts = torch.nn.functional.pad(keep_t, (0, -P % block)).view(
@@ -200,10 +209,15 @@ CASES = [
 ]
 
 
+@pytest.mark.parametrize("met_dtype", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
 @pytest.mark.parametrize("B,P,block,pattern,rule", CASES)
 def test_host_compact_equals_plain_and_jax(host_compact, host_compact_flat, B,
-                                           P, block, pattern, rule):
-    args = _slots(B + P + block, B, P, block, pattern)
+                                           P, block, pattern, rule,
+                                           met_dtype):
+    """uint8 metrics (below L 256) and int32 ones (from L 256, the JAX
+    pipeline's rule), each kept at its width through the buffer."""
+    args = _slots(B + P + block, B, P, block, pattern, met_dtype)
     keep, counts, _, q, pc, met, max_freq, total_match = args
     total = int(keep.sum())
     P2 = _p2(rule, total, P)
@@ -228,13 +242,17 @@ def test_host_compact_equals_plain_and_jax(host_compact, host_compact_flat, B,
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
 
 
-def test_pack_passes_the_kernels_buffer_on(host_compact_flat):
+@pytest.mark.parametrize("met_dtype", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
+def test_pack_passes_the_kernels_buffer_on(host_compact_flat, met_dtype):
     """K4's outputs are views of one buffer in ``_pack``'s order: ``_pack``
-    returns that buffer, not a copy, with the layout ``_unpack`` reads."""
-    args = _slots(1, 13, 1000, 128, "random")
+    returns that buffer, not a copy, with the layout ``_unpack`` reads; at
+    uint8 and at int32 metrics."""
+    args = _slots(1, 13, 1000, 128, "random", met_dtype)
     P2 = 300
     flat = host_compact_flat(*args, P2)
-    views = ppl._output_views(flat, 13, P2)
+    views = ppl._output_views(flat, 13, P2, args[5].dtype)
+    assert flat.numel() == 8 * 15 + (8 + 5 * args[5].element_size()) * P2
     packed, layout = ppl._pack(views)
     assert packed.data_ptr() == flat.data_ptr()
     assert packed.numel() == flat.numel() and torch.equal(packed, flat)
@@ -262,6 +280,7 @@ def test_compact_cpu_takes_the_plain_version():
         (keep, counts, block, q.long(), pc, met, max_freq, total_match),
         (keep, counts, block, q, pc[:-1], met, max_freq, total_match),
         (keep, counts, block, q, pc, met[:4], max_freq, total_match),
+        (keep, counts, block, q, pc, met.long(), max_freq, total_match),
         (keep, counts, block, q, pc, met.t().contiguous().t(), max_freq,
          total_match),  # not contiguous
         (keep, counts, block, q, pc, met, max_freq.int(), total_match),
@@ -290,7 +309,9 @@ def _jax_planes(q_counts, A: int, T: int):
     (13, 30, 7, 224),  # 210 columns padded to 224
     (4096, 26, 7, 192),
     (8, 8, 4, 32),  # no padding
-    (13, 5, 3, 16),  # a row of 4 words
+    (13, 5, 3, 16),  # a row of one 16-byte piece
+    (1000, 30, 7, 224),  # groups of 18 rows, the last one short
+    (5, 300, 15, 4512),  # a row of more pieces than a block has threads
 ])
 def test_host_planes_equal_plain_and_jax(host_planes, B, A, T, at_pad):
     rng = np.random.default_rng(B + A)

@@ -123,6 +123,20 @@ def test_cpu_tensors_take_the_plain_version():
         tdl.dl_lcs(*_t(a, al, b, bl), L + 1, window)
 
 
+def test_cpu_wide_tensors_take_the_plain_version():
+    """Above L 64 too, CPU tensors take the plain version: no launch is
+    counted, of either path."""
+    L, window = 80, 3
+    rng = np.random.default_rng(4)
+    a, al, b, bl = _random_pairs(rng, 40, L, sigma=5)
+    assert max(al.max(), bl.max()) > tdl.NARROW_LEN
+    before = (tdl.dl_lcs.launches, tdl.wide_path.launches)
+    ld, lcs = tdl.dl_lcs(*_t(a, al, b, bl), L, window)
+    pl, pc, _, _ = tdl.dl_metrics_windowed_plain(*_t(a, al, b, bl), L, window)
+    assert (tdl.dl_lcs.launches, tdl.wide_path.launches) == before
+    assert torch.equal(ld, pl) and torch.equal(lcs, pc)
+
+
 def _host_dp(tmp_path, entry="analiticcl_dl_lcs_host"):
     """The CUDA kernel's per-pair DP (csrc/dl_lcs.cu, compiled as plain C++
     with -DANALITICCL_HOST_TEST) as a function of numpy pairs: ``entry`` is
@@ -293,7 +307,7 @@ def host_slots_fn(build_dir):
             return tdl.SlotMetrics(*metrics.unbind(), same_first)
         s = score
         keep = torch.ones(P, dtype=torch.bool)
-        met = torch.full((5, P), 77, dtype=torch.uint8)
+        met = torch.full((5, P), 77, dtype=tdl.met_dtype(L))
         max_freq = (torch.zeros if s.freqs is not None else torch.ones)(
             B, dtype=torch.int64)
         f32 = torch.full((P,), float("nan")) if s.want_score else None
@@ -475,7 +489,7 @@ def test_host_scored_slot_entry_equals_plain(host_slots, L, window, dtype,
             s = s._replace(thr=sc.score[k].clone())
             got = host_slots(*args, score=s)
             want = tdl.score_slots_plain(m, q, pc, valid, L, s)
-            assert want.met.dtype == torch.uint8
+            assert want.met.dtype == tdl.met_dtype(L)
             for name, g, w in zip(tdl.SlotScore._fields, got, want):
                 assert g.dtype == w.dtype and torch.equal(g, w), name
             assert got.keep[k] and got.score[k] == s.thr
@@ -529,3 +543,170 @@ def test_slot_entry_cpu_takes_the_plain_version():
     with pytest.raises(ValueError, match="unsupported device"):
         tdl.dl_lcs_slots(index=meta_index, **meta, window=6)
     assert (tdl.dl_lcs.launches, tdl.dl_lcs_slots.launches) == before
+
+
+# ---- widths above 64: the byte path for pairs that fit, the wide path for
+# the rest (one warp a pair in the kernel, its lanes walked on the host) ----
+
+WIDE_LS = (65, 83, 100, 255, 256, 300, 1000)
+
+
+def _wide_pairs(rng, L: int):
+    """Pair strings at width ``L`` mixing both paths: near-identical pairs
+    (a few substitutions, a transposition, an insertion or a deletion) of
+    lengths above 64 and up to 64, pairs whose lengths differ by more than
+    the band (their DL is the DP's ``big``), a long string against a short
+    or empty one, both empty, and unrelated strings of random lengths."""
+    rows = []
+
+    def near(n):
+        s = list(rng.integers(1, 6, n))
+        t = list(s)
+        for _ in range(rng.integers(0, 4)):
+            k = int(rng.integers(0, len(t)))
+            op = rng.integers(0, 4)
+            if op == 0:
+                t[k] = int(rng.integers(1, 6))
+            elif op == 1 and k + 1 < len(t):
+                t[k], t[k + 1] = t[k + 1], t[k]
+            elif op == 2 and len(t) > 1:
+                del t[k]
+            elif len(t) < L:
+                t.insert(k, int(rng.integers(1, 6)))
+        return s, t[:L]
+
+    for n in (L, L - 1, 65, 66, (L + 64) // 2, 64, 40, 8, 1):
+        rows += [near(max(1, min(n, L))) for _ in range(3)]
+    for la, lb in ((L, L - 20), (L - 20, L), (70, 40), (64, 50), (L, 1),
+                   (1, L), (L, 0), (0, L), (0, 0)):
+        la, lb = max(0, min(la, L)), max(0, min(lb, L))
+        rows.append((list(rng.integers(1, 6, la)),
+                     list(rng.integers(1, 6, lb))))
+    for _ in range(12):
+        rows.append((list(rng.integers(1, 30, rng.integers(0, L + 1))),
+                     list(rng.integers(1, 30, rng.integers(0, L + 1)))))
+    P = len(rows)
+    a = np.full((P, L), tdl.PAD_A, np.int32)
+    b = np.full((P, L), tdl.PAD_B, np.int32)
+    al = np.zeros(P, np.int32)
+    bl = np.zeros(P, np.int32)
+    for p, (sa, sb) in enumerate(rows):
+        al[p], bl[p] = len(sa), len(sb)
+        a[p, :len(sa)] = sa
+        b[p, :len(sb)] = sb
+    return a, al, b, bl
+
+
+def _route_big(al, bl, L: int) -> np.ndarray:
+    """The DP's ``big`` on each pair's path: 2 * 64 + 8 on the byte path
+    (DP width 64 above L 64), 2L + 8 on the wide path. A pair whose
+    lengths differ by more than the band reads its DL there."""
+    wide = np.maximum(al, bl) > tdl.NARROW_LEN
+    return np.where(wide, 2 * L + 8, 2 * min(L, tdl.NARROW_LEN) + 8)
+
+
+@pytest.mark.parametrize("window", [3, 6, 12])
+@pytest.mark.parametrize("L", WIDE_LS)
+def test_host_pair_entry_wide_equals_plain(host_dp_lib, L, window):
+    """The pair-string entry's host build above L 64, on byte and on int
+    cells, against the plain version: DL clipped at window + 1 (the
+    kernel's contract), LCS exactly; both builds equal bit for bit (the
+    wide path is the same int-cell code in both). The routing: each path
+    gives its own ``big`` for pairs outside the band, and a mixed batch
+    takes both."""
+    host_u8, host_int = host_dp_lib
+    rng = np.random.default_rng(L + window)
+    a, al, b, bl = _wide_pairs(rng, L)
+    ld, lcs = host_u8(a, al, b, bl, L, window)
+    ld_i, lcs_i = host_int(a, al, b, bl, L, window)
+    np.testing.assert_array_equal(ld, ld_i)
+    np.testing.assert_array_equal(lcs, lcs_i)
+    want_ld, want_lcs, _, _ = tdl.dl_metrics_windowed_plain(
+        *_t(a, al, b, bl), L, window)
+    clip = window + 1
+    np.testing.assert_array_equal(np.minimum(ld, clip),
+                                  np.minimum(want_ld.numpy(), clip))
+    np.testing.assert_array_equal(lcs, want_lcs.numpy())
+    wide = np.maximum(al, bl) > tdl.NARROW_LEN
+    assert wide.any() and (~wide).any()
+    assert (ld[wide] <= window).any() and (ld[~wide] <= window).any()
+    out = (np.abs(al - bl) > window + 1) & (al > 0) & (bl > 0)
+    assert (out & wide).any() and (out & ~wide).any()
+    np.testing.assert_array_equal(ld[out], _route_big(al, bl, L)[out])
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32], ids=["int8", "int32"])
+@pytest.mark.parametrize("window", [3, 6, 12])
+@pytest.mark.parametrize("L", WIDE_LS)
+def test_host_slot_entry_wide_equals_plain(host_slots, host_dp_lib, L,
+                                           window, dtype):
+    """The slot entry's host build above L 64 against the plain
+    composition, as at L 8-64: LCS, prefix, suffix, query length,
+    threshold and case flag exactly, DL clipped at window + 1, and DL and
+    LCS exactly against the pair-string entry's host build on the gathered
+    strings (both entries route a pair alike). Some slots take each
+    path."""
+    index, (q_norms, q_lens, k_ed, q_fl), (q, pc, valid) = _slot_tables(
+        11 * L + window, L, dtype, B=24, P=64)
+    got = host_slots(index, q_norms, q_lens, k_ed, q_fl, q, pc, valid,
+                     window)
+    want = tdl.dl_lcs_slots_plain(index, q_norms, q_lens, k_ed, q_fl, q, pc,
+                                  valid, window)
+    for name, g, w in zip(tdl.SlotMetrics._fields[1:], got[1:], want[1:]):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    clip = window + 1
+    assert torch.equal(got[0].clamp(max=clip), want.ld.clamp(max=clip))
+    pr = tdl.gather_pairs(index, q_norms, q_lens, k_ed, q_fl, q, pc, valid)
+    ld_dp, lcs_dp = host_dp_lib[0](*(x.numpy() for x in (pr.a, pr.ql, pr.b,
+                                                          pr.cl)), L, window)
+    np.testing.assert_array_equal(got[0].numpy(), ld_dp)
+    np.testing.assert_array_equal(got[1].numpy(), lcs_dp)
+    wide = torch.maximum(pr.ql, pr.cl) > tdl.NARROW_LEN
+    v = valid
+    assert (wide & v).any() and (~wide & v).any()
+    assert (got[0][wide & v] <= window).any()
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32], ids=["int8", "int32"])
+@pytest.mark.parametrize("window", [3, 12])
+@pytest.mark.parametrize("L", [100, 256, 300])
+def test_host_scored_slot_entry_wide_equals_plain(host_slots, L, window,
+                                                  dtype):
+    """The scoring epilogue above L 64, on both paths: every output bit
+    for bit against the plain score of the host build's own metrics
+    (uint8 metrics at L 100, int32 from L 256, where an LCS, prefix or
+    suffix passes 255), and against the whole plain route the keep flags,
+    the frequency maxima, the block counts (64 slots a block; the wide
+    path's kept slots added to their blocks) and the kept slots' metrics
+    and scores, with StopAtExactMatch on and with frequencies."""
+    index, (q_norms, q_lens, k_ed, q_fl), (q, pc, valid) = _slot_tables(
+        17 * L + window, L, dtype, B=24, P=96)
+    # slot 0: query 2 (L long) against an exact copy of it, kept, so that
+    # its LCS, prefix and suffix are L
+    index.norms2[2] = torch.cat([q_norms[2], q_norms[2].flip(0)])
+    index.norm_lens[2] = L
+    q[0], pc[0], valid[0] = 2, 2, True
+    k_ed = k_ed.clamp(max=window)
+    B, P = q_lens.shape[0], q.shape[0]
+    args = (index, q_norms, q_lens, k_ed, q_fl, q, pc, valid, window)
+    m = host_slots(*args)
+    s = _score_inputs(L + window, index, B, P, "default")._replace(
+        thr=torch.tensor(0.3))
+    band = int(s.pc_band[0])
+    s.exact_q[2, band >> 3] |= 1 << (band & 7)
+    got = host_slots(*args, score=s)
+    want = tdl.score_slots_plain(m, q, pc, valid, L, s)
+    assert got.met.dtype == tdl.met_dtype(L)
+    for name, g, w in zip(tdl.SlotScore._fields, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    plain = tdl.dl_lcs_slots(*args, score=s)  # CPU: the plain route
+    keep = got.keep
+    assert torch.equal(plain.keep, keep)
+    assert torch.equal(plain.max_freq, got.max_freq)
+    assert torch.equal(plain.counts, got.counts)
+    assert torch.equal(plain.met[:, keep], got.met[:, keep])
+    assert torch.equal(plain.score[keep], got.score[keep])
+    wide = torch.maximum(m.ql, index.norm_lens[pc.long()]) > tdl.NARROW_LEN
+    assert (keep & wide).any() and (keep & ~wide).any()
+    if L >= 256:
+        assert int(got.met[1:4, keep].max()) > 255
