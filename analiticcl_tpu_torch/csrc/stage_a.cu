@@ -41,9 +41,22 @@
 // (111.6 KB of shared memory, at most 128 registers a thread at AT 224), so
 // one block's epilogue overlaps the other's loads and products. Wider
 // planes (AT = A x T, T the largest count of one character in one entry:
-// long lexicon entries) take 64 queries a block from AT 608 and 32 from
-// AT 832, so that the planes, the ring and the bit tiles still fit the
-// block's 227 KB; above AT 960 nothing fits and the launch refuses.
+// long lexicon entries) keep 128 resident queries up to AT 576.
+//   Above that the streamed instance (`stage_a_kernel_stream`) takes any
+// width: no planes stay resident. For each 64-row chunk it walks the
+// planes in k-chunks of KC = 64 bytes, and each step (chunk, k-chunk)
+// brings the queries' piece [qt, 64] and the rows' piece [64, 64] through
+// a four-stage cp.async ring; the accumulators stay in the same m16n8k32
+// registers across the k-chunks, and after a chunk's last k-chunk the same
+// fused epilogue runs. Its shared memory (96.5 KB at 128 queries) does not
+// depend on AT, so two blocks fit an SM at any width. It reads the
+// queries' planes from L2 once per 64 rows (twice the band's bytes); the
+// tensor cores wait on L2 more than in the resident instances. (Where both
+// fit, it took the time of a resident block of 64 queries at AT 608 and
+// 0.6x that of one of 32 at AT 864 and 960, on an H100, so the resident
+// blocks of fewer queries are gone.)
+//   `k1_route` picks the instance from the shape before the launch: the
+// main one at AT 224, a resident one while the planes fit, else streamed.
 // Planes are padded to a multiple of 32 bytes (one k-step) by convert.py;
 // shared-memory rows carry 16 spare bytes so that ldmatrix's eight row
 // reads hit distinct banks. When qt < 128 the unused MMA rows hold zero
@@ -65,7 +78,11 @@
 // With -DANALITICCL_HOST_TEST the epilogue (fragment predicates, the lane
 // words, the counts and the stores) compiles as plain C++, driven by
 // `analiticcl_stage_a_host` from accumulators given in fragment order, so its
-// arithmetic is checked on a machine without a card.
+// arithmetic is checked on a machine without a card; and
+// `analiticcl_stage_a_stream_host` walks the streamed instance's loop nest
+// (row chunk x k-chunk x ring stage) through the same offset helpers, with a
+// scalar dot in place of mma, into the same epilogue. `k1_route` compiles
+// on both sides.
 
 #ifndef ANALITICCL_HOST_TEST
 #include <cuda_runtime.h>
@@ -98,10 +115,73 @@ constexpr int WORDS = ROW_BLOCK / 32;      // bit words per query and block
 constexpr int WSTRIDE = WORDS + 1;         // odd: conflict-free bit tile
 constexpr int NACC = 32;                   // accumulators per lane
 constexpr int NEVER = -2147483647 - 1;     // a term no element meets
+// the streamed instance: plane bytes per k-chunk, its ring's depth, and the
+// bytes of a k-chunk row in shared memory (16 spare, as in the resident
+// instances)
+constexpr int KC = 64;
+constexpr int SSTAGE = 4;
+constexpr int SROW = KC + 16;
+constexpr int KPIECES = KC / 16;  // 16-byte pieces of a k-chunk row
 
-// Query rows a block holds in shared memory (planes, bit tiles): its qt
-// queries rounded up to whole warp query groups of 32.
+// K1's instances, as `k1_route` picks them and the C entry takes them
+enum { K1_NONE = 0, K1_MAIN = 1, K1_RESIDENT = 2, K1_STREAM = 3 };
+
+// Query rows a streamed block holds in shared memory (plane pieces, bit
+// tiles): its qt queries rounded up to whole warp query groups of 32.
 HDFN int tile_rows(int qt) { return (qt + 31) & ~31; }
+
+// Dynamic shared memory of a resident block (128 query rows).
+HDFN size_t smem_bytes(int at_pad) {
+  const size_t rstride = (size_t)at_pad + 16;
+  return QT_MAX * rstride + NSTAGE * (CHUNK * rstride + CHUNK * 4 + CHUNK) +
+         2 * sizeof(unsigned) * QT_MAX * WSTRIDE;
+}
+
+// One stage of the streamed ring: `rows` query rows and the chunk's 64 band
+// rows of one k-chunk, then the chunk's charcounts and valid flags.
+HDFN size_t stream_stage_bytes(int rows) {
+  return (size_t)(rows + CHUNK) * SROW + CHUNK * 4 + CHUNK;
+}
+
+// Dynamic shared memory of a streamed block holding `rows` query rows: the
+// same at any plane width.
+HDFN size_t stream_smem_bytes(int rows) {
+  return SSTAGE * stream_stage_bytes(rows) +
+         2 * sizeof(unsigned) * rows * WSTRIDE;
+}
+
+// The instance for planes at_pad wide, qt queries a block and a block's
+// shared-memory `limit`, decided from the shape alone: the main one at the
+// main path's AT 224, a resident one while 128 queries' planes fit (up to
+// AT 576 on an H100), else streamed; K1_NONE when nothing fits.
+HDFN int k1_route(int at_pad, int qt, size_t limit) {
+  if (smem_bytes(at_pad) <= limit) return at_pad == 7 * 32 ? K1_MAIN : K1_RESIDENT;
+  return stream_smem_bytes(tile_rows(qt)) <= limit ? K1_STREAM : K1_NONE;
+}
+
+// k-chunks of the planes, and the bytes of k-chunk kc (the last one may be
+// narrower: at_pad is a multiple of 32, not of KC).
+HDFN int kchunks(int at_pad) { return (at_pad + KC - 1) / KC; }
+HDFN int kchunk_cols(int at_pad, int kc) {
+  const int w = at_pad - kc * KC;
+  return w < KC ? w : KC;
+}
+
+// Piece i of a streamed step (rows of KPIECES pieces of 16 bytes): stage
+// rows [0, qt) take the block's queries q0 + row, rows [qs, qs + CHUNK) the
+// chunk's band rows r0 + row - qs; k-chunk kc has w16 pieces a row. Sets
+// the piece's byte offset in the stage and in its source (qbin or bins);
+// false for a piece that loads nothing (query rows past qt stay zero).
+HDFN bool stream_piece(int i, int qt, int qs, int q0, int r0, int at_pad,
+                       int kc, int w16, int* dst, size_t* src, bool* from_q) {
+  const int row = i / KPIECES, col = i - row * KPIECES;
+  if (col >= w16 || (row >= qt && row < qs)) return false;
+  *dst = row * SROW + col * 16;
+  *from_q = row < qs;
+  const size_t src_row = *from_q ? (size_t)(q0 + row) : (size_t)(r0 + row - qs);
+  *src = src_row * at_pad + (size_t)kc * KC + col * 16;
+  return true;
+}
 
 // A warp's tile is 32 queries x 32 band rows, 2 x 4 m16n8 tiles. Accumulator
 // acc[(mi * 4 + ni) * 4 + reg] of lane (g = lane / 4, t = lane % 4) is the
@@ -161,9 +241,26 @@ DEVFN void query_terms(int c, int qt, int q0, const int* q_cc,
   }
 }
 
+// The rcc terms of lane (rg, t)'s 8 rows of a chunk, from the chunk's 64
+// charcounts and valid flags.
+DEVFN void lane_rows(const int* cc_c, const uint8_t* val_c, int rg, int t,
+                     int* rcc) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = rg * 32 + 8 * (r >> 1) + 2 * t + (r & 1);
+    rcc[r] = row_term(cc_c[row], val_c[row] != 0);
+  }
+}
+
 // w[t] without a dynamically indexed array
 DEVFN unsigned pick(const unsigned* w, int t) {
   return (t & 2) ? ((t & 1) ? w[3] : w[2]) : ((t & 1) ? w[1] : w[0]);
+}
+
+// The bit-tile word of chunk `chunk` that lane (g, t) of the warp (qg, rg)
+// writes: query 8 t + g's 32 rows.
+DEVFN int word_index(int qg, int rg, int g, int t, int chunk) {
+  return (qg * 32 + 8 * t + g) * WSTRIDE + chunk * 2 + rg;
 }
 
 // Output step i of a block's packed_q / exact_q stores: query c = i / 32,
@@ -252,10 +349,49 @@ __device__ __forceinline__ void load_a(unsigned (*a)[4], unsigned a_addr,
   ldmatrix_x4(a[1], a_addr + 16 * rstride + ks * 32);
 }
 
+// A chunk's epilogue for one lane: its fragment words from the chunk's
+// charcounts and valid flags (`tail`: 64 int32, then 64 bytes), the four
+// lanes of each query joined, and the lane's word into the bit tiles.
+__device__ __forceinline__ void chunk_words(
+    const int* acc, const unsigned char* tail, int qg, int rg, int g, int t,
+    int chunk, const int* kq, const int* nq, const int* lo, const int* hi,
+    unsigned* hit_w, unsigned* ex_w) {
+  int rcc[8];
+  lane_rows(reinterpret_cast<const int*>(tail), tail + CHUNK * 4, rg, t, rcc);
+  unsigned hw[4], ew[4];
+  fragment_words(acc, t, rcc, kq, nq, lo, hi, hw, ew);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // join the four lanes of each query
+    hw[k] |= __shfl_xor_sync(0xffffffffu, hw[k], 1);
+    hw[k] |= __shfl_xor_sync(0xffffffffu, hw[k], 2);
+    ew[k] |= __shfl_xor_sync(0xffffffffu, ew[k], 1);
+    ew[k] |= __shfl_xor_sync(0xffffffffu, ew[k], 2);
+  }
+  // lane (g, t) keeps query 8 t + g's words
+  const int w = word_index(qg, rg, g, t, chunk);
+  hit_w[w] = pick(hw, t);
+  ex_w[w] = pick(ew, t);
+}
+
+// The block's stores after its last chunk: packed_q / exact_q, the
+// per-128-row counts and the totals, from the bit tiles.
+__device__ __forceinline__ void block_stores(
+    const unsigned* hit_w, const unsigned* ex_w, int tid, int qt, int q0,
+    int band_blk, int nb_band, int B, uint8_t* packed_q, uint8_t* exact_q,
+    int* counts_t, int* nmatch, int* nexact) {
+  const size_t bytes_per_q = (size_t)nb_band * (ROW_BLOCK / 8);
+  for (int i = tid; i < qt * WORDS; i += NTHREAD)
+    store_mask_word(i, hit_w, ex_w, q0, band_blk, bytes_per_q, packed_q, exact_q);
+  for (int i = tid; i < qt * (ROW_BLOCK / 128); i += NTHREAD)
+    store_count(i, hit_w, qt, q0, band_blk, B, counts_t);
+  for (int c = tid; c < qt; c += NTHREAD)
+    add_totals(c, hit_w, ex_w, q0, nmatch, nexact);
+}
+
 // KS > 0: at_pad == 32 * KS, and each warp keeps its queries' A fragments
 // in registers for the whole block (2 x 4 x KS of them); KS == 0: any
-// at_pad, A fragments reloaded by ldmatrix at every k-step.
-template <int KS, int QS>
+// at_pad that fits, A fragments reloaded by ldmatrix at every k-step.
+template <int KS>
 __global__ void __launch_bounds__(NTHREAD, 2)
 stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
                const uint8_t* __restrict__ validrows,
@@ -267,7 +403,7 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
   extern __shared__ __align__(16) unsigned char smem[];
   const int rstride = at_pad + 16;  // bytes per plane row in shared memory
   const int stage_bytes = CHUNK * rstride + CHUNK * 4 + CHUNK;
-  const int qs = QS ? QS : tile_rows(qt);  // QS 0: wide planes
+  const int qs = QT_MAX;
   unsigned char* q_s = smem;                          // [qs][rstride]
   unsigned char* stages = q_s + qs * rstride;         // NSTAGE x stage
   unsigned* hit_w =
@@ -396,31 +532,146 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
     add_totals(c, hit_w, ex_w, q0, nmatch, nexact);
 }
 
-// Dynamic shared memory of a block holding `rows` query rows.
-size_t smem_bytes(int at_pad, int rows) {
-  const size_t rstride = (size_t)at_pad + 16;
-  return rows * rstride + NSTAGE * (CHUNK * rstride + CHUNK * 4 + CHUNK) +
-         2 * sizeof(unsigned) * rows * WSTRIDE;
+// The streamed instance, at any at_pad (see the note at the top): step s
+// is row chunk s / nk and k-chunk s % nk, in ring stage s % SSTAGE; the
+// accumulators carry over the chunk's k-chunks.
+__global__ void __launch_bounds__(NTHREAD, 2)
+stage_a_kernel_stream(const int8_t* __restrict__ bins,
+                      const int* __restrict__ cc,
+                      const uint8_t* __restrict__ validrows,
+                      const int8_t* __restrict__ qbin,
+                      const int* __restrict__ q_cc,
+                      const int* __restrict__ k_ana,
+                      const int* __restrict__ k_len,
+                      const int* __restrict__ start_blk, uint8_t* packed_q,
+                      uint8_t* exact_q, int* counts_t, int* nmatch,
+                      int* nexact, int B, int at_pad, int nb_band, int bt,
+                      int qt) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int qs = tile_rows(qt);
+  const int stage_bytes = (int)stream_stage_bytes(qs);
+  unsigned char* stages = smem;  // SSTAGE x stage
+  unsigned* hit_w =
+      reinterpret_cast<unsigned*>(stages + SSTAGE * stage_bytes);  // [qs][WSTRIDE]
+  unsigned* ex_w = hit_w + qs * WSTRIDE;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rg = warp & 1, qg = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * qt;
+  const int band_blk = blockIdx.y;
+  const int row_base = (start_blk[q0 / bt] + band_blk) * ROW_BLOCK;
+  const int nk = kchunks(at_pad), nsteps = NCHUNK * nk;
+
+  // query rows past qt are zero in every stage (no load writes them)
+  const int pad16 = (qs - qt) * SROW / 16;
+  for (int i = tid; i < SSTAGE * pad16; i += NTHREAD) {
+    const int s = i / pad16, j = i - s * pad16;
+    *reinterpret_cast<int4*>(stages + s * stage_bytes + qt * SROW + j * 16) =
+        make_int4(0, 0, 0, 0);
+  }
+
+  auto load_step = [&](int s) {
+    const int chunk = s / nk, kc = s - chunk * nk;
+    unsigned char* st = stages + (s % SSTAGE) * stage_bytes;
+    const int r0 = row_base + chunk * CHUNK;
+    const int w16 = kchunk_cols(at_pad, kc) / 16;
+    for (int i = tid; i < (qs + CHUNK) * KPIECES; i += NTHREAD) {
+      int dst;
+      size_t src;
+      bool from_q;
+      if (stream_piece(i, qt, qs, q0, r0, at_pad, kc, w16, &dst, &src, &from_q))
+        cp_async16(st + dst, (from_q ? qbin : bins) + src);
+    }
+    if (kc == nk - 1) {  // the chunk's charcounts and flags, for its epilogue
+      unsigned char* tail = st + (qs + CHUNK) * SROW;
+      if (tid < CHUNK / 4)
+        cp_async16(tail + tid * 16,
+                   reinterpret_cast<const uint8_t*>(cc + r0) + tid * 16);
+      else if (tid < CHUNK / 4 + CHUNK / 16)
+        cp_async16(tail + CHUNK * 4 + (tid - CHUNK / 4) * 16,
+                   validrows + r0 + (tid - CHUNK / 4) * 16);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < SSTAGE - 1; ++s) {
+    if (s < nsteps) load_step(s);
+    cp_async_commit();
+  }
+
+  int kq[4], nq[4], lo[4], hi[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    query_terms(qg * 32 + 8 * k + g, qt, q0, q_cc, k_ana, k_len, &kq[k],
+                &nq[k], &lo[k], &hi[k]);
+  const bool active = qg * 32 < qt;  // warp-uniform
+  // ldmatrix row offsets in a stage, as in the resident instances (the band
+  // rows start at stage row qs)
+  const int a_off =
+      (qg * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * SROW + (lane >> 4) * 16;
+  const int b_off = (qs + rg * 32 + (lane & 7) + (lane >> 4) * 8) * SROW +
+                    ((lane >> 3) & 1) * 16;
+  const unsigned ring = (unsigned)__cvta_generic_to_shared(stages);
+
+  int acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+  int chunk = 0, kc = 0;
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<SSTAGE - 2>();
+    __syncthreads();  // step s landed; the stage of step s - 1 is free
+    if (s + SSTAGE - 1 < nsteps) load_step(s + SSTAGE - 1);
+    cp_async_commit();
+    if (active) {
+      const int stage = s % SSTAGE;
+      const unsigned st = ring + stage * stage_bytes;
+      const int ksn = kchunk_cols(at_pad, kc) / 32;
+#pragma unroll
+      for (int ks = 0; ks < KC / 32; ++ks) {
+        if (ks < ksn) {
+          unsigned a[2][4];
+          load_a(a, st + a_off, SROW, ks);
+          kstep(acc, a, st + b_off, SROW, ks);
+        }
+      }
+      if (kc == nk - 1) {
+        chunk_words(acc, stages + stage * stage_bytes + (qs + CHUNK) * SROW,
+                    qg, rg, g, t, chunk, kq, nq, lo, hi, hit_w, ex_w);
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] = 0;
+      }
+    }
+    if (++kc == nk) {
+      kc = 0;
+      ++chunk;
+    }
+  }
+  __syncthreads();
+  block_stores(hit_w, ex_w, tid, qt, q0, band_blk, nb_band, B, packed_q,
+               exact_q, counts_t, nmatch, nexact);
 }
 
-template <int KS, int QS>
-int launch_q(const void* bins, const void* cc, const void* validrows,
-             const void* qbin, const void* q_cc, const void* k_ana,
-             const void* k_len, const void* start_blk, void* packed_q,
-             void* exact_q, void* counts_t, void* nmatch, void* nexact, int B,
-             int at_pad, int nb_band, int bt, int qt, cudaStream_t stream) {
-  const size_t smem = smem_bytes(at_pad, QS ? QS : tile_rows(qt));
+struct Args {
+  const void *bins, *cc, *validrows, *qbin, *q_cc, *k_ana, *k_len, *start_blk;
+  void *packed_q, *exact_q, *counts_t, *nmatch, *nexact;
+  int B, at_pad, nb_band, bt;
+};
+
+template <typename Kernel>
+int launch_kernel(Kernel kernel, const Args& a, int qt, size_t smem,
+                  cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      stage_a_kernel<KS, QS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B / qt, nb_band), block(NTHREAD);
-  stage_a_kernel<KS, QS><<<grid, block, smem, stream>>>(
-      (const int8_t*)bins, (const int*)cc, (const uint8_t*)validrows,
-      (const int8_t*)qbin, (const int*)q_cc, (const int*)k_ana,
-      (const int*)k_len, (const int*)start_blk, (uint8_t*)packed_q,
-      (uint8_t*)exact_q, (int*)counts_t, (int*)nmatch, (int*)nexact, B, at_pad,
-      nb_band, bt, qt);
+  const dim3 grid(a.B / qt, a.nb_band), block(NTHREAD);
+  kernel<<<grid, block, smem, stream>>>(
+      (const int8_t*)a.bins, (const int*)a.cc, (const uint8_t*)a.validrows,
+      (const int8_t*)a.qbin, (const int*)a.q_cc, (const int*)a.k_ana,
+      (const int*)a.k_len, (const int*)a.start_blk, (uint8_t*)a.packed_q,
+      (uint8_t*)a.exact_q, (int*)a.counts_t, (int*)a.nmatch, (int*)a.nexact,
+      a.B, a.at_pad, a.nb_band, a.bt, qt);
   return (int)cudaGetLastError();
 }
 
@@ -437,47 +688,41 @@ cudaError_t smem_limit(size_t& limit) {
   limit = (size_t)limits[dev];
   return e;
 }
-
-template <int KS>
-int launch(const void* bins, const void* cc, const void* validrows,
-           const void* qbin, const void* q_cc, const void* k_ana,
-           const void* k_len, const void* start_blk, void* packed_q,
-           void* exact_q, void* counts_t, void* nmatch, void* nexact, int B,
-           int at_pad, int nb_band, int bt, int qt, cudaStream_t stream) {
-  size_t limit = 0;
-  const cudaError_t e = smem_limit(limit);
-  if (e != cudaSuccess) return (int)e;
-  if (KS > 0 || smem_bytes(at_pad, QT_MAX) <= limit)
-    return launch_q<KS, QT_MAX>(bins, cc, validrows, qbin, q_cc, k_ana,
-                                k_len, start_blk, packed_q, exact_q,
-                                counts_t, nmatch, nexact, B, at_pad, nb_band,
-                                bt, qt, stream);
-  // wide planes (a lexicon whose entries hold many of one character): fewer
-  // queries a block, so that their planes and bit tiles still fit
-  while (smem_bytes(at_pad, tile_rows(qt)) > limit && qt > 32 && qt % 2 == 0)
-    qt /= 2;
-  if (smem_bytes(at_pad, tile_rows(qt)) > limit)
-    return (int)cudaErrorInvalidValue;
-  return launch_q<0, 0>(bins, cc, validrows, qbin, q_cc, k_ana, k_len,
-                        start_blk, packed_q, exact_q, counts_t, nmatch,
-                        nexact, B, at_pad, nb_band, bt, qt, stream);
-}
 #endif
 
 }  // namespace
 
+// The instance (K1_MAIN 1, K1_RESIDENT 2, K1_STREAM 3; 0 where none fits)
+// for planes at_pad wide, qt queries a block and a block's shared-memory
+// limit in bytes; on the card a negative limit reads the current device's
+// (and a failed read returns minus the CUDA error).
+extern "C" int analiticcl_stage_a_route(int at_pad, int qt, long long limit) {
 #ifndef ANALITICCL_HOST_TEST
+  if (limit < 0) {
+    size_t dev_limit = 0;
+    const cudaError_t e = smem_limit(dev_limit);
+    if (e != cudaSuccess) return -(int)e;
+    limit = (long long)dev_limit;
+  }
+#endif
+  return k1_route(at_pad, qt, limit < 0 ? 0 : (size_t)limit);
+}
+
+#ifndef ANALITICCL_HOST_TEST
+
 // bins int8 [Ni, at_pad] (at_pad % 32 == 0), cc int32 [Ni], validrows
 // uint8 [Ni], qbin int8 [B, at_pad], q_cc / k_ana / k_len int32 [B],
 // start_blk int32 [B / bt] with (start_blk[t] + nb_band) * 1024 <= Ni (the
 // band plan clamps it so). Every pointer 16-byte aligned. nmatch / nexact
 // must be zeroed by the caller. qt <= 128 divides bt, and bt divides B.
+// `instance` is the one `analiticcl_stage_a_route` gives; one that does
+// not fit this shape returns cudaErrorInvalidValue without a launch.
 extern "C" int analiticcl_stage_a(
     const void* bins, const void* cc, const void* validrows, const void* qbin,
     const void* q_cc, const void* k_ana, const void* k_len,
     const void* start_blk, void* packed_q, void* exact_q, void* counts_t,
     void* nmatch, void* nexact, int B, int at_pad, int nb_band, int bt, int qt,
-    void* stream) {
+    int instance, void* stream) {
   if (B <= 0 || nb_band <= 0) return 0;
   if (at_pad <= 0 || at_pad % 32 || qt < 1 || qt > QT_MAX || bt % qt || B % bt)
     return (int)cudaErrorInvalidValue;
@@ -485,16 +730,76 @@ extern "C" int analiticcl_stage_a(
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorMisalignedAddress;
   if (nb_band > 65535) return (int)cudaErrorInvalidValue;  // grid y
+  size_t limit = 0;
+  const cudaError_t e = smem_limit(limit);
+  if (e != cudaSuccess) return (int)e;
+  const Args a{bins,     cc,      validrows, qbin,   q_cc,
+               k_ana,    k_len,   start_blk, packed_q, exact_q,
+               counts_t, nmatch,  nexact,    B,       at_pad,
+               nb_band,  bt};
   auto st = (cudaStream_t)stream;
-  if (at_pad == 7 * 32)  // the main path's 210 planes, padded
-    return launch<7>(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
-                     packed_q, exact_q, counts_t, nmatch, nexact, B, at_pad,
-                     nb_band, bt, qt, st);
-  return launch<0>(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
-                   packed_q, exact_q, counts_t, nmatch, nexact, B, at_pad,
-                   nb_band, bt, qt, st);
+  if (instance == K1_MAIN || instance == K1_RESIDENT) {
+    if (smem_bytes(at_pad) > limit || (instance == K1_MAIN) != (at_pad == 7 * 32))
+      return (int)cudaErrorInvalidValue;
+    // the main path's 210 planes, padded, or any width that fits
+    return launch_kernel(instance == K1_MAIN ? stage_a_kernel<7> : stage_a_kernel<0>,
+                         a, qt, smem_bytes(at_pad), st);
+  }
+  if (instance == K1_STREAM) {
+    const size_t smem = stream_smem_bytes(tile_rows(qt));
+    if (smem > limit) return (int)cudaErrorInvalidValue;
+    return launch_kernel(stage_a_kernel_stream, a, qt, smem, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 #else
+namespace {
+// One warp's epilogue on the host: its lanes' accumulators (32 lanes x
+// NACC, fragment order) against the chunk's 64 charcounts and valid flags,
+// the shfl_xor joins done in turn, and the lanes' words into the bit tiles.
+void host_warp_words(const int* acc, const int* cc_c, const uint8_t* val_c,
+                     int qg, int rg, int chunk, int qt, int q0,
+                     const int* q_cc, const int* k_ana, const int* k_len,
+                     unsigned* hit_w, unsigned* ex_w) {
+  unsigned hw[32][4], ew[32][4];
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, t = lane & 3;
+    int rcc[8], kq[4], nq[4], lo[4], hi[4];
+    lane_rows(cc_c, val_c, rg, t, rcc);
+    for (int k = 0; k < 4; ++k)
+      query_terms(qg * 32 + 8 * k + g, qt, q0, q_cc, k_ana, k_len, &kq[k],
+                  &nq[k], &lo[k], &hi[k]);
+    fragment_words(acc + lane * NACC, t, rcc, kq, nq, lo, hi, hw[lane],
+                   ew[lane]);
+  }
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, t = lane & 3;
+    unsigned h[4] = {0, 0, 0, 0}, e[4] = {0, 0, 0, 0};
+    for (int k = 0; k < 4; ++k)
+      for (int tt = 0; tt < 4; ++tt) {  // the shfl_xor joins
+        h[k] |= hw[4 * g + tt][k];
+        e[k] |= ew[4 * g + tt][k];
+      }
+    const int w = word_index(qg, rg, g, t, chunk);
+    hit_w[w] = pick(h, t);
+    ex_w[w] = pick(e, t);
+  }
+}
+
+void host_block_stores(const unsigned* hit_w, const unsigned* ex_w, int qt,
+                       int q0, int band_blk, int nb_band, int B,
+                       uint8_t* packed_q, uint8_t* exact_q, int* counts_t,
+                       int* nmatch, int* nexact) {
+  const size_t bytes_per_q = (size_t)nb_band * (ROW_BLOCK / 8);
+  for (int i = 0; i < qt * WORDS; ++i)
+    store_mask_word(i, hit_w, ex_w, q0, band_blk, bytes_per_q, packed_q,
+                    exact_q);
+  for (int i = 0; i < qt * (ROW_BLOCK / 128); ++i)
+    store_count(i, hit_w, qt, q0, band_blk, B, counts_t);
+  for (int c = 0; c < qt; ++c) add_totals(c, hit_w, ex_w, q0, nmatch, nexact);
+}
+}  // namespace
+
 // The kernel's epilogue on the host, one block and one warp at a time, from
 // accumulators in fragment order: acc int32
 // [B / qt][nb_band][16 chunks][8 warps][32 lanes][32] (see fragment_words;
@@ -507,7 +812,6 @@ extern "C" void analiticcl_stage_a_host(
     uint8_t* packed_q, uint8_t* exact_q, int* counts_t, int* nmatch,
     int* nexact, int B, int nb_band, int bt, int qt) {
   std::vector<unsigned> hit_w(QT_MAX * WSTRIDE), ex_w(QT_MAX * WSTRIDE);
-  const size_t bytes_per_q = (size_t)nb_band * (ROW_BLOCK / 8);
   for (int qb = 0; qb < B / qt; ++qb)
     for (int band_blk = 0; band_blk < nb_band; ++band_blk) {
       const int q0 = qb * qt;
@@ -516,43 +820,104 @@ extern "C" void analiticcl_stage_a_host(
         for (int warp = 0; warp < NWARP; ++warp) {
           const int rg = warp & 1, qg = warp >> 1;
           if (qg * 32 >= qt) continue;
-          unsigned hw[32][4], ew[32][4];
+          const size_t f =
+              (((size_t)qb * nb_band + band_blk) * NCHUNK + chunk) * NWARP + warp;
+          const int r0 = row_base + chunk * CHUNK;
+          host_warp_words(acc + f * 32 * NACC, cc + r0, validrows + r0, qg,
+                          rg, chunk, qt, q0, q_cc, k_ana, k_len,
+                          hit_w.data(), ex_w.data());
+        }
+      host_block_stores(hit_w.data(), ex_w.data(), qt, q0, band_blk, nb_band,
+                        B, packed_q, exact_q, counts_t, nmatch, nexact);
+    }
+}
+
+// The streamed instance on the host: the kernel's loop nest for each block
+// (row chunk x k-chunk, each step's pieces placed in its ring stage by
+// `stream_piece` and step s + SSTAGE - 1 loaded before step s is used, over
+// a ring that starts with stale bytes), each lane's accumulators summed by
+// a scalar dot over the stage's rows in fragment order, and the epilogue
+// reading the charcounts and flags from the stage. Arguments and outputs as
+// `analiticcl_stage_a`'s (host pointers; nmatch / nexact zeroed by the
+// caller).
+extern "C" void analiticcl_stage_a_stream_host(
+    const int8_t* bins, const int* cc, const uint8_t* validrows,
+    const int8_t* qbin, const int* q_cc, const int* k_ana, const int* k_len,
+    const int* start_blk, uint8_t* packed_q, uint8_t* exact_q, int* counts_t,
+    int* nmatch, int* nexact, int B, int at_pad, int nb_band, int bt,
+    int qt) {
+  const int qs = tile_rows(qt);
+  const size_t stage_bytes = stream_stage_bytes(qs);
+  const int nk = kchunks(at_pad), nsteps = NCHUNK * nk;
+  std::vector<unsigned char> ring(SSTAGE * stage_bytes);
+  std::vector<unsigned> hit_w(qs * WSTRIDE), ex_w(qs * WSTRIDE);
+  std::vector<int> acc(NWARP * 32 * NACC);
+  for (int qb = 0; qb < B / qt; ++qb)
+    for (int band_blk = 0; band_blk < nb_band; ++band_blk) {
+      const int q0 = qb * qt;
+      const int row_base = (start_blk[q0 / bt] + band_blk) * ROW_BLOCK;
+      std::memset(ring.data(), 0xA5, ring.size());
+      for (int s = 0; s < SSTAGE; ++s)
+        std::memset(ring.data() + s * stage_bytes + qt * SROW, 0,
+                    (size_t)(qs - qt) * SROW);
+      auto load_step = [&](int s) {
+        const int chunk = s / nk, kc = s - chunk * nk;
+        unsigned char* st = ring.data() + (s % SSTAGE) * stage_bytes;
+        const int r0 = row_base + chunk * CHUNK;
+        const int w16 = kchunk_cols(at_pad, kc) / 16;
+        for (int i = 0; i < (qs + CHUNK) * KPIECES; ++i) {
+          int dst;
+          size_t src;
+          bool from_q;
+          if (stream_piece(i, qt, qs, q0, r0, at_pad, kc, w16, &dst, &src,
+                           &from_q))
+            std::memcpy(st + dst, (from_q ? qbin : bins) + src, 16);
+        }
+        if (kc == nk - 1) {
+          unsigned char* tail = st + (qs + CHUNK) * SROW;
+          std::memcpy(tail, cc + r0, CHUNK * 4);
+          std::memcpy(tail + CHUNK * 4, validrows + r0, CHUNK);
+        }
+      };
+      for (int s = 0; s < SSTAGE - 1 && s < nsteps; ++s) load_step(s);
+      std::fill(acc.begin(), acc.end(), 0);
+      for (int s = 0; s < nsteps; ++s) {
+        if (s + SSTAGE - 1 < nsteps) load_step(s + SSTAGE - 1);
+        const int chunk = s / nk, kc = s - chunk * nk;
+        const unsigned char* st = ring.data() + (s % SSTAGE) * stage_bytes;
+        const int width = kchunk_cols(at_pad, kc);
+        for (int warp = 0; warp < NWARP; ++warp) {
+          const int rg = warp & 1, qg = warp >> 1;
+          if (qg * 32 >= qt) continue;
           for (int lane = 0; lane < 32; ++lane) {
             const int g = lane >> 2, t = lane & 3;
-            int rcc[8], kq[4], nq[4], lo[4], hi[4];
-            for (int r = 0; r < 8; ++r) {
-              const int row = row_base + chunk * CHUNK + rg * 32 +
-                              8 * (r >> 1) + 2 * t + (r & 1);
-              rcc[r] = row_term(cc[row], validrows[row] != 0);
+            int* a = acc.data() + (warp * 32 + lane) * NACC;
+            for (int e = 0; e < NACC; ++e) {
+              const int mi = e / 16, ni = (e / 4) % 4, reg = e % 4;
+              const int8_t* qrow = reinterpret_cast<const int8_t*>(
+                  st + (qg * 32 + 16 * mi + 8 * (reg >> 1) + g) * SROW);
+              const int8_t* brow = reinterpret_cast<const int8_t*>(
+                  st + (qs + rg * 32 + 8 * ni + 2 * t + (reg & 1)) * SROW);
+              int dot = 0;
+              for (int c = 0; c < width; ++c) dot += qrow[c] * brow[c];
+              a[e] += dot;
             }
-            for (int k = 0; k < 4; ++k)
-              query_terms(qg * 32 + 8 * k + g, qt, q0, q_cc, k_ana, k_len,
-                          &kq[k], &nq[k], &lo[k], &hi[k]);
-            const size_t f =
-                ((((size_t)qb * nb_band + band_blk) * NCHUNK + chunk) * NWARP + warp) * 32 + lane;
-            fragment_words(acc + f * NACC, t, rcc, kq, nq, lo, hi, hw[lane],
-                           ew[lane]);
-          }
-          for (int lane = 0; lane < 32; ++lane) {
-            const int g = lane >> 2, t = lane & 3;
-            unsigned h[4] = {0, 0, 0, 0}, e[4] = {0, 0, 0, 0};
-            for (int k = 0; k < 4; ++k)
-              for (int tt = 0; tt < 4; ++tt) {  // the shfl_xor joins
-                h[k] |= hw[4 * g + tt][k];
-                e[k] |= ew[4 * g + tt][k];
-              }
-            const int w = (qg * 32 + 8 * t + g) * WSTRIDE + chunk * 2 + rg;
-            hit_w[w] = pick(h, t);
-            ex_w[w] = pick(e, t);
           }
         }
-      for (int i = 0; i < qt * WORDS; ++i)
-        store_mask_word(i, hit_w.data(), ex_w.data(), q0, band_blk,
-                        bytes_per_q, packed_q, exact_q);
-      for (int i = 0; i < qt * (ROW_BLOCK / 128); ++i)
-        store_count(i, hit_w.data(), qt, q0, band_blk, B, counts_t);
-      for (int c = 0; c < qt; ++c)
-        add_totals(c, hit_w.data(), ex_w.data(), q0, nmatch, nexact);
+        if (kc != nk - 1) continue;
+        const unsigned char* tail = st + (qs + CHUNK) * SROW;
+        for (int warp = 0; warp < NWARP; ++warp) {
+          const int rg = warp & 1, qg = warp >> 1;
+          if (qg * 32 >= qt) continue;
+          host_warp_words(acc.data() + warp * 32 * NACC,
+                          reinterpret_cast<const int*>(tail), tail + CHUNK * 4,
+                          qg, rg, chunk, qt, q0, q_cc, k_ana, k_len,
+                          hit_w.data(), ex_w.data());
+        }
+        std::fill(acc.begin(), acc.end(), 0);
+      }
+      host_block_stores(hit_w.data(), ex_w.data(), qt, q0, band_blk, nb_band,
+                        B, packed_q, exact_q, counts_t, nmatch, nexact);
     }
 }
 #endif

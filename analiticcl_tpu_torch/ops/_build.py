@@ -84,8 +84,10 @@ SIGNATURES = {
         "analiticcl_stage_a": [
             _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
             _P, _P, _P, _P, _P,  # outputs
-            _I, _I, _I, _I, _I, _P,  # B, at_pad, nb_band, bt, qt, stream
+            _I, _I, _I, _I, _I,  # B, at_pad, nb_band, bt, qt
+            _I, _P,  # instance, stream
         ],
+        "analiticcl_stage_a_route": [_I, _I, ctypes.c_longlong],
     },
 }
 

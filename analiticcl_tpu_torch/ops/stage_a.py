@@ -34,10 +34,13 @@ B_TILE = 1024  # queries per band tile
 BIG_NI_ROWS = 262_144  # above this many rows the query tile shrinks ...
 BIG_NI_B_TILE = 256  # ... to this, so each tile's charcount band narrows
 KERNEL_QT = 128  # queries per CUDA block (never straddles a band tile)
-# the widest planes a block's shared memory holds (at 32 queries a block;
-# 128 up to AT 576, 64 up to 800): AT = A x T grows with the largest count
-# of one character in one entry
-KERNEL_MAX_AT = 960
+# the kernel's instances, by the number csrc/stage_a.cu gives each: the
+# main one (AT 224), one whose block keeps its 128 queries' planes in
+# shared memory (up to AT 576 on an H100: AT = A x T grows with the largest
+# count of one character in one entry), and one that streams the planes in
+# k-chunks (any AT)
+INSTANCES = {"main": 1, "resident": 2, "stream": 3}
+_routes: dict = {}  # (device, AT, qt) -> the instance's name
 
 
 def _b_tile(B: int, Ni: int = 0) -> int:
@@ -122,12 +125,35 @@ def _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
     return B, AT, bt
 
 
+def kernel_instance(AT: int, qt: int, device) -> str:
+    """The kernel's instance for planes ``AT`` wide and ``qt`` queries a
+    block on CUDA ``device``, as ``csrc/stage_a.cu``'s ``k1_route`` decides
+    it from the shape and the device's shared memory (asked once per
+    device, width and query tile)."""
+    dev = torch.device(device)
+    key = (dev.index, AT, qt)
+    name = _routes.get(key)
+    if name is None:
+        with torch.cuda.device(dev):
+            code = _build.load("stage_a").analiticcl_stage_a_route(AT, qt, -1)
+        if code < 0:
+            _build.check(-code, "stage_a shared-memory limit")
+        name = next((k for k, v in INSTANCES.items() if v == code), None)
+        if name is None:
+            raise RuntimeError(f"stage_a kernel: no instance fits planes "
+                               f"{AT} wide in the device's shared memory")
+        _routes[key] = name
+    return name
+
+
 def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
                   nb_band: int, totals=None):
     """Banded stage-A outputs: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. The kernel wants ``AT`` (the plane width) a
     multiple of 32, one int8 MMA k-step; ``convert.py`` pads the index with
-    zero columns. The kernel adds each query's totals into ``nmatch`` and
+    zero columns. Any width launches, at :func:`kernel_instance`'s
+    instance; each launch counts in ``stage_a_masks.launches_by_instance``
+    too. The kernel adds each query's totals into ``nmatch`` and
     ``nexact``: the rows of ``totals`` (int32 ``[2, B]``, zeroed by the
     caller: the query planes' kernel zeroes them in its launch) where it
     is given, else two tensors of zeros made here. The plain version makes
@@ -148,11 +174,8 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
         raise ValueError(f"stage_a: unsupported device {dev}")
     if AT % 32:
         raise ValueError(f"stage_a kernel: AT={AT} is not a multiple of 32")
-    if AT > KERNEL_MAX_AT:
-        raise ValueError(f"stage_a kernel: planes of width AT={AT} above "
-                         f"{KERNEL_MAX_AT}: the index holds an entry with "
-                         f"too many of one character for a block's shared "
-                         f"memory")
+    qt = min(KERNEL_QT, bt)
+    instance = kernel_instance(AT, qt, dev)
     Nb = nb_band * ROW_BLOCK
     packed_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
     exact_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
@@ -170,12 +193,14 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
             k_len.data_ptr(), start_blk.data_ptr(),
             packed_q.data_ptr(), exact_q.data_ptr(), counts_t.data_ptr(),
             nmatch.data_ptr(), nexact.data_ptr(),
-            B, AT, nb_band, bt, min(KERNEL_QT, bt),
+            B, AT, nb_band, bt, qt, INSTANCES[instance],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     stage_a_masks.launches += 1
-    _build.check(err, "stage_a kernel launch")
+    stage_a_masks.launches_by_instance[instance] += 1
+    _build.check(err, f"stage_a kernel launch ({instance} instance, AT {AT})")
     return packed_q, exact_q, counts_t, nmatch, nexact
 
 
 stage_a_masks.launches = 0
+stage_a_masks.launches_by_instance = dict.fromkeys(INSTANCES, 0)

@@ -58,8 +58,9 @@ def initialize_distributed(**kwargs) -> None:
     """Multi-process initialization passthrough: the counterpart of
     ``jax.distributed.initialize``. The caller names the rendezvous
     (``init_method="tcp://localhost:<port>"``), ``world_size`` and ``rank``.
-    A mesh that spans processes is not ported yet: the mesh takes devices
-    this process drives."""
+    The mesh takes devices this process drives, as the JAX package's does
+    in effect: its sharded step returns one array over every process's
+    devices, which no process can fetch whole."""
     torch.distributed.init_process_group(**kwargs)
 
 

@@ -74,11 +74,23 @@ second launch, by the same C entry, for the pairs with a string over 64)
 once after each slot-entry launch and equal to the oracle; then both K2
 entries at L 100 and 300 against their plain versions, the wide path's
 times on the phase's batch and per 1M pairs, and K1 at planes 608, 864
-and 960 wide (64 and 32 queries a block). K4's record also gives the
-library call's device time. The
+and 960 wide. Then planes wider than a resident K1 block holds (phase
+13): the main lexicon plus a 1,000-letter entry and a 64-letter one
+holding one letter 50 times (planes 1,664 wide, L 1,000) serves query,
+search and a 1x4 mesh, each holding every kernel against its plain
+version on its first 256 lookups and launching K1's streamed instance
+alone, equal to the oracle (the mesh to the single device); K1 is held
+bit for bit and timed beside its bound on the first batch of 4,096, and
+held at planes 992 to 6,016 wide and on a tile of 8 queries, timed at
+6,016 on a main-sized band. Every path must launch the one K1 instance
+its planes route to: the main one for the main lexicon (224 wide), the
+resident one for the CLI's and the 1M lexicon's (256 and 288), the
+streamed one in phases 12 and 13. K4's record also gives the library
+call's device time. The
 last two lines are the kernels' JSON record (stamped with the commit,
-launches per path; the wide path's launches are phase 12's) and
-``{"ok": true, ...}``.
+launches per path and the K1 instance each check required; the wide
+path's launches are phases 12 and 13's, the streamed instance's record
+phase 13's) and ``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
 card is visible. Imports no JAX. Writes nothing outside the checkout's
@@ -148,8 +160,25 @@ N_WIDE_LINES = 256
 N_WIDE_HOST_LINES = 8  # of them through the oracle-lookup host search
 WIDE_PAIRS = 1 << 20  # the wide path's timing per 1M pairs
 WIDE_TIMED = ((100, 3), (300, 3))  # (L, W) of that timing
-WIDE_K1_T = (20, 28, 32)  # K1 at planes 30 x T wide: 64, 32, 32 queries
+WIDE_K1_T = (20, 28, 32)  # K1 at planes 30 x T wide (608, 864, 960)
 N_LIGHT = 300  # queries of each light batch of the cut-bucket run
+# the wide-planes phase: the main lexicon plus a 1,000-letter entry drawn
+# as wide_words draws (this seed's holds 55 of one letter: planes 30 x 55
+# = 1,650 wide, padded to 1,664; L 1,000) and a 64-letter one holding one
+# letter 50 times
+PLANES_SEED = SEED + 37
+PLANES_AT = 1664
+PLANES_BATCH = 4096  # the timed first batch: the main path's batch size
+N_PLANES_QUERIES = 8192
+N_PLANES_NEAR = 64  # of them near one of the two entries
+PLANES_HOLD = 256
+HOLD_AT_HITS_L = 512  # hold_kernels' budget rule from this L
+N_PLANES_ORACLE_LONG = 3  # the longest queries the oracle checks (~1.2 s each)
+N_PLANES_ORACLE = 32  # and the shortest
+N_PLANES_LINES = 128
+N_PLANES_HOST_LINES = 2
+# K1 held directly at planes 30 x T wide: 992, 1,216, 1,664, 2,048, 6,016
+PLANES_K1_T = (33, 40, 55, 68, 200)
 
 
 def log(msg: str) -> None:
@@ -282,24 +311,60 @@ def launch_counts(wide: bool = False) -> dict:
 
 def reset_counts() -> None:
     from analiticcl_tpu_torch.ops.dl import wide_path
+    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
 
     for fn in counted_wrappers().values():
         fn.launches = 0
     wide_path.launches = 0
+    stage_a_masks.launches_by_instance.update(
+        dict.fromkeys(stage_a_masks.launches_by_instance, 0))
+
+
+def k1_instances() -> dict:
+    """K1's launches since the last reset by instance (main, resident,
+    stream)."""
+    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+
+    return dict(stage_a_masks.launches_by_instance)
+
+
+def k1_route(index) -> str:
+    """The K1 instance a device index's planes route to on the card (the
+    main lexicon's, 224 wide: main; wider ones: resident, or streamed
+    above AT 576)."""
+    from analiticcl_tpu_torch.ops.stage_a import KERNEL_QT, kernel_instance
+
+    return kernel_instance(index.bins.shape[1], KERNEL_QT, index.bins.device)
+
+
+K1_CHECKED: dict = {}  # phase -> the K1 instance its launches ran
+
+
+def require_k1(phase: str, total: int, k1: str = "main") -> dict:
+    """Fails unless K1's ``total`` launches since the last reset all ran
+    its ``k1`` instance (recorded in K1_CHECKED); returns the launches by
+    instance."""
+    by = k1_instances()
+    if by[k1] != total or sum(by.values()) != total:
+        raise SystemExit(f"{phase}: K1's {total} launches ran the "
+                         f"instances {by}, not the {k1} instance alone")
+    K1_CHECKED[phase] = k1
+    return by
 
 
 def require_launches(phase: str, wide: bool = False,
-                     counts: dict | None = None) -> dict:
+                     counts: dict | None = None, k1: str = "main") -> dict:
     """The launch counts since the last reset (:func:`launch_counts`), or
-    ``counts``; fails unless every kernel was launched. With ``wide``, K2's
-    wide path must follow each launch of its slot entry once; without, it
-    must not have run."""
+    ``counts``; fails unless every kernel was launched and every K1 launch
+    ran its ``k1`` instance. With ``wide``, K2's wide path must follow each
+    launch of its slot entry once; without, it must not have run."""
     from analiticcl_tpu_torch.ops.dl import wide_path
 
     if counts is None:
         counts = launch_counts(wide)
     if min(counts.values()) <= 0:
         raise SystemExit(f"{phase}: a kernel was not launched: {counts}")
+    require_k1(phase, counts["stage_a"], k1)
     if wide and counts["dl_lcs_wide"] != counts["dl_lcs_slots"]:
         raise SystemExit(f"{phase}: K2's wide path launched other than once "
                          f"a slot-entry launch: {counts}")
@@ -345,21 +410,22 @@ def match_signature(outs):
 def k1_direct_inputs(seed: int, Ni: int, B: int, nb_band: int, A: int = 30,
                      T: int = 7):
     """Seeded stage-A inputs on the card: charcount-sorted random count
-    planes (A x T = 210 columns, zero-padded to 224 as the index is), the
-    last rows padding, a few queries exact anagrams of indexed rows, and a
-    random band start per query tile."""
+    planes (A x T columns, 210 by default, zero-padded to a multiple of 32
+    as the index is), the last rows padding, a few queries exact anagrams
+    of indexed rows, and a random band start per query tile."""
     import numpy as np
     import torch
 
     from analiticcl_tpu_torch.ops.stage_a import ROW_BLOCK, _b_tile
 
     rng = np.random.default_rng(seed)
-    counts = rng.integers(0, T + 1, size=(Ni, A), dtype=np.int8) * (
+    ctype = np.int8 if T < 127 else np.int16
+    counts = rng.integers(0, T + 1, size=(Ni, A), dtype=ctype) * (
         rng.random((Ni, A), dtype=np.float32) < 0.25)
     cc = counts.sum(1, dtype=np.int32)
     order = np.argsort(cc, kind="stable")
     counts, cc = counts[order], cc[order]
-    levels = np.arange(T, dtype=np.int8)[None, None, :]
+    levels = np.arange(T, dtype=ctype)[None, None, :]
     at_pad = -(-A * T // 32) * 32
     bins = np.zeros((Ni, at_pad), np.int8)
     bins[:, :A * T] = (counts[:, :, None] > levels).reshape(Ni, A * T)
@@ -474,15 +540,17 @@ def prepared(pipe, lookups, params):
     return st
 
 
-def stage_b_budget(pipe, B: int, sa) -> tuple:
+def stage_b_budget(pipe, B: int, sa, at_hits: bool = False) -> tuple:
     """The pair budgets a batch of size ``B`` with stage-A outputs ``sa``
     runs with (the sticky P, escalated to cover these hits as ``collect``
-    escalates it, and the sticky P2), and the batch's hit total."""
+    escalates it, and the sticky P2), and the batch's hit total. With
+    ``at_hits`` P is the smallest bucket that covers the hits instead."""
     from analiticcl_tpu_torch.ops import pipeline as ppl
 
     total = int(sa.nmatch.sum())
     P, P2 = pipe._budgets(B)
-    return max(P, ppl._bucket(total, ppl.P_BUCKETS)), P2, total
+    P_hits = ppl._bucket(total, ppl.P_BUCKETS)
+    return (P_hits if at_hits else max(P, P_hits)), P2, total
 
 
 def score_variants(idx, sa, sc: dict, every: bool) -> list:
@@ -609,13 +677,14 @@ def hold_glue(name: str, idx, sa, start_blk, P: int, q_norms, q_lens, k_ed,
 
 def stage_b_slots(pipe, idx, sa, B: int, q_norms, q_lens, k_ed, q_fl,
                   start_blk, W: int, name: str, sc: dict,
-                  every: bool = False):
+                  every: bool = False, at_hits: bool = False):
     """K3's and K2's work as ``query_stage_b`` gives it from stage A's
     outputs ``sa`` at the budget of a batch of size ``B``
-    (:func:`stage_b_budget`), both kernels held against their plain
-    versions on it (:func:`hold_glue`). Returns the gathered pair strings
-    (the pair-string entry's input), P, the valid slots and K3's slots."""
-    P, P2, _total = stage_b_budget(pipe, B, sa)
+    (:func:`stage_b_budget`, ``at_hits`` passed on), both kernels held
+    against their plain versions on it (:func:`hold_glue`). Returns the
+    gathered pair strings (the pair-string entry's input), P, the valid
+    slots and K3's slots."""
+    P, P2, _total = stage_b_budget(pipe, B, sa, at_hits)
     slots, pr, n = hold_glue(name, idx, sa, start_blk, P, q_norms, q_lens,
                              k_ed, q_fl, W, sc, every, P2=P2)
     return pr, P, n, slots
@@ -938,7 +1007,10 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     clipped at the batch's window + 1, LCS exact) and the survivor
     compaction (:func:`hold_glue`) against their plain versions on it; on
     a sharded pipeline, on the call of mesh row 0 and lex shard 0. Above
-    L 64 the batch must hold a pair over 64.
+    L 64 the batch must hold a pair over 64. From L HOLD_AT_HITS_L the
+    glue is held at the smallest budget that covers the batch's hits (the
+    plain DL's time grows with P x L**2; the slots past the hits are
+    empty), below it at the path's own budget.
     Its launches count, so call it before the path's counts are reset."""
     import torch
 
@@ -979,7 +1051,7 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     # K3, K2's two entries and K4 (hold_glue)
     pr, P, n_valid, _slots = stage_b_slots(
         pipe, idx, sa, st["B"], q_norms, q_lens, k_ed, q_fl, start_blk, W,
-        name, sc)
+        name, sc, at_hits=pipe.L >= HOLD_AT_HITS_L)
     wide = ""
     if pipe.L > NARROW_LEN:  # the batch must reach K2's wide path
         n_wide = int((torch.maximum(pr.ql, pr.cl) > NARROW_LEN).sum())
@@ -990,7 +1062,8 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     log(f"{name} kernels: K5 and K1 bit-identical to plain on "
         f"B={q_lens.shape[0]}{where} ({len(st['active'])} device lookups of "
         f"{len(lookups)}, band {nb_band * 1024} rows); K3 bit-identical to "
-        f"plain, K2 (both entries) equal to plain at W={W} on the budget's "
+        f"plain, K2 (both entries) equal to plain at W={W} on the "
+        f"{'hits' if pipe.L >= HOLD_AT_HITS_L else 'budget'}'s "
         f"P={P} slots, {n_valid} valid{wide}, K4 bit-identical to plain "
         f"({time.perf_counter() - t0:.2f} s)")
 
@@ -1123,13 +1196,15 @@ def cut_bucket_phase(model, queries, params, default, oracle, card) -> None:
 
 
 def search_phase(name: str, model, texts, params, card: str,
-                 hold_n: int = 0, n_host: int = N_LINES_ORACLE) -> dict:
+                 hold_n: int = 0, n_host: int = N_LINES_ORACLE,
+                 k1: str = "main") -> dict:
     """Search ``texts`` through the device path; hold the array-native
     consolidation against the object path and the first lines against a
     host-only search with the oracle's lookups (the first ``n_host``
     lines), and every kernel against its plain version on the path's first
     lookup batch (its first ``hold_n`` lookups, if given; the sync-free
-    ``submit`` check takes the same lookups)."""
+    ``submit`` check takes the same lookups). Every K1 launch of the
+    search must run its ``k1`` instance."""
     import torch
 
     from analiticcl_tpu_torch.models import search_fast
@@ -1150,7 +1225,7 @@ def search_phase(name: str, model, texts, params, card: str,
     got = list(model.find_all_matches_stream(texts, params))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = require_launches(name, wide=pipe.L > NARROW_LEN)
+    launches = require_launches(name, wide=pipe.L > NARROW_LEN, k1=k1)
     stages = stage_line(pipe.stats)
     if len(got) != len(texts):
         raise SystemExit(f"{name}: {len(got)} results for {len(texts)} lines")
@@ -1384,6 +1459,10 @@ def cli_phase(words, queries, texts, card: str) -> dict:
         f"index {model.index.size}, read in {t_load:.3f} s, read and built "
         f"in {t_build:.3f} s | {card}")
     hold_kernels("cli", pipe, queries[:cli.MAX_BATCHSIZE], params)
+    # the second lexicon deepens the planes (T 8): K1's instance for them
+    k1 = k1_route(pipe.index)
+    log(f"cli model: planes {pipe.index.bins.shape[1]} wide, K1's {k1} "
+        f"instance")
     del model, pipe
     gc.collect()
 
@@ -1406,6 +1485,7 @@ def cli_phase(words, queries, texts, card: str) -> dict:
         dt, t_model, counts = run_cli(name, argv, inputs[src], out[name])
         if min(counts.values()) <= 0:
             raise SystemExit(f"{name}: a kernel was not launched: {counts}")
+        require_k1(name, counts["stage_a"], k1)
         by_path[name] = counts
         log(f"{name}: {n} {unit} in {dt:.3f} s wall, of which {t_model:.3f} s "
             f"to read and build the model and {dt - t_model:.3f} s to serve "
@@ -1472,7 +1552,7 @@ def cli_phase(words, queries, texts, card: str) -> dict:
     t0 = time.perf_counter()
     par = m.find_variants_par(head, sp)
     dt = time.perf_counter() - t0
-    counts = require_launches("api")
+    counts = require_launches("api", k1=k1)
     keys = ("text", "score", "dist_score", "freq_score")
     got = [(r["input"], [tuple(v[k] for k in keys) for v in r["variants"]])
            for r in par]
@@ -1596,6 +1676,7 @@ def mesh_query_phase(words, queries, params, card: str) -> dict:
         if counts["stage_a"] != n_dp * n_lex * base["stage_a"] \
                 or counts["dl_lcs"] <= 0:
             raise SystemExit(f"{name}: launches {counts}, single {base}")
+        require_k1(name, counts["stage_a"])
         require_one_buffer_per_call(name, counts)
         require_equal(name, got, single, queries)
         require_equal(f"{name} StopAtExactMatch",
@@ -1725,6 +1806,9 @@ def mesh_1m_phase(card: str) -> dict:
     got, dt, counts = timed_stream(model, queries, params, BATCH_1M)
     if min(counts.values()) <= 0:
         raise SystemExit(f"mesh_1m: a kernel was not launched: {counts}")
+    # the 1M lexicon's planes are deeper (T 9) than the main one's
+    k1 = k1_route(pipe.shard(0, 0))
+    require_k1("mesh_1m", counts["stage_a"], k1)
     stages = stage_line(pipe.stats)
     cand = pipe.candidates
     single_pipe = DevicePipeline(model, "cuda")
@@ -1767,7 +1851,7 @@ def mesh_1m_phase(card: str) -> dict:
     n = model.learn_variants(corpus, lparams, strict=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    lcounts = require_launches("mesh_1m learn")
+    lcounts = require_launches("mesh_1m learn", k1=k1)
     lstages = stage_line(pipe.stats)
     log(f"mesh_1m learn: strict over {len(corpus)} words in {dt:.3f} s, "
         f"{len(corpus) / dt:.1f} words/s, {n} variants; learn_profile "
@@ -2153,9 +2237,10 @@ def wide_phase(words, card: str, peaks) -> tuple:
     equals the oracle (search: the object path and the host search);
     the mesh equals the single-device pipeline. Then both K2 entries at
     L 100 and 300 against their plain versions, the wide path's times, and
-    K1 at planes wide enough for its 64- and 32-query blocks. Logs the
-    seconds of each part. Returns the wide path's record and the paths'
-    launches."""
+    K1 at planes 608, 864 and 960 wide. Every K1 launch of the paths must
+    run the instance K1 routes the lexicon's planes to. Logs the seconds
+    of each part. Returns the wide path's record, the paths' launches and
+    that instance."""
     import dataclasses
 
     import numpy as np
@@ -2175,12 +2260,17 @@ def wide_phase(words, card: str, peaks) -> tuple:
         parts[name] = round(time.perf_counter() - t_phase - sum(
             parts.values()), 2)
 
+    from analiticcl_tpu_torch.ops.stage_a import KERNEL_QT, kernel_instance
+
     longs = wide_words()
     model = populate(VariantModel(alphabet=ALPHABET, device="cuda"),
                      list(words) + longs)
     pipe = model._pipeline()
     if pipe.L != max(WIDE_LENGTHS):
         raise SystemExit(f"wide phase: L={pipe.L}, not {max(WIDE_LENGTHS)}")
+    # the long entries' planes are wider than the main path's: K1's
+    # instance for them, which every K1 launch of the phase must run
+    k1 = kernel_instance(pipe.index.bins.shape[1], KERNEL_QT, "cuda")
     params = SearchParameters(
         max_anagram_distance=DistanceThreshold.absolute(3),
         max_edit_distance=DistanceThreshold.absolute(2),
@@ -2202,7 +2292,8 @@ def wide_phase(words, card: str, peaks) -> tuple:
     got = list(model.find_variants_stream(queries, params, WIDE_BATCH))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    by_path = {"wide_query": require_launches("wide query", wide=True)}
+    by_path = {"wide_query": require_launches("wide query", wide=True,
+                                              k1=k1)}
     lap("query")
     require_one_buffer_per_call("wide query", by_path["wide_query"])
 
@@ -2226,7 +2317,8 @@ def wide_phase(words, card: str, peaks) -> tuple:
         f"oracle on the {N_WIDE_ORACLE // 2} longest queries "
         f"({n_long_found} with a result) and the {N_WIDE_ORACLE // 2} "
         f"shortest ({time.perf_counter() - t1:.1f} s); launches "
-        f"{by_path['wide_query']} | {card}")
+        f"{by_path['wide_query']}, K1's {k1} instance (planes "
+        f"{pipe.index.bins.shape[1]} wide) | {card}")
     lap("query oracle")
     record = wide_records(pipe, queries[:WIDE_BATCH], params, card, peaks)
     lap("wide times")
@@ -2237,7 +2329,7 @@ def wide_phase(words, card: str, peaks) -> tuple:
     s_params = dataclasses.replace(params, max_ngram=2)
     by_path["wide_search"] = search_phase(
         "wide search", model, texts, s_params, card, hold_n=WIDE_HOLD,
-        n_host=N_WIDE_HOST_LINES)
+        n_host=N_WIDE_HOST_LINES, k1=k1)
     lap("search")
 
     # the same queries on a 1x4 mesh of cuda:0
@@ -2246,7 +2338,7 @@ def wide_phase(words, card: str, peaks) -> tuple:
                  params)
     mgot, mdt, mcounts = timed_stream(model, queries, params, WIDE_BATCH,
                                       wide=True)
-    require_launches("wide mesh_1x4", wide=True, counts=mcounts)
+    require_launches("wide mesh_1x4", wide=True, counts=mcounts, k1=k1)
     require_equal("wide mesh_1x4", tuples(mgot), tuples(got), queries)
     require_one_buffer_per_call("wide mesh_1x4", mcounts)
     by_path["wide_mesh_1x4"] = mcounts
@@ -2264,8 +2356,9 @@ def wide_phase(words, card: str, peaks) -> tuple:
     hold_wide_slots(300, 12, card)
     lap("K2 entries")
 
-    # K1 at planes too wide for 128 queries a block: 64 (AT 608) and 32
-    # (AT 864 and 960, the widest it takes)
+    # K1 at planes too wide for a resident block of 128 queries (the
+    # streamed instance; up to AT 960 resident blocks of 64 and 32 queries
+    # took them before)
     for T in WIDE_K1_T:
         args = k1_direct_inputs(SEED + 40 + T, 32_768, 1024, 8, T=T)
         _err, _bt, n_exact = hold_k1(*args, 8)
@@ -2275,7 +2368,240 @@ def wide_phase(words, card: str, peaks) -> tuple:
             f"B=1024: bit-identical to plain ({n_exact} exact hits) | {card}")
     lap("K1 wide planes")
     log(f"phase 12 (wide): {time.perf_counter() - t_phase:.1f} s: {parts}")
-    return record, by_path
+    return record, by_path, k1
+
+
+def planes_words() -> list:
+    """Phase 13's two entries: 1,000 letters drawn as :func:`wide_words`
+    draws (55 of one letter), and 64 letters of which 50 are one letter
+    (a wide-plane entry on K2's byte path)."""
+    import numpy as np
+
+    rng = np.random.default_rng(PLANES_SEED)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    long = "".join(rng.choice(letters, 1000))
+    one = rng.choice(letters)
+    chars = np.concatenate([np.repeat(one, 50),
+                            rng.choice(letters[letters != one], 14)])
+    return [long, "".join(rng.permutation(chars))]
+
+
+def k1_stream_times(args, at: int, card: str, peaks, what: str) -> dict:
+    """K1 on ``args`` (the wrapper's arguments; planes ``at`` wide before
+    their padding, which route to its streamed instance): held bit for
+    bit against its plain version (:func:`hold_k1`, exact hits required),
+    then its time (CUDA events over 10 back-to-back calls, and the
+    profiler's device time of the kernel), its bound and the plain
+    version's time, once."""
+    from analiticcl_tpu_torch.ops.stage_a import (
+        KERNEL_QT, kernel_instance, stage_a_masks, stage_a_masks_plain,
+    )
+    from analiticcl_tpu_torch.utils.roofline import k1_bound_ms
+
+    bins, qbin, start_blk, nb_band = args[0], args[3], args[7], args[8]
+    if kernel_instance(bins.shape[1], KERNEL_QT, bins.device) != "stream":
+        raise SystemExit(f"K1 at {what}: not the streamed instance")
+    err, bt, n_exact = hold_k1(*args)
+    if n_exact == 0:
+        raise SystemExit(f"K1 at {what} saw no exact hits")
+
+    def run():
+        stage_a_masks(*args)
+
+    rec = {"B": qbin.shape[0], "nb_band": nb_band, "at_pad": bins.shape[1],
+           "max_abs_err": err, "ms": time_ms(run, 10, inner=10),
+           "device_ms": device_ms(run, "stage_a_kernel_stream", 10),
+           "plain_ms": time_ms(lambda: stage_a_masks_plain(*args), 1)}
+    rec["bound_ms"], rec["bound_by"] = k1_bound_ms(at, rec["B"], start_blk,
+                                                   nb_band, peaks)
+    log(f"K1 streamed instance at {what}: B={rec['B']} bt={bt} "
+        f"nb_band={nb_band} planes {rec['at_pad']} wide, bit-identical to "
+        f"plain ({n_exact} exact hits); {rec['ms']:.4f} ms (CUDA events, 10 "
+        f"back-to-back calls; profiler device time {ms4(rec['device_ms'])})"
+        f", plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}) | {card}")
+    return rec
+
+
+def planes_phase(words, card: str, peaks) -> tuple:
+    """Phase 13: planes wider than any resident K1 block holds. The main
+    lexicon plus :func:`planes_words` (planes 1,664 wide, L 1,000) serves
+    8,192 queries (64 near the two entries) in batches of 4,096; 128
+    lines through search (``max_ngram`` 2); and the same queries on a 1x4
+    mesh of ``cuda:0``. Each path holds every kernel against its plain
+    version on its first 256 lookups (K2's wide path at L 1,000 among
+    them), launches K1's streamed instance alone, and equals the oracle
+    (the longest and shortest queries; search: the object path and the
+    host search on its first lines); the mesh equals the single device.
+    On the first batch of 4,096 K1 is held bit for bit and timed beside
+    its bound; then K1 directly at planes 992 to 6,016 wide (bit for bit,
+    exact hits required; one tile of 8 queries), timed at 6,016 on a
+    main-sized band. Logs the seconds of each part. Returns K1's streamed
+    record and the paths' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from analiticcl_tpu_torch import (
+        DistanceThreshold, SearchParameters, VariantModel,
+    )
+    from analiticcl_tpu_torch.ops.stage_a import KERNEL_QT, kernel_instance
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, corrupt_queries, populate, synthetic_text,
+    )
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = round(time.perf_counter() - t_phase - sum(
+            parts.values()), 2)
+
+    longs = planes_words()
+    model = populate(VariantModel(alphabet=ALPHABET, device="cuda"),
+                     list(words) + longs)
+    pipe = model._pipeline()
+    at_pad = pipe.index.bins.shape[1]
+    if (pipe.L, at_pad) != (1000, PLANES_AT):
+        raise SystemExit(f"planes phase: L={pipe.L}, planes {at_pad} wide, "
+                         f"not 1000 and {PLANES_AT}")
+    if kernel_instance(at_pad, KERNEL_QT, "cuda") != "stream":
+        raise SystemExit(f"planes phase: planes {at_pad} wide do not take "
+                         "K1's streamed instance")
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+        score_threshold=0.25,
+    )
+    # corruptions no longer than the 1,000-letter entry: a longer query
+    # goes to the host oracle (about 1.2 s each at this length, on every
+    # pass: the holds clear its memo)
+    near = [q for q in corrupt_queries(longs, SEED + 38, 2 * N_PLANES_NEAR)
+            if len(q) <= 1000][:N_PLANES_NEAR - 2] + longs
+    queries = near + corrupt_queries(words, SEED + 39,
+                                     N_PLANES_QUERIES - len(near))
+    log(f"planes model: {model.index.size} entries, L={pipe.L}, "
+        f"AT={pipe.index.at} (padded {at_pad}), Ni_pad={pipe.Ni_pad}")
+    lap("model")
+    hold_kernels("planes query", pipe, queries[:PLANES_HOLD], params)
+    sync_free_submit("planes query", pipe, queries[:PLANES_HOLD], params,
+                     card)
+    lap("query holds")
+
+    # K1 on the first batch of 4,096, as the path gives it
+    st = prepared(pipe, queries[:PLANES_BATCH], params)
+    (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se, start_blk, _w,
+     _thr) = st["args"]
+    qbin, _totals = hold_k5(pipe.index, q_counts)
+    rec = k1_stream_times(
+        (pipe.index.bins, pipe.index.cc, pipe.index.validrows, qbin, q_cc,
+         k_ana, k_len, start_blk, st["nb_band"]), pipe.index.at, card,
+        peaks, "the wide-planes model's first batch")
+    del st, qbin
+    lap("K1 first batch")
+
+    list(model.find_variants_stream(queries[:PLANES_BATCH], params,
+                                    PLANES_BATCH))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(model.find_variants_stream(queries, params, PLANES_BATCH))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_path = {"planes_query": require_launches("planes query", wide=True,
+                                                k1="stream")}
+    require_one_buffer_per_call("planes query", by_path["planes_query"])
+    lap("query")
+
+    def tuples(res):
+        return [[(model.decoder[r.vocab_id].text, r.dist_score,
+                  r.freq_score, r.via) for r in x] for x in res]
+
+    t1 = time.perf_counter()
+    by_len = sorted(range(len(queries)), key=lambda i: len(queries[i]),
+                    reverse=True)
+    # the longest (near the 1,000-letter entry), those near the 64-letter
+    # one, and the shortest
+    near_rep = [i for i in range(len(near)) if len(queries[i]) < 100][:8]
+    check = (by_len[:N_PLANES_ORACLE_LONG] + near_rep
+             + by_len[-N_PLANES_ORACLE:])
+    oracle = [model._find_variants_oracle(queries[i], params) for i in check]
+    require_equal("planes query vs oracle", tuples(got[i] for i in check),
+                  tuples(oracle), [queries[i] for i in check])
+    found = sum(1 for i in by_len[:N_PLANES_ORACLE_LONG] + near_rep
+                if any(model.decoder[r.vocab_id].text in longs
+                       for r in got[i]))
+    if found < len(near_rep):
+        raise SystemExit(f"planes query: the long entries were found for "
+                         f"{found} of their near queries")
+    log(f"planes query: {len(queries)} queries ({len(near)} near the two "
+        f"entries) in batches of {PLANES_BATCH} on planes {at_pad} wide, "
+        f"L={pipe.L}: {len(queries) / dt:.1f} q/s warm ({dt:.3f} s); equal "
+        f"to the oracle on the {N_PLANES_ORACLE_LONG} longest queries, "
+        f"{len(near_rep)} near the 64-letter entry ({found} of these found "
+        f"an entry) and the {N_PLANES_ORACLE} shortest "
+        f"({time.perf_counter() - t1:.1f} s); launches "
+        f"{by_path['planes_query']}, K1 {k1_instances()} | {card}")
+    lap("query oracle")
+
+    texts = synthetic_text(list(words[:2000]) + longs * 40, SEED + 41,
+                           N_PLANES_LINES)
+    by_path["planes_search"] = search_phase(
+        "planes search", model, texts, dataclasses.replace(params,
+                                                           max_ngram=2),
+        card, hold_n=PLANES_HOLD, n_host=N_PLANES_HOST_LINES, k1="stream")
+    lap("search")
+
+    model.use_mesh(cuda_mesh(1, 4))
+    hold_kernels("planes mesh_1x4", model._device, queries[:PLANES_HOLD],
+                 params)
+    mgot, mdt, mcounts = timed_stream(model, queries, params, PLANES_BATCH,
+                                      wide=True)
+    require_launches("planes mesh_1x4", wide=True, counts=mcounts,
+                     k1="stream")
+    require_equal("planes mesh_1x4", tuples(mgot), tuples(got), queries)
+    require_one_buffer_per_call("planes mesh_1x4", mcounts)
+    by_path["planes_mesh_1x4"] = mcounts
+    log(f"planes mesh_1x4: {len(queries)} queries "
+        f"{len(queries) / mdt:.1f} q/s warm, equal to the single-device "
+        f"pipeline; launches {mcounts} | {card}")
+    del model, pipe
+    gc.collect()
+    lap("mesh")
+
+    # K1 directly at planes 30 x T wide, and a tile of 8 queries
+    for T in PLANES_K1_T:
+        args = k1_direct_inputs(SEED + 40 + T, 32_768, 1024, 8, T=T) + (8,)
+        at = args[0].shape[1]
+        if kernel_instance(at, KERNEL_QT, "cuda") != "stream":
+            raise SystemExit(f"K1 at AT={at}: not the streamed instance")
+        _err, _bt, n_exact = hold_k1(*args)
+        if n_exact == 0:
+            raise SystemExit(f"K1 at AT={at} saw no exact hits")
+        log(f"K1 stage_a at planes {at} wide (A=30, T={T}), B=1024: "
+            f"bit-identical to plain ({n_exact} exact hits) | {card}")
+    args = k1_direct_inputs(SEED + 8, 32_768, 8, 4, T=55) + (4,)
+    _err, bt, n_exact = hold_k1(*args)
+    if n_exact == 0 or bt != 8:
+        raise SystemExit(f"K1 at a tile of 8 queries: bt={bt}, "
+                         f"{n_exact} exact hits")
+    log(f"K1 stage_a at planes {args[0].shape[1]} wide, B=8 (a tile of 8 "
+        f"queries): bit-identical to plain ({n_exact} exact hits) | {card}")
+    del args
+    lap("K1 direct")
+    # at AT 6,016 on a band of the main path's size: 4,096 queries over
+    # 89 blocks of 131,072 rows
+    args = k1_direct_inputs(SEED + 240, 131_072, 4096, 89, T=200) + (89,)
+    rec["at_6016"] = k1_stream_times(args, 30 * 200, card, peaks,
+                                     "AT 6,016 on a main-sized band")
+    del args
+    torch.cuda.empty_cache()
+    lap("K1 at 6,016")
+    log(f"phase 13 (wide planes): {time.perf_counter() - t_phase:.1f} s: "
+        f"{parts}")
+    return rec, by_path
 
 
 def main() -> int:
@@ -2504,6 +2830,7 @@ def main() -> int:
         raise SystemExit("main path returned the wrong number of results")
     if min(launches.values()) <= 0:
         raise SystemExit(f"a kernel was not launched on the main path: {launches}")
+    require_k1("main path", launches["stage_a"])
     require_one_buffer_per_call("main path", launches)
     rlens = model.enc.normalize_batch_padded(rq, pipe.L)[1]
     n_w12 = int((rlens >= 14).sum())  # k_ed = len * 0.5 > 6 -> window 12
@@ -2589,12 +2916,36 @@ def main() -> int:
 
     # ---- 12. a lexicon wider than 64: K2's wide path ----
     gc.collect()
-    wide_rec, wide_paths = wide_phase(words, card, peaks)
+    wide_rec, wide_paths, wide_k1 = wide_phase(words, card, peaks)
     by_path.update(wide_paths)
+
+    # ---- 13. planes wider than a resident K1 block holds ----
+    gc.collect()
+    planes_rec, planes_paths = planes_phase(words, card, peaks)
+    by_path.update(planes_paths)
 
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
+    # every path's K1 launches ran one instance (require_k1): which
+    k1_rec = next(r for r in records if r["name"] == "stage_a")
+    k1_rec["instance_by_check"] = dict(K1_CHECKED)
+    records.append({
+        "name": "stage_a_stream", "route": "cuda",
+        "source": "analiticcl_tpu_torch/csrc/stage_a.cu",
+        "replaces": "analiticcl_tpu/ops/stage_a.py:88",
+        **planes_rec, "library_ms": None,
+        "library_note": k1_rec["library_note"],
+        "launches": planes_paths["planes_query"]["stage_a"],
+        "launches_note": "K1's streamed instance (stage_a_kernel_stream: "
+                         "planes wider than a resident block of 128 "
+                         "queries holds), every K1 launch of phases 12 and "
+                         "13; counted on phase 13's query path; times on "
+                         "its first batch, at_6016's on AT 6,016",
+        "launches_by_path": {k: v["stage_a"] for k, v in by_path.items()
+                             if k in planes_paths or wide_k1 == "stream"
+                             and k in wide_paths},
+    })
     records.append({
         "name": "dl_lcs_wide", "route": "cuda",
         "source": "analiticcl_tpu_torch/csrc/dl_lcs.cu",
@@ -2608,7 +2959,8 @@ def main() -> int:
                          "checked on each path); counted on phase 12's "
                          "query path",
         "launches_by_path": {k: v["dl_lcs_wide"]
-                             for k, v in wide_paths.items()},
+                             for k, v in {**wide_paths,
+                                          **planes_paths}.items()},
     })
     log(json.dumps(stamp({"kernels": records})))
     log(json.dumps({"ok": True, "device": {

@@ -312,6 +312,8 @@ def _jax_planes(q_counts, A: int, T: int):
     (13, 5, 3, 16),  # a row of one 16-byte piece
     (1000, 30, 7, 224),  # groups of 18 rows, the last one short
     (5, 300, 15, 4512),  # a row of more pieces than a block has threads
+    (40, 30, 55, 1664),  # a 1,000-letter entry's planes: groups of 2 rows
+    (9, 30, 200, 6016),  # groups of one row of 376 pieces
 ])
 def test_host_planes_equal_plain_and_jax(host_planes, B, A, T, at_pad):
     rng = np.random.default_rng(B + A)

@@ -252,7 +252,11 @@ def test_stop_ladder_on_the_cpu(words):
     (210, 156_783_083_520, 131_909_648, 0.0792),
     # an alphabet whose planes are 224 columns wide
     (224, 167_235_289_088, 133_658_640, 0.0845),
-], ids=["AT210", "AT224"])
+    # a lexicon with a 1,000-letter entry (T 55; padded to 1,664) and one
+    # whose planes are padded to 6,016 (T 200): still bound by operations
+    (1650, 1_231_867_084_800, 311_805_968, 0.6225),
+    (6000, 4_479_516_672_000, 855_242_768, 2.2635),
+], ids=["AT210", "AT224", "AT1650", "AT6000"])
 def test_k1_count_at_the_main_shape(at, ops, nbytes, ms):
     """B 4,096, band 91,136 rows (89 blocks of 1,024) of 120,832, four
     query tiles whose bands cover 118 blocks once; at AT 224 the count is
@@ -325,6 +329,10 @@ def test_k4_and_k5_counts():
     assert k5.int8_ops == k5.int32_ops == 0
     assert roofline.k5_bound_ms(8, 30, 210) == (
         pytest.approx(k5.nbytes / 3.35e12 * 1e3), "bytes")
+    # at the wide planes' widths (A 30, T 55 and 200), B 4,096
+    for at in (1650, 6000):
+        wide = roofline.k5_work(B=4096, A=30, at=at)
+        assert wide.nbytes == 4096 * (30 * 4 + at + 8)
 
 
 def test_k3_counts_the_blocks_it_expands():

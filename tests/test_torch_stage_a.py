@@ -172,6 +172,84 @@ def test_kernel_epilogue_on_host(monkeypatch, host_epilogue, b_tile, B,
     assert out[3].sum() > 0 and out[4].sum() > 0
 
 
+# (A, T, plane width padded to 32): AT 992, 1,056 (not a multiple of the
+# streamed instance's 64-byte k-chunks), 1,664, 2,048 and 6,016
+STREAM_WIDTHS = [(30, 33, 992), (30, 35, 1056), (30, 55, 1664),
+                 (30, 68, 2048), (30, 200, 6016)]
+
+
+@pytest.mark.parametrize(
+    "A,T,at_pad,b_tile,B,Ni,nb_band",
+    [(*w, 128, 256, 4096, 2) for w in STREAM_WIDTHS[:4]]
+    + [(*STREAM_WIDTHS[4], 128, 128, 2048, 1),
+       (*STREAM_WIDTHS[2], 8, 16, 4096, 2)],
+    ids=[f"AT{w[2]}" for w in STREAM_WIDTHS] + ["AT1664-bt8"],
+)
+def test_streamed_loop_on_host(monkeypatch, host_epilogue, A, T, at_pad,
+                               b_tile, B, Ni, nb_band):
+    """The streamed instance's loop nest (row chunk x k-chunk x ring stage,
+    ``analiticcl_stage_a_stream_host``: the kernel's piece offsets, a scalar
+    dot for each accumulator in fragment order, the same epilogue) against
+    stage_a_masks_plain byte for byte, at planes wider than any resident
+    block holds, 128 queries a block and (bt 8) 8."""
+    monkeypatch.setattr(tsa, "B_TILE", b_tile)
+    bins, cc, valid, qbin, q_cc, k_ana, k_len, start = _inputs(
+        at_pad + B, Ni=Ni, A=A, T=T, B=B, nb_band=nb_band)
+    extra = ((0, 0), (0, at_pad - A * T))  # zero columns, as convert.py pads
+    bins, qbin = np.pad(bins, extra), np.pad(qbin, extra)
+    bt = tsa._b_tile(B, Ni)
+    qt = min(tsa.KERNEL_QT, bt)
+    assert qt == min(128, b_tile)
+    Nb = nb_band * 1024
+    out = [np.zeros((B, Nb // 8), np.uint8), np.zeros((B, Nb // 8), np.uint8),
+           np.zeros((Nb // 128, B), np.int32), np.zeros(B, np.int32),
+           np.zeros(B, np.int32)]
+    ins = [np.ascontiguousarray(x) for x in (
+        bins, cc, valid.astype(np.uint8), qbin, q_cc, k_ana, k_len, start)]
+    ptr = ctypes.c_void_p
+    host_epilogue.analiticcl_stage_a_stream_host(
+        *[ptr(x.ctypes.data) for x in (*ins, *out)],
+        *map(ctypes.c_int, (B, at_pad, nb_band, bt, qt)),
+    )
+    want = tsa.stage_a_masks_plain(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (
+            bins, cc, valid, qbin, q_cc, k_ana, k_len, start)), nb_band,
+    )
+    names = ("packed_q", "exact_q", "counts_t", "nmatch", "nexact")
+    for name, g, w in zip(names, out, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    assert out[3].sum() > 0 and out[4].sum() > 0
+
+
+H100_SMEM = 232_448  # the dynamic shared memory a block may opt in to
+
+
+@pytest.mark.parametrize("at_pad,qt,limit,want", [
+    (224, 128, H100_SMEM, "main"),
+    (224, 8, H100_SMEM, "main"),
+    (256, 128, H100_SMEM, "resident"),
+    (576, 128, H100_SMEM, "resident"),  # the last that fits 128 queries
+    (608, 128, H100_SMEM, "stream"),
+    (608, 8, H100_SMEM, "stream"),
+    (992, 128, H100_SMEM, "stream"),
+    (6016, 128, H100_SMEM, "stream"),
+    (224, 128, 111_552, "main"),  # the main block: 111,552 bytes
+    (224, 128, 111_551, "stream"),  # a lowered limit
+    (992, 128, 96_512, "stream"),  # the streamed block: 96,512 bytes
+    (992, 128, 96_511, None),  # nothing fits
+    (992, 8, 96_511, "stream"),  # 32 query rows: 40,448 bytes
+])
+def test_kernel_routing(host_epilogue, at_pad, qt, limit, want):
+    """``k1_route`` at its edges: the main instance at AT 224, a resident
+    one while its planes fit the limit, else the streamed one, whose shared
+    memory does not depend on the width."""
+    route = host_epilogue.analiticcl_stage_a_route
+    route.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    code = route(at_pad, qt, limit)
+    names = {v: k for k, v in tsa.INSTANCES.items()}
+    assert names.get(code) == want
+
+
 def _port_mixed_model(jm=None):
     """The port's model over test_banding's mixed lexicon (the JAX package's
     model ``jm``, built anew if not given)."""

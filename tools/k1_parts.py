@@ -4,14 +4,18 @@
     python3 tools/k1_parts.py
 
 Builds ``analiticcl_tpu_torch/csrc/stage_a.cu`` as it is and in three
-variants made by replacing source text: without the epilogue (the
-accumulators are folded into one word per lane and stored), without the
-int8 products (the accumulators stay zero), and without either (the chunk
-loads, the ring, the bit tile and the stores only). Each is launched 20
-times back to back through its C entry point at the main path's shape
-(B = 4,096 queries, a band of 89 x 1,024 rows of a 120,832-row index,
-AT 224; seeded planes from ``chip_smoke.k1_direct_inputs``) and timed with
-CUDA events. The variants compute wrong bits; only their times are read.
+variants of its main instance made by replacing source text: without the
+epilogue (the accumulators are folded into one word per lane and
+stored), without the int8 products (the accumulators stay zero), and
+without either (the chunk loads, the ring, the bit tile and the stores
+only). Each is launched 20 times back to back through its C entry point
+at the main path's shape (B = 4,096 queries, a band of 89 x 1,024 rows of
+a 120,832-row index, AT 224; seeded planes from
+``chip_smoke.k1_direct_inputs``) and timed with CUDA events. Then the
+streamed instance at planes 1,664 wide (T 55, the same band), as it is
+and with the queries' plane pieces loaded for the first 64-row chunk
+only (the later chunks reuse stale pieces: what re-reading them from L2
+costs). The variants compute wrong bits; only their times are read.
 Prints ptxas's registers and spills per variant, one line per variant, and
 the card's name and power limit. Needs ``nvcc``; imports no JAX.
 """
@@ -27,6 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 B, NI, NB_BAND, AT, BT = 4096, 120_832, 89, 224, 1024
+STREAM_T = 55  # the streamed instance's planes: 30 x 55, padded to 1,664
 
 
 def variants(src: str) -> dict:
@@ -40,11 +45,17 @@ def variants(src: str) -> dict:
               "    const int w = (qg * 32 + 8 * t + g) * WSTRIDE + chunk * 2 + rg;\n"
               "    hit_w[w] = x;\n    ex_w[w] = x;\n")
     no_epi = src[:e0] + folded + src[e1:]
+    qload = ("      if (stream_piece(i, qt, qs, q0, r0, at_pad, kc, w16, &dst, "
+             "&src, &from_q))\n        cp_async16(")
+    assert src.count(qload) == 1
     return {
         "full": src,
         "no_epilogue": no_epi,
         "no_products": src.replace(kloop, "      acc[0] = b_addr;\n"),
         "loads_and_stores_only": no_epi.replace(kloop, "      acc[0] = b_addr;\n"),
+        "stream": src,
+        "stream_no_query_reload": src.replace(qload, qload.replace(
+            "&from_q))", "&from_q) &&\n          (!from_q || chunk == 0))")),
     }
 
 
@@ -53,6 +64,7 @@ def main() -> int:
 
     import chip_smoke
     from analiticcl_tpu_torch.ops import _build
+    from analiticcl_tpu_torch.ops.stage_a import INSTANCES
 
     if not torch.cuda.is_available():
         raise SystemExit("k1_parts: no CUDA card")
@@ -76,7 +88,6 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"{name}: ptxas {info}", flush=True)
 
-    args = chip_smoke.k1_direct_inputs(1, NI, B, NB_BAND)
     Nb = NB_BAND * 1024
     outs = [torch.empty((B, Nb // 8), dtype=torch.uint8, device="cuda"),
             torch.empty((B, Nb // 8), dtype=torch.uint8, device="cuda"),
@@ -84,19 +95,26 @@ def main() -> int:
             torch.zeros(B, dtype=torch.int32, device="cuda"),
             torch.zeros(B, dtype=torch.int32, device="cuda")]
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [x.data_ptr() for x in (*args, *outs)]
+    planes = {T: chip_smoke.k1_direct_inputs(1, NI, B, NB_BAND, T=T)
+              for T in (7, STREAM_T)}
     for name in procs:
         fn = ctypes.CDLL(str(out / f"{name}.so")).analiticcl_stage_a
         fn.argtypes = _build.SIGNATURES["stage_a"]["analiticcl_stage_a"]
         fn.restype = ctypes.c_int
+        streamed = name.startswith("stream")
+        args = planes[STREAM_T if streamed else 7]
+        at = args[0].shape[1]
+        ptrs = [x.data_ptr() for x in (*args, *outs)]
+        instance = INSTANCES["stream" if streamed else "main"]
 
-        def call(fn=fn):
-            _build.check(fn(*ptrs, B, AT, NB_BAND, BT, 128, stream),
-                         "stage_a variant")
+        def call(fn=fn, ptrs=ptrs, at=at, instance=instance):
+            _build.check(fn(*ptrs, B, at, NB_BAND, BT, 128, instance,
+                            stream), "stage_a variant")
 
         ms = chip_smoke.time_ms(call, 10, inner=20)
-        print(f"{name}: {ms:.4f} ms per launch (CUDA events, median of 10 "
-              f"runs of 20 back-to-back launches)", flush=True)
+        print(f"{name}: {ms:.4f} ms per launch at planes {at} wide (CUDA "
+              f"events, median of 10 runs of 20 back-to-back launches)",
+              flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The query core's glue kernels in two checkouts, timed in turns on one
-CUDA card.
+"""The query core's kernels K1 and glue in two checkouts, timed in turns
+on one CUDA card.
 
     python3 tools/kernel_compare.py OTHER_ROOT
 
@@ -13,9 +13,14 @@ model (the seeded 120,000-entry lexicon), holds the kernels against their
 plain versions on the main path's first batch of 4,096 queries and times
 them there by its checkout's ``chip_smoke.glue_records`` (K3, K2's slot
 entry with its epilogue at W 3/6/12, K4, K5: CUDA events over 10
-back-to-back calls and the profiler's device time). Prints the card's
-name and power limit, one JSON line per turn and, per kernel, the device
-times in turn order. Imports no JAX.
+back-to-back calls and the profiler's device time). It times K1 the same
+way, held bit for bit against its plain version first: on that batch
+(the main instance, planes 224 wide) and on seeded planes 608, 864, 960
+and 1,664 wide (``chip_smoke.k1_direct_inputs``: 4,096 queries over a
+band of 89 blocks of 131,072 rows), each at the instance its checkout
+routes it to; a width the checkout refuses is recorded as refused.
+Prints the card's name and power limit, one JSON line per turn and, per
+kernel, the device times in turn order. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +32,49 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 KEYS = ("ms", "device_ms", "bound_ms")
+K1_T = (20, 28, 32, 55)  # planes 30 x T wide: 608, 864, 960, 1,664
+
+
+def k1_record(chip_smoke, args, at: int, peaks) -> dict:
+    """K1 on ``args`` (its wrapper's arguments; planes ``at`` wide before
+    padding): held bit for bit, then timed, at the checkout's instance."""
+    from analiticcl_tpu_torch.ops import stage_a
+    from analiticcl_tpu_torch.utils.roofline import k1_bound_ms
+
+    def run():
+        stage_a.stage_a_masks(*args)
+
+    try:
+        chip_smoke.hold_k1(*args)
+    except ValueError as e:  # a width the checkout's wrapper refuses
+        return {"ms": None, "device_ms": None, "bound_ms": None,
+                "refused": str(e)}
+    route = getattr(stage_a, "kernel_instance", None)
+    return {"ms": chip_smoke.time_ms(run, 10, inner=10),
+            "device_ms": chip_smoke.device_ms(run, "stage_a_kernel", 10),
+            "bound_ms": k1_bound_ms(at, args[3].shape[0], args[7], args[8],
+                                    peaks)[0],
+            "instance": route(args[0].shape[1], 128, "cuda") if route
+            else None}
+
+
+def k1_records(chip_smoke, pipe, queries, params, peaks) -> dict:
+    """K1 at the main batch and at the direct widths of K1_T."""
+    st = chip_smoke.prepared(pipe, queries[:chip_smoke.BATCH], params)
+    (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se, start_blk, _w,
+     _thr) = st["args"]
+    idx = pipe.index
+    qbin, _totals = chip_smoke.hold_k5(idx, q_counts)
+    out = {"stage_a_main": k1_record(
+        chip_smoke, (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana,
+                     k_len, start_blk, st["nb_band"]), idx.at, peaks)}
+    for T in K1_T:
+        args = chip_smoke.k1_direct_inputs(chip_smoke.SEED + 50 + T, 131_072,
+                                           4096, 89, T=T) + (89,)
+        out[f"stage_a_AT{args[0].shape[1]}"] = k1_record(chip_smoke, args,
+                                                         30 * T, peaks)
+        del args
+    return out
 
 
 def worker(root: str) -> int:
@@ -57,11 +105,13 @@ def worker(root: str) -> int:
     )
     queries = corrupt_queries(words, chip_smoke.SEED + 1,
                               chip_smoke.N_QUERIES)
+    peaks = card_peaks(0)
+    out = k1_records(chip_smoke, model._pipeline(), queries, params, peaks)
     _pairs, n_valid, _slots, _P, main = chip_smoke.k2_main_pairs(
         model._pipeline(), queries, params)
-    records = chip_smoke.glue_records(main, n_valid, card, card_peaks(0))
+    records = chip_smoke.glue_records(main, n_valid, card, peaks)
     torch.cuda.synchronize()
-    out = {r["name"]: {k: r.get(k) for k in KEYS} for r in records}
+    out.update({r["name"]: {k: r.get(k) for k in KEYS} for r in records})
     slot = next(r for r in records if r["name"] == "dl_lcs_slots")
     for W, w in slot["by_window"].items():
         out[f"dl_lcs_slots_W{W}"] = {k: w.get(k) for k in KEYS}
