@@ -6,17 +6,19 @@
 // 402-408), XLA glue before its first Pallas call, which the port ran as
 // torch ops (`query_planes_plain` in ops/pipeline.py: an arange, a clamp, a
 // compare, a cast and a pad), and the two `torch.zeros` of K1's atomic
-// totals `nmatch` and `nexact` (ops/stage_a.py). Column a * T + t of query
-// b's plane is 1 where min(count[b, a], T) > t, that is count[b, a] > t;
-// the columns from A * T to the padded width are 0.
+// totals `nmatch` and `nexact` (ops/stage_a.py). The planes are the
+// port's threshold-major ones (convert.py): column t * A + a of query b's
+// plane is 1 where min(count[b, a], T) > t, that is count[b, a] > t (the
+// JAX core's column a * T + t); the columns from A * T to the padded width
+// are 0.
 //
 // Design: a grid of at most one wave walks the rows in groups of `rows`
 // (as many rows as the block's threads cover at 16 bytes a thread: 18 at
 // AT 224). A group's A counts a row are staged in shared memory once, in
 // coalesced loads; then each thread writes one 16-byte piece of a row's
-// plane from them (one division a piece: the column's character and level
-// step along, each count read once), so a warp stores 512 consecutive
-// bytes. The grid's threads also zero the totals. (A table of each
+// plane from them (one division a piece: the column's level and character
+// step along, a piece's 16 characters in a row of the counts), so a warp
+// stores 512 consecutive bytes. The grid's threads also zero the totals. (A table of each
 // column's character and level, made once a block so that the 16 bytes'
 // reads are independent, measured slower on the H100: 0.0033 against
 // 0.0028 ms at B 4,096.) What bounds it on the H100: bytes, 4 A + at_pad
@@ -44,21 +46,18 @@ HDFN int group_rows(int at_pad) {
 }
 
 // Piece k of a row whose counts are `cnt` (A of them): its 16 bytes as four
-// little-endian words, column 16k + j in byte j. Each character's count is
-// read once (a piece spans ceil(16 / T) + 1 of them at most); past A the
-// columns are padding, count 0.
+// little-endian words, column 16k + j in byte j, column c = t * A + a
+// holding cnt[a] > t; from level T on the columns are padding, 0.
 HDFN void plane_piece(const int* cnt, int k, int A, int T, unsigned w[4]) {
   const int c0 = k * PIECE;
-  int a = c0 / T, t = c0 - a * T;
-  int ca = a < A ? cnt[a] : 0;
+  int t = c0 / A, a = c0 - t * A;
   for (int i = 0; i < 4; ++i) {
     unsigned v = 0;
     for (int j = 0; j < 4; ++j) {
-      if (ca > t) v |= 1u << (8 * j);
-      if (++t == T) {
-        t = 0;
-        ++a;
-        ca = a < A ? cnt[a] : 0;
+      if (t < T && cnt[a] > t) v |= 1u << (8 * j);
+      if (++a == A) {
+        a = 0;
+        ++t;
       }
     }
     w[i] = v;

@@ -7,7 +7,11 @@
 //   L1    = cc[row] + q_cc[q] - 2 * dot(bins[row], qbin[q])  (int8 planes)
 //   hit   = L1 <= k_ana[q] && |cc[row] - q_cc[q]| <= k_len[q] && valid[row]
 //   exact = L1 == 0 && valid[row]
-// with row = start_blk[q / bt] * 1024 + r. Outputs are banded and
+// with row = start_blk[q / bt] * 1024 + r. The planes are threshold-major
+// (column t * A + a holds count[a] > t; convert.py), so a row whose
+// characters occur at most c times is zero past column c * A, and each
+// 1024-row block of the index has an extent (convert.block_extents): past
+// it every row of the block is zero. Outputs are banded and
 // query-major: packed_q / exact_q uint8 [B, Nb/8] (bit k of byte j is band
 // row 8j + k), counts_t int32 [Nb/128, B] (hits per 128 band rows), and the
 // per-query totals nmatch / nexact int32 [B].
@@ -44,19 +48,36 @@
 // long lexicon entries) keep 128 resident queries up to AT 576.
 //   Above that the streamed instance (`stage_a_kernel_stream`) takes any
 // width: no planes stay resident. For each 64-row chunk it walks the
-// planes in k-chunks of KC = 64 bytes, and each step (chunk, k-chunk)
-// brings the queries' piece [qt, 64] and the rows' piece [64, 64] through
-// a four-stage cp.async ring; the accumulators stay in the same m16n8k32
-// registers across the k-chunks, and after a chunk's last k-chunk the same
-// fused epilogue runs. Its shared memory (96.5 KB at 128 queries) does not
-// depend on AT, so two blocks fit an SM at any width. It reads the
+// planes in k-chunks of KC = 128 bytes, and each step (chunk, k-chunk)
+// brings the queries' piece [qt, 128] and the rows' piece [64, 128]
+// through a two-stage cp.async ring (one barrier per four k-steps); the
+// accumulators stay in the same m16n8k32 registers across the k-chunks,
+// and after a chunk's last k-chunk the same fused epilogue runs. Its
+// shared memory (87.6 KB at 128 queries) does not depend on AT, so two
+// blocks fit an SM at any width. (On an H100, against 64-byte k-chunks
+// in a ring of four stages: 3.55 against 4.11 ms on planes 1,664 wide; a
+// ring of three 128-byte stages, one block an SM, 4.82.) It reads the
 // queries' planes from L2 once per 64 rows (twice the band's bytes); the
 // tensor cores wait on L2 more than in the resident instances. (Where both
 // fit, it took the time of a resident block of 64 queries at AT 608 and
 // 0.6x that of one of 32 at AT 864 and 960, on an H100, so the resident
-// blocks of fewer queries are gone.)
-//   `k1_route` picks the instance from the shape before the launch: the
-// main one at AT 224, a resident one while the planes fit, else streamed.
+// blocks of fewer queries are gone.) It runs the main body too, so its
+// dynamic shared memory is the main block's, 111.6 KB, still two blocks
+// an SM; `k1_route` does not pick it where that does not fit (it always
+// fits on an H100). The main instance stays a launch of its own: on the
+// main path's batch, where every block runs the main body, the streamed
+// kernel took 2.2 % longer on an H100 (`tools/k1_parts.py`'s turns).
+//   Each launch walks only the columns its rows use. `k1_route` picks the
+// instance before the launch from the launch's width (the largest extent
+// among the band blocks its tiles read, which the band plan reckons on
+// the host): the main instance up to 224 (its first 224 columns, whatever
+// the planes' row stride), a resident one at the width while it fits,
+// else streamed. The streamed instance reads each band block's own extent
+// from the table on the card: a block of extent at most 224 runs the main
+// instance's body (its queries' A fragments in registers), a wider one
+// walks kchunks(extent) k-chunks per row chunk. Its grid runs the band
+// blocks last to first, so that the widest (the rows sort by charcount,
+// and the long, repetitive entries last) start first and do not trail.
 // Planes are padded to a multiple of 32 bytes (one k-step) by convert.py;
 // shared-memory rows carry 16 spare bytes so that ldmatrix's eight row
 // reads hit distinct banks. When qt < 128 the unused MMA rows hold zero
@@ -81,8 +102,9 @@
 // arithmetic is checked on a machine without a card; and
 // `analiticcl_stage_a_stream_host` walks the streamed instance's loop nest
 // (row chunk x k-chunk x ring stage) through the same offset helpers, with a
-// scalar dot in place of mma, into the same epilogue. `k1_route` compiles
-// on both sides.
+// scalar dot in place of mma, into the same epilogue (a block that takes
+// the main body: a scalar dot over its first 224 columns). `k1_route`
+// compiles on both sides.
 
 #ifndef ANALITICCL_HOST_TEST
 #include <cuda_runtime.h>
@@ -118,8 +140,8 @@ constexpr int NEVER = -2147483647 - 1;     // a term no element meets
 // the streamed instance: plane bytes per k-chunk, its ring's depth, and the
 // bytes of a k-chunk row in shared memory (16 spare, as in the resident
 // instances)
-constexpr int KC = 64;
-constexpr int SSTAGE = 4;
+constexpr int KC = 128;
+constexpr int SSTAGE = 2;
 constexpr int SROW = KC + 16;
 constexpr int KPIECES = KC / 16;  // 16-byte pieces of a k-chunk row
 
@@ -150,36 +172,70 @@ HDFN size_t stream_smem_bytes(int rows) {
          2 * sizeof(unsigned) * rows * WSTRIDE;
 }
 
-// The instance for planes at_pad wide, qt queries a block and a block's
-// shared-memory `limit`, decided from the shape alone: the main one at the
-// main path's AT 224, a resident one while 128 queries' planes fit (up to
-// AT 576 on an H100), else streamed; K1_NONE when nothing fits.
-HDFN int k1_route(int at_pad, int qt, size_t limit) {
-  if (smem_bytes(at_pad) <= limit) return at_pad == 7 * 32 ? K1_MAIN : K1_RESIDENT;
-  return stream_smem_bytes(tile_rows(qt)) <= limit ? K1_STREAM : K1_NONE;
+// The main instance's k width: the main path's 210 plane columns, padded.
+constexpr int MAIN_WIDTH = 7 * 32;
+
+// Whether the main instance serves a launch `width` wide over planes
+// `at_pad` wide (it reads their first MAIN_WIDTH columns).
+HDFN bool main_fits(int width, int at_pad, size_t limit) {
+  return width <= MAIN_WIDTH && at_pad >= MAIN_WIDTH &&
+         smem_bytes(MAIN_WIDTH) <= limit;
 }
 
-// k-chunks of the planes, and the bytes of k-chunk kc (the last one may be
-// narrower: at_pad is a multiple of 32, not of KC).
-HDFN int kchunks(int at_pad) { return (at_pad + KC - 1) / KC; }
-HDFN int kchunk_cols(int at_pad, int kc) {
-  const int w = at_pad - kc * KC;
+// The streamed instance's dynamic shared memory: the ring's, or the main
+// body's where that is larger (its blocks of extent at most 224 run it).
+HDFN size_t stream_launch_smem(int qt) {
+  const size_t ring = stream_smem_bytes(tile_rows(qt));
+  return smem_bytes(MAIN_WIDTH) > ring ? smem_bytes(MAIN_WIDTH) : ring;
+}
+
+// Whether the streamed instance serves planes at_pad wide (its main body
+// reads their first MAIN_WIDTH columns).
+HDFN bool stream_fits(int at_pad, int qt, size_t limit) {
+  return at_pad >= MAIN_WIDTH && stream_launch_smem(qt) <= limit;
+}
+
+// The instance for a launch whose rows use `width` columns (the largest
+// extent of the band blocks it reads) of planes at_pad wide, qt queries a
+// block and a block's shared-memory `limit`, decided before the launch:
+// the main one up to width 224, a resident one while 128 queries' planes
+// of that width fit (up to 576 on an H100), else streamed; K1_NONE when
+// nothing fits.
+HDFN int k1_route(int width, int at_pad, int qt, size_t limit) {
+  if (main_fits(width, at_pad, limit)) return K1_MAIN;
+  if (smem_bytes(width) <= limit) return K1_RESIDENT;
+  return stream_fits(at_pad, qt, limit) ? K1_STREAM : K1_NONE;
+}
+
+// The k width a streamed block walks: its band block's extent, kept
+// inside the planes (a table entry is a multiple of 32 in [32, at_pad]).
+HDFN int block_width(const int* extents, int blk, int at_pad) {
+  const int w = extents[blk];
+  return w < 32 ? 32 : (w > at_pad ? at_pad : w);
+}
+
+// k-chunks of a width kw, and the bytes of k-chunk kc (the last one may be
+// narrower: kw is a multiple of 32, not of KC).
+HDFN int kchunks(int kw) { return (kw + KC - 1) / KC; }
+HDFN int kchunk_cols(int kw, int kc) {
+  const int w = kw - kc * KC;
   return w < KC ? w : KC;
 }
 
 // Piece i of a streamed step (rows of KPIECES pieces of 16 bytes): stage
 // rows [0, qt) take the block's queries q0 + row, rows [qs, qs + CHUNK) the
-// chunk's band rows r0 + row - qs; k-chunk kc has w16 pieces a row. Sets
-// the piece's byte offset in the stage and in its source (qbin or bins);
-// false for a piece that loads nothing (query rows past qt stay zero).
-HDFN bool stream_piece(int i, int qt, int qs, int q0, int r0, int at_pad,
+// chunk's band rows r0 + row - qs; k-chunk kc has w16 pieces a row, and
+// the planes' rows are `stride` bytes apart. Sets the piece's byte offset
+// in the stage and in its source (qbin or bins); false for a piece that
+// loads nothing (query rows past qt stay zero).
+HDFN bool stream_piece(int i, int qt, int qs, int q0, int r0, int stride,
                        int kc, int w16, int* dst, size_t* src, bool* from_q) {
   const int row = i / KPIECES, col = i - row * KPIECES;
   if (col >= w16 || (row >= qt && row < qs)) return false;
   *dst = row * SROW + col * 16;
   *from_q = row < qs;
   const size_t src_row = *from_q ? (size_t)(q0 + row) : (size_t)(r0 + row - qs);
-  *src = src_row * at_pad + (size_t)kc * KC + col * 16;
+  *src = src_row * stride + (size_t)kc * KC + col * 16;
   return true;
 }
 
@@ -388,20 +444,24 @@ __device__ __forceinline__ void block_stores(
     add_totals(c, hit_w, ex_w, q0, nmatch, nexact);
 }
 
-// KS > 0: at_pad == 32 * KS, and each warp keeps its queries' A fragments
-// in registers for the whole block (2 x 4 x KS of them); KS == 0: any
-// at_pad that fits, A fragments reloaded by ldmatrix at every k-step.
+// One block of a resident instance: queries q0 .. q0 + qt over band block
+// band_blk, the product over the planes' first kw columns (the k width;
+// their rows lie `stride` bytes apart). KS > 0: kw == 32 * KS, a
+// compile-time constant, and each warp keeps its queries' A fragments in
+// registers for the whole block (2 x 4 x KS of them); KS == 0: kw ==
+// at_pad, any width that fits, A fragments reloaded by ldmatrix at every
+// k-step.
 template <int KS>
-__global__ void __launch_bounds__(NTHREAD, 2)
-stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
-               const uint8_t* __restrict__ validrows,
-               const int8_t* __restrict__ qbin, const int* __restrict__ q_cc,
-               const int* __restrict__ k_ana, const int* __restrict__ k_len,
-               const int* __restrict__ start_blk, uint8_t* packed_q,
-               uint8_t* exact_q, int* counts_t, int* nmatch, int* nexact,
-               int B, int at_pad, int nb_band, int bt, int qt) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rstride = at_pad + 16;  // bytes per plane row in shared memory
+__device__ __forceinline__ void resident_block(
+    unsigned char* smem, const int8_t* __restrict__ bins,
+    const int* __restrict__ cc, const uint8_t* __restrict__ validrows,
+    const int8_t* __restrict__ qbin, const int* __restrict__ q_cc,
+    const int* __restrict__ k_ana, const int* __restrict__ k_len,
+    uint8_t* packed_q, uint8_t* exact_q, int* counts_t, int* nmatch,
+    int* nexact, int B, int at_pad, int stride, int nb_band, int qt, int q0,
+    int band_blk, int row_base) {
+  const int kw = KS > 0 ? 32 * KS : at_pad;
+  const int rstride = kw + 16;  // bytes per plane row in shared memory
   const int stage_bytes = CHUNK * rstride + CHUNK * 4 + CHUNK;
   const int qs = QT_MAX;
   unsigned char* q_s = smem;                          // [qs][rstride]
@@ -414,20 +474,15 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
   const int lane = tid & 31, warp = tid >> 5;
   const int rg = warp & 1, qg = warp >> 1;
   const int g = lane >> 2, t = lane & 3;
-  // query tiles vary fastest, so the blocks on the card at one time share
-  // a few band blocks, which stay in L2
-  const int q0 = blockIdx.x * qt;
-  const int band_blk = blockIdx.y;
-  const int row_base = (start_blk[q0 / bt] + band_blk) * ROW_BLOCK;
-  const int at16 = at_pad / 16;
+  const int at16 = kw / 16;
 
   auto load_chunk = [&](int chunk) {
     unsigned char* st = stages + (chunk % NSTAGE) * stage_bytes;
     const int r0 = row_base + chunk * CHUNK;
-    const int8_t* src = bins + (size_t)r0 * at_pad;
+    const int8_t* src = bins + (size_t)r0 * stride;
     for (int i = tid; i < CHUNK * at16; i += NTHREAD) {
       const int row = i / at16, col = i - row * at16;
-      cp_async16(st + row * rstride + col * 16, src + (size_t)row * at_pad + col * 16);
+      cp_async16(st + row * rstride + col * 16, src + (size_t)row * stride + col * 16);
     }
     if (tid < CHUNK / 4)
       cp_async16(st + CHUNK * rstride + tid * 16,
@@ -447,7 +502,7 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
     const int c = i / at16, col = i - c * at16;
     int4 v = make_int4(0, 0, 0, 0);
     if (c < qt)
-      v = reinterpret_cast<const int4*>(qbin + (size_t)(q0 + c) * at_pad)[col];
+      v = reinterpret_cast<const int4*>(qbin + (size_t)(q0 + c) * stride)[col];
     *reinterpret_cast<int4*>(q_s + c * rstride + col * 16) = v;
   }
 
@@ -466,7 +521,7 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
                           (lane >> 4) * 16;
   const int b_off =
       (rg * 32 + (lane & 7) + (lane >> 4) * 8) * rstride + ((lane >> 3) & 1) * 16;
-  const int ksteps = at_pad / 32;
+  const int ksteps = kw / 32;
   unsigned a_res[KS > 0 ? KS : 1][2][4];
   if (KS > 0) {
     __syncthreads();  // the query planes are in shared memory
@@ -532,9 +587,32 @@ stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
     add_totals(c, hit_w, ex_w, q0, nmatch, nexact);
 }
 
-// The streamed instance, at any at_pad (see the note at the top): step s
-// is row chunk s / nk and k-chunk s % nk, in ring stage s % SSTAGE; the
-// accumulators carry over the chunk's k-chunks.
+// The main and resident instances: at_pad is the k width, `stride` the
+// planes' row bytes.
+template <int KS>
+__global__ void __launch_bounds__(NTHREAD, 2)
+stage_a_kernel(const int8_t* __restrict__ bins, const int* __restrict__ cc,
+               const uint8_t* __restrict__ validrows,
+               const int8_t* __restrict__ qbin, const int* __restrict__ q_cc,
+               const int* __restrict__ k_ana, const int* __restrict__ k_len,
+               const int* __restrict__ start_blk, uint8_t* packed_q,
+               uint8_t* exact_q, int* counts_t, int* nmatch, int* nexact,
+               int B, int nb_band, int bt, int qt, int at_pad, int stride) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // query tiles vary fastest, so the blocks on the card at one time share
+  // a few band blocks, which stay in L2
+  const int q0 = blockIdx.x * qt;
+  const int band_blk = blockIdx.y;
+  resident_block<KS>(smem, bins, cc, validrows, qbin, q_cc, k_ana, k_len,
+                     packed_q, exact_q, counts_t, nmatch, nexact, B, at_pad,
+                     stride, nb_band, qt, q0, band_blk,
+                     (start_blk[q0 / bt] + band_blk) * ROW_BLOCK);
+}
+
+// The streamed instance, at any at_pad of at least 224 (see the note at
+// the top). A block whose band block's extent is at most 224 runs the
+// main body; the others walk kw = their extent: step s is row chunk s / nk and k-chunk s % nk, in ring
+// stage s % SSTAGE, and the accumulators carry over the chunk's k-chunks.
 __global__ void __launch_bounds__(NTHREAD, 2)
 stage_a_kernel_stream(const int8_t* __restrict__ bins,
                       const int* __restrict__ cc,
@@ -545,9 +623,23 @@ stage_a_kernel_stream(const int8_t* __restrict__ bins,
                       const int* __restrict__ k_len,
                       const int* __restrict__ start_blk, uint8_t* packed_q,
                       uint8_t* exact_q, int* counts_t, int* nmatch,
-                      int* nexact, int B, int at_pad, int nb_band, int bt,
-                      int qt) {
+                      int* nexact, int B, int nb_band, int bt, int qt,
+                      const int* __restrict__ extents, int at_pad) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int q0 = blockIdx.x * qt;
+  // the last band blocks, the widest, first
+  const int band_blk = nb_band - 1 - blockIdx.y;
+  const int blk = start_blk[q0 / bt] + band_blk;
+  const int row_base = blk * ROW_BLOCK;
+  const int kw = block_width(extents, blk, at_pad);
+  if (kw <= MAIN_WIDTH) {  // block-uniform
+    resident_block<MAIN_WIDTH / 32>(smem, bins, cc, validrows, qbin, q_cc,
+                                    k_ana, k_len, packed_q, exact_q,
+                                    counts_t, nmatch, nexact, B, MAIN_WIDTH,
+                                    at_pad, nb_band, qt, q0, band_blk,
+                                    row_base);
+    return;
+  }
   const int qs = tile_rows(qt);
   const int stage_bytes = (int)stream_stage_bytes(qs);
   unsigned char* stages = smem;  // SSTAGE x stage
@@ -559,10 +651,7 @@ stage_a_kernel_stream(const int8_t* __restrict__ bins,
   const int lane = tid & 31, warp = tid >> 5;
   const int rg = warp & 1, qg = warp >> 1;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * qt;
-  const int band_blk = blockIdx.y;
-  const int row_base = (start_blk[q0 / bt] + band_blk) * ROW_BLOCK;
-  const int nk = kchunks(at_pad), nsteps = NCHUNK * nk;
+  const int nk = kchunks(kw), nsteps = NCHUNK * nk;
 
   // query rows past qt are zero in every stage (no load writes them)
   const int pad16 = (qs - qt) * SROW / 16;
@@ -576,7 +665,7 @@ stage_a_kernel_stream(const int8_t* __restrict__ bins,
     const int chunk = s / nk, kc = s - chunk * nk;
     unsigned char* st = stages + (s % SSTAGE) * stage_bytes;
     const int r0 = row_base + chunk * CHUNK;
-    const int w16 = kchunk_cols(at_pad, kc) / 16;
+    const int w16 = kchunk_cols(kw, kc) / 16;
     for (int i = tid; i < (qs + CHUNK) * KPIECES; i += NTHREAD) {
       int dst;
       size_t src;
@@ -627,7 +716,7 @@ stage_a_kernel_stream(const int8_t* __restrict__ bins,
     if (active) {
       const int stage = s % SSTAGE;
       const unsigned st = ring + stage * stage_bytes;
-      const int ksn = kchunk_cols(at_pad, kc) / 32;
+      const int ksn = kchunk_cols(kw, kc) / 32;
 #pragma unroll
       for (int ks = 0; ks < KC / 32; ++ks) {
         if (ks < ksn) {
@@ -656,12 +745,14 @@ stage_a_kernel_stream(const int8_t* __restrict__ bins,
 struct Args {
   const void *bins, *cc, *validrows, *qbin, *q_cc, *k_ana, *k_len, *start_blk;
   void *packed_q, *exact_q, *counts_t, *nmatch, *nexact;
-  int B, at_pad, nb_band, bt;
+  int B, nb_band, bt;
 };
 
-template <typename Kernel>
+// One launch of `kernel` over the (query tile, band block) grid; `extra`
+// are the instance's own arguments after the shared ones.
+template <typename Kernel, typename... Extra>
 int launch_kernel(Kernel kernel, const Args& a, int qt, size_t smem,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, Extra... extra) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -671,7 +762,7 @@ int launch_kernel(Kernel kernel, const Args& a, int qt, size_t smem,
       (const int8_t*)a.qbin, (const int*)a.q_cc, (const int*)a.k_ana,
       (const int*)a.k_len, (const int*)a.start_blk, (uint8_t*)a.packed_q,
       (uint8_t*)a.exact_q, (int*)a.counts_t, (int*)a.nmatch, (int*)a.nexact,
-      a.B, a.at_pad, a.nb_band, a.bt, qt);
+      a.B, a.nb_band, a.bt, qt, extra...);
   return (int)cudaGetLastError();
 }
 
@@ -693,10 +784,12 @@ cudaError_t smem_limit(size_t& limit) {
 }  // namespace
 
 // The instance (K1_MAIN 1, K1_RESIDENT 2, K1_STREAM 3; 0 where none fits)
-// for planes at_pad wide, qt queries a block and a block's shared-memory
-// limit in bytes; on the card a negative limit reads the current device's
-// (and a failed read returns minus the CUDA error).
-extern "C" int analiticcl_stage_a_route(int at_pad, int qt, long long limit) {
+// for a launch whose rows use `width` columns of planes at_pad wide, qt
+// queries a block and a block's shared-memory limit in bytes; on the card
+// a negative limit reads the current device's (and a failed read returns
+// minus the CUDA error).
+extern "C" int analiticcl_stage_a_route(int width, int at_pad, int qt,
+                                        long long limit) {
 #ifndef ANALITICCL_HOST_TEST
   if (limit < 0) {
     size_t dev_limit = 0;
@@ -705,7 +798,7 @@ extern "C" int analiticcl_stage_a_route(int at_pad, int qt, long long limit) {
     limit = (long long)dev_limit;
   }
 #endif
-  return k1_route(at_pad, qt, limit < 0 ? 0 : (size_t)limit);
+  return k1_route(width, at_pad, qt, limit < 0 ? 0 : (size_t)limit);
 }
 
 #ifndef ANALITICCL_HOST_TEST
@@ -713,18 +806,23 @@ extern "C" int analiticcl_stage_a_route(int at_pad, int qt, long long limit) {
 // bins int8 [Ni, at_pad] (at_pad % 32 == 0), cc int32 [Ni], validrows
 // uint8 [Ni], qbin int8 [B, at_pad], q_cc / k_ana / k_len int32 [B],
 // start_blk int32 [B / bt] with (start_blk[t] + nb_band) * 1024 <= Ni (the
-// band plan clamps it so). Every pointer 16-byte aligned. nmatch / nexact
-// must be zeroed by the caller. qt <= 128 divides bt, and bt divides B.
+// band plan clamps it so), extents int32 [Ni / 1024] (each block's
+// extent, convert.block_extents). `width` (a multiple of 32 in [32,
+// at_pad]) is at least the extent of every block the tiles read. Every
+// plane and output pointer 16-byte aligned. nmatch / nexact must be
+// zeroed by the caller. qt <= 128 divides bt, and bt divides B.
 // `instance` is the one `analiticcl_stage_a_route` gives; one that does
 // not fit this shape returns cudaErrorInvalidValue without a launch.
 extern "C" int analiticcl_stage_a(
     const void* bins, const void* cc, const void* validrows, const void* qbin,
     const void* q_cc, const void* k_ana, const void* k_len,
-    const void* start_blk, void* packed_q, void* exact_q, void* counts_t,
-    void* nmatch, void* nexact, int B, int at_pad, int nb_band, int bt, int qt,
-    int instance, void* stream) {
+    const void* start_blk, const void* extents, void* packed_q,
+    void* exact_q, void* counts_t, void* nmatch, void* nexact, int B,
+    int at_pad, int width, int nb_band, int bt, int qt, int instance,
+    void* stream) {
   if (B <= 0 || nb_band <= 0) return 0;
-  if (at_pad <= 0 || at_pad % 32 || qt < 1 || qt > QT_MAX || bt % qt || B % bt)
+  if (at_pad <= 0 || at_pad % 32 || width < 32 || width % 32 ||
+      width > at_pad || qt < 1 || qt > QT_MAX || bt % qt || B % bt)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {bins, cc, validrows, qbin, packed_q, exact_q};
   for (const void* p : ptrs)
@@ -733,22 +831,25 @@ extern "C" int analiticcl_stage_a(
   size_t limit = 0;
   const cudaError_t e = smem_limit(limit);
   if (e != cudaSuccess) return (int)e;
-  const Args a{bins,     cc,      validrows, qbin,   q_cc,
-               k_ana,    k_len,   start_blk, packed_q, exact_q,
-               counts_t, nmatch,  nexact,    B,       at_pad,
-               nb_band,  bt};
+  const Args a{bins,     cc,     validrows, qbin,      q_cc,
+               k_ana,    k_len,  start_blk, packed_q,  exact_q,
+               counts_t, nmatch, nexact,    B,         nb_band,
+               bt};
   auto st = (cudaStream_t)stream;
-  if (instance == K1_MAIN || instance == K1_RESIDENT) {
-    if (smem_bytes(at_pad) > limit || (instance == K1_MAIN) != (at_pad == 7 * 32))
-      return (int)cudaErrorInvalidValue;
-    // the main path's 210 planes, padded, or any width that fits
-    return launch_kernel(instance == K1_MAIN ? stage_a_kernel<7> : stage_a_kernel<0>,
-                         a, qt, smem_bytes(at_pad), st);
+  if (instance == K1_MAIN) {  // the first 224 columns
+    if (!main_fits(width, at_pad, limit)) return (int)cudaErrorInvalidValue;
+    return launch_kernel(stage_a_kernel<MAIN_WIDTH / 32>, a, qt,
+                         smem_bytes(MAIN_WIDTH), st, MAIN_WIDTH, at_pad);
   }
-  if (instance == K1_STREAM) {
-    const size_t smem = stream_smem_bytes(tile_rows(qt));
-    if (smem > limit) return (int)cudaErrorInvalidValue;
-    return launch_kernel(stage_a_kernel_stream, a, qt, smem, st);
+  if (instance == K1_RESIDENT) {  // the first `width` columns
+    if (smem_bytes(width) > limit) return (int)cudaErrorInvalidValue;
+    return launch_kernel(stage_a_kernel<0>, a, qt, smem_bytes(width), st,
+                         width, at_pad);
+  }
+  if (instance == K1_STREAM) {  // each block at its own extent
+    if (!stream_fits(at_pad, qt, limit)) return (int)cudaErrorInvalidValue;
+    return launch_kernel(stage_a_kernel_stream, a, qt, stream_launch_smem(qt),
+                         st, (const int*)extents, at_pad);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -832,30 +933,81 @@ extern "C" void analiticcl_stage_a_host(
     }
 }
 
-// The streamed instance on the host: the kernel's loop nest for each block
-// (row chunk x k-chunk, each step's pieces placed in its ring stage by
-// `stream_piece` and step s + SSTAGE - 1 loaded before step s is used, over
-// a ring that starts with stale bytes), each lane's accumulators summed by
-// a scalar dot over the stage's rows in fragment order, and the epilogue
-// reading the charcounts and flags from the stage. Arguments and outputs as
-// `analiticcl_stage_a`'s (host pointers; nmatch / nexact zeroed by the
-// caller).
+// The streamed instance on the host: for each block its extent from the
+// table (`block_width`), then, where it is at most 224, the main body's
+// product as a scalar dot over each row chunk's first 224 columns, else
+// the kernel's loop nest (row chunk x k-chunk of its extent, each step's
+// pieces placed in its ring stage by `stream_piece` and step s + SSTAGE -
+// 1 loaded before step s is used, over a ring that starts with stale
+// bytes), each lane's accumulators summed by a scalar dot over the
+// stage's rows in fragment order; either way the epilogue as the kernel
+// runs it. `walk` int32 [B / qt][nb_band][2] gets each block's ring steps
+// (16 chunks for the main body, 16 x kchunks(extent) streamed) and the
+// plane bytes of a row its products read. Other arguments and outputs
+// as `analiticcl_stage_a`'s (host pointers; at_pad at least 224, as
+// `stream_fits` holds the kernel to; nmatch / nexact zeroed by the caller).
 extern "C" void analiticcl_stage_a_stream_host(
     const int8_t* bins, const int* cc, const uint8_t* validrows,
     const int8_t* qbin, const int* q_cc, const int* k_ana, const int* k_len,
-    const int* start_blk, uint8_t* packed_q, uint8_t* exact_q, int* counts_t,
-    int* nmatch, int* nexact, int B, int at_pad, int nb_band, int bt,
-    int qt) {
+    const int* start_blk, const int* extents, uint8_t* packed_q,
+    uint8_t* exact_q, int* counts_t, int* nmatch, int* nexact, int B,
+    int at_pad, int nb_band, int bt, int qt, int* walk) {
   const int qs = tile_rows(qt);
   const size_t stage_bytes = stream_stage_bytes(qs);
-  const int nk = kchunks(at_pad), nsteps = NCHUNK * nk;
   std::vector<unsigned char> ring(SSTAGE * stage_bytes);
-  std::vector<unsigned> hit_w(qs * WSTRIDE), ex_w(qs * WSTRIDE);
+  std::vector<unsigned> hit_w(QT_MAX * WSTRIDE), ex_w(QT_MAX * WSTRIDE);
   std::vector<int> acc(NWARP * 32 * NACC);
+  // lane's accumulators: a scalar dot over `width` bytes of query and band
+  // rows given by their pointers in fragment order
+  auto lane_dots = [&](int warp, int lane, const int8_t* const* qrows,
+                       const int8_t* const* brows, int width) {
+    int* a = acc.data() + (warp * 32 + lane) * NACC;
+    for (int e = 0; e < NACC; ++e) {
+      int dot = 0;
+      for (int c = 0; c < width; ++c) dot += qrows[e][c] * brows[e][c];
+      a[e] += dot;
+    }
+  };
   for (int qb = 0; qb < B / qt; ++qb)
     for (int band_blk = 0; band_blk < nb_band; ++band_blk) {
       const int q0 = qb * qt;
-      const int row_base = (start_blk[q0 / bt] + band_blk) * ROW_BLOCK;
+      const int blk = start_blk[q0 / bt] + band_blk;
+      const int row_base = blk * ROW_BLOCK;
+      const int kw = block_width(extents, blk, at_pad);
+      int* w = walk + ((size_t)qb * nb_band + band_blk) * 2;
+      if (kw <= MAIN_WIDTH) {  // the main body: resident queries, 224 columns
+        static const int8_t zero[MAIN_WIDTH] = {};
+        for (int chunk = 0; chunk < NCHUNK; ++chunk) {
+          std::fill(acc.begin(), acc.end(), 0);
+          const int r0 = row_base + chunk * CHUNK;
+          for (int warp = 0; warp < NWARP; ++warp) {
+            const int rg = warp & 1, qg = warp >> 1;
+            if (qg * 32 >= qt) continue;
+            for (int lane = 0; lane < 32; ++lane) {
+              const int g = lane >> 2, t = lane & 3;
+              const int8_t *qr[NACC], *br[NACC];
+              for (int e = 0; e < NACC; ++e) {
+                const int mi = e / 16, ni = (e / 4) % 4, reg = e % 4;
+                const int c = qg * 32 + 16 * mi + 8 * (reg >> 1) + g;
+                qr[e] = c < qt ? qbin + (size_t)(q0 + c) * at_pad : zero;
+                br[e] = bins + (size_t)(r0 + rg * 32 + 8 * ni + 2 * t +
+                                        (reg & 1)) * at_pad;
+              }
+              lane_dots(warp, lane, qr, br, MAIN_WIDTH);
+            }
+            host_warp_words(acc.data() + warp * 32 * NACC, cc + r0,
+                            validrows + r0, qg, rg, chunk, qt, q0, q_cc,
+                            k_ana, k_len, hit_w.data(), ex_w.data());
+          }
+        }
+        w[0] = NCHUNK;
+        w[1] = MAIN_WIDTH;
+        host_block_stores(hit_w.data(), ex_w.data(), qt, q0, band_blk,
+                          nb_band, B, packed_q, exact_q, counts_t, nmatch,
+                          nexact);
+        continue;
+      }
+      const int nk = kchunks(kw), nsteps = NCHUNK * nk;
       std::memset(ring.data(), 0xA5, ring.size());
       for (int s = 0; s < SSTAGE; ++s)
         std::memset(ring.data() + s * stage_bytes + qt * SROW, 0,
@@ -864,7 +1016,7 @@ extern "C" void analiticcl_stage_a_stream_host(
         const int chunk = s / nk, kc = s - chunk * nk;
         unsigned char* st = ring.data() + (s % SSTAGE) * stage_bytes;
         const int r0 = row_base + chunk * CHUNK;
-        const int w16 = kchunk_cols(at_pad, kc) / 16;
+        const int w16 = kchunk_cols(kw, kc) / 16;
         for (int i = 0; i < (qs + CHUNK) * KPIECES; ++i) {
           int dst;
           size_t src;
@@ -881,27 +1033,28 @@ extern "C" void analiticcl_stage_a_stream_host(
       };
       for (int s = 0; s < SSTAGE - 1 && s < nsteps; ++s) load_step(s);
       std::fill(acc.begin(), acc.end(), 0);
+      w[0] = w[1] = 0;
       for (int s = 0; s < nsteps; ++s) {
         if (s + SSTAGE - 1 < nsteps) load_step(s + SSTAGE - 1);
         const int chunk = s / nk, kc = s - chunk * nk;
         const unsigned char* st = ring.data() + (s % SSTAGE) * stage_bytes;
-        const int width = kchunk_cols(at_pad, kc);
+        const int width = kchunk_cols(kw, kc);
+        ++w[0];
+        if (chunk == 0) w[1] += width;
         for (int warp = 0; warp < NWARP; ++warp) {
           const int rg = warp & 1, qg = warp >> 1;
           if (qg * 32 >= qt) continue;
           for (int lane = 0; lane < 32; ++lane) {
             const int g = lane >> 2, t = lane & 3;
-            int* a = acc.data() + (warp * 32 + lane) * NACC;
+            const int8_t *qr[NACC], *br[NACC];
             for (int e = 0; e < NACC; ++e) {
               const int mi = e / 16, ni = (e / 4) % 4, reg = e % 4;
-              const int8_t* qrow = reinterpret_cast<const int8_t*>(
+              qr[e] = reinterpret_cast<const int8_t*>(
                   st + (qg * 32 + 16 * mi + 8 * (reg >> 1) + g) * SROW);
-              const int8_t* brow = reinterpret_cast<const int8_t*>(
+              br[e] = reinterpret_cast<const int8_t*>(
                   st + (qs + rg * 32 + 8 * ni + 2 * t + (reg & 1)) * SROW);
-              int dot = 0;
-              for (int c = 0; c < width; ++c) dot += qrow[c] * brow[c];
-              a[e] += dot;
             }
+            lane_dots(warp, lane, qr, br, width);
           }
         }
         if (kc != nk - 1) continue;

@@ -82,12 +82,12 @@ SIGNATURES = {
     },
     "stage_a": {
         "analiticcl_stage_a": [
-            _P, _P, _P, _P, _P, _P, _P, _P,  # inputs
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,  # inputs, extents
             _P, _P, _P, _P, _P,  # outputs
-            _I, _I, _I, _I, _I,  # B, at_pad, nb_band, bt, qt
+            _I, _I, _I, _I, _I, _I,  # B, at_pad, width, nb_band, bt, qt
             _I, _P,  # instance, stream
         ],
-        "analiticcl_stage_a_route": [_I, _I, ctypes.c_longlong],
+        "analiticcl_stage_a_route": [_I, _I, _I, ctypes.c_longlong],
     },
 }
 

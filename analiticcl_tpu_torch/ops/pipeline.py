@@ -85,7 +85,9 @@ from ..types import (
 )
 from ..utils.native import fastemit_build_result_lists, rank_tail_native
 from ..utils.profiling import StageTimer
-from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
+from ..convert import (
+    DeviceIndex, band_width, count_planes, device_index, host_layout,
+)
 from ..device import resolve_device
 from . import _build
 from .dl import ScoreInputs, dl_lcs_slots, slot_block
@@ -139,15 +141,14 @@ def _batch_rows(n: int) -> int:
 
 
 def query_planes_plain(index: DeviceIndex, q_counts):
-    """int8 [B, at_pad] binarized count planes of the queries, zero-padded to
-    the index's plane width (ops/pipeline.py:403-409), as torch ops: the
-    plain version of :func:`query_planes`."""
-    B, A = q_counts.shape
-    T = index.at // A
-    t_levels = torch.arange(T, dtype=torch.int32, device=q_counts.device)
-    qbin = (q_counts.clamp(max=T)[:, :, None] > t_levels).reshape(B, A * T)
-    pad = index.bins.shape[1] - A * T
-    return torch.nn.functional.pad(qbin.to(torch.int8), (0, pad))
+    """int8 [B, at_pad] binarized count planes of the queries in the
+    index's threshold-major order (column ``t*A + a``: ``count[a] > t``;
+    the JAX core's planes, ops/pipeline.py:403-409, under
+    ``convert.plane_columns``), zero-padded to the index's plane width, as
+    torch ops: the plain version of :func:`query_planes`."""
+    T = index.at // q_counts.shape[1]
+    qbin = count_planes(q_counts.clamp(max=T), T)
+    return torch.nn.functional.pad(qbin, (0, index.bins.shape[1] - index.at))
 
 
 def query_planes(index: DeviceIndex, q_counts, totals=None):
@@ -473,10 +474,12 @@ def probe(*tensors) -> tuple:
 
 
 def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,
-                  start_blk, nb_band: int, *,
+                  start_blk, nb_band: int, width: int, *,
                   stop_stage: Optional[str] = None):
     """Stage A of :func:`query_core`: the query planes (kernel K5), then
-    banded retrieval (kernel K1) over ``index``'s rows. ``stop_stage``
+    banded retrieval (kernel K1) over ``index``'s rows at the k ``width``
+    the band plan gives (the largest block extent its tiles read,
+    ``convert.band_width``). ``stop_stage``
     ``"noop"`` returns the probes of ``(q_cc, k_ana)`` before any device
     work, ``"stageA"`` those of the stage's outputs (every 64th byte
     column of the bits)."""
@@ -489,7 +492,7 @@ def query_stage_a(index: DeviceIndex, q_counts, q_cc, k_ana, k_len,
     sa = StageA(*stage_a_masks(
         index.bins, index.cc, index.validrows,
         query_planes(index, q_counts, totals), q_cc, k_ana, k_len, start_blk,
-        nb_band, totals=totals,
+        nb_band, index.extents, width, totals=totals,
     ))
     if stop_stage == "stageA":
         return probe(sa.packed_q[:, ::64], sa.exact_q[:, ::64], sa.counts_t,
@@ -517,6 +520,7 @@ def query_core(
     P2: int,  # survivor slots
     window: int,  # DL exactness window (>= every per-query edit distance)
     nb_band: int,  # band width in ROW_BLOCK blocks
+    width: int,  # stage A's k width (query_stage_a)
     use_stop_exact: bool = True,
     stop_stage: Optional[str] = None,  # profiling: one of STOP_STAGES
 ):
@@ -527,7 +531,7 @@ def query_core(
     _check_stop(stop_stage, STOP_STAGES)
     stop_a = stop_stage if stop_stage in STAGE_A_STOPS else None
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
-                       nb_band, stop_stage=stop_a)
+                       nb_band, width, stop_stage=stop_a)
     if stop_a is not None:
         return sa
     return query_stage_b(
@@ -679,7 +683,7 @@ class DevicePipeline:
         self._canon_of = lay.canon_of
         self._cc_dev = lay.cc  # host copy for the exact band plan
         self._norm_dtype = lay.norms2.dtype
-        self.index = index_tensors_from_numpy(
+        self.index = device_index(
             lay.bins, lay.cc, lay.validrows, lay.norms2, lay.norm_lens,
             lay.freqs, lay.first_lower, self.device,
         )
@@ -719,7 +723,7 @@ class DevicePipeline:
         is done with them."""
         s = self._streams.get(idx.bins.device)
         if s is not None:
-            for t in idx[:7]:
+            for t in idx[:8]:
                 t.record_stream(s)
 
     def _refresh_variant_flags(self, linked=None) -> None:
@@ -820,7 +824,7 @@ class DevicePipeline:
         with self._on(self.device):
             parts = self._query(
                 state["args"], state["window"], state["nb_band"],
-                state["use_stop_exact"], P, P2,
+                state["width"], state["use_stop_exact"], P, P2,
             )
             host = []
             for dev, outs in parts:
@@ -836,12 +840,12 @@ class DevicePipeline:
         )
         return host, [s.record_event() for s in streams]
 
-    def _query(self, args, window: int, nb_band, use_stop_exact: bool,
+    def _query(self, args, window: int, nb_band, width, use_stop_exact: bool,
                P: int, P2: int):
         """The device calls of one prepared batch: ``[(device, outputs)]``."""
         return [(self.device, query_core(
             self.index, *args, have_freq=bool(self.model.have_freq), P=P,
-            P2=P2, window=window, nb_band=nb_band,
+            P2=P2, window=window, nb_band=nb_band, width=width,
             use_stop_exact=use_stop_exact,
         ))]
 
@@ -1013,7 +1017,7 @@ class DevicePipeline:
         k_len = np.minimum(k_ana, k_ed)
         k_len[na:] = -1
         q_cc = q_counts.sum(axis=1).astype(np.int32)
-        start_blk, nb_band = self._band_plan(q_cc, k_len, B)
+        start_blk, nb_band, width = self._band_plan(q_cc, k_len, B)
         # over the memory cap: charcount-contiguous parts, each with its own
         # (narrower) band; a part still over the cap splits again
         hit_bits = self._hit_bits(B, nb_band)
@@ -1042,7 +1046,8 @@ class DevicePipeline:
         return {
             "results": results, "active": active, "inputs": inputs,
             "params": params, "args": args, "window": window,
-            "nb_band": nb_band, "use_stop_exact": use_se, "B": B,
+            "nb_band": nb_band, "width": width, "use_stop_exact": use_se,
+            "B": B,
             "q_lens": q_lens,
         }
 
@@ -1061,11 +1066,13 @@ class DevicePipeline:
     def _band_plan(self, q_cc: np.ndarray, k_ana: np.ndarray, B: int):
         """Exact per-tile charcount band plan for a (padded) query batch.
 
-        Returns (start_blk int32 [B // bt], nb_band): every tile's block
-        window [start, start + nb_band) covers all device rows with
+        Returns (start_blk int32 [B // bt], nb_band, width): every tile's
+        block window [start, start + nb_band) covers all device rows with
         charcount in [min(q_cc - k), max(q_cc + k)] over the tile's active
         queries (k < 0 marks padding) -- the reference's sortedindex
-        charcount sweep (lib.rs:1266-1288) as a block range."""
+        charcount sweep (lib.rs:1266-1288) as a block range; ``width`` is
+        the largest extent of the blocks the tiles read (stage A's k width,
+        which routes its launch)."""
         bt = _b_tile(B, self.Ni_pad)
         nqt = B // bt
         cc_t = q_cc.reshape(nqt, bt)
@@ -1082,7 +1089,8 @@ class DevicePipeline:
         # widens the coverage below
         start = np.minimum(start, self.M_total - nb_band).astype(np.int32)
         np.maximum(start, 0, out=start)
-        return start, nb_band
+        return start, nb_band, band_width(self.index.extents_host, start,
+                                          nb_band)
 
     def _finalize(self, host, B: int, P2: int) -> Fetched:
         """A batch's outputs on the host as numpy, cut to the valid survivor

@@ -35,12 +35,13 @@ BIG_NI_ROWS = 262_144  # above this many rows the query tile shrinks ...
 BIG_NI_B_TILE = 256  # ... to this, so each tile's charcount band narrows
 KERNEL_QT = 128  # queries per CUDA block (never straddles a band tile)
 # the kernel's instances, by the number csrc/stage_a.cu gives each: the
-# main one (AT 224), one whose block keeps its 128 queries' planes in
-# shared memory (up to AT 576 on an H100: AT = A x T grows with the largest
-# count of one character in one entry), and one that streams the planes in
-# k-chunks (any AT)
+# main one (the first 224 plane columns), one whose block keeps its 128
+# queries' planes in shared memory (up to 576 columns on an H100), and one
+# that streams the planes in k-chunks, each band block to its own extent
+# (any width). Planes are A x T wide, T the largest count of one character
+# in one entry; a launch's width is the largest block extent it reads.
 INSTANCES = {"main": 1, "resident": 2, "stream": 3}
-_routes: dict = {}  # (device, AT, qt) -> the instance's name
+_routes: dict = {}  # (device, width, AT, qt) -> the instance's name
 
 
 def _b_tile(B: int, Ni: int = 0) -> int:
@@ -60,8 +61,10 @@ def _pack_bits_rows(mask_t):
 
 
 def stage_a_masks_plain(bins, cc, validrows, qbin, q_cc, k_ana, k_len,
-                        start_blk, nb_band: int):
-    """Plain PyTorch stage A, one band tile at a time.
+                        start_blk, nb_band: int, extents=None, width=None):
+    """Plain PyTorch stage A, one band tile at a time, over every plane
+    column: ``extents`` and ``width`` (the kernel's arguments) are not
+    read, so a wrong table shows as a difference from the kernel.
 
     The int8 dot product runs as a float32 matmul: the planes are 0/1 and the
     sums stay far below 2**24, so the result is exact (TF32 is off for
@@ -101,7 +104,7 @@ def stage_a_masks_plain(bins, cc, validrows, qbin, q_cc, k_ana, k_len,
 
 
 def _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
-                  nb_band):
+                  nb_band, extents, width):
     Ni, AT = bins.shape
     B = qbin.shape[0]
     bt = _b_tile(B, Ni)
@@ -111,6 +114,7 @@ def _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
         "qbin": (qbin, torch.int8, (B, AT)), "q_cc": (q_cc, torch.int32, (B,)),
         "k_ana": (k_ana, torch.int32, (B,)), "k_len": (k_len, torch.int32, (B,)),
         "start_blk": (start_blk, torch.int32, (B // bt,)),
+        "extents": (extents, torch.int32, (Ni // ROW_BLOCK,)),
     }
     for name, (t, dtype, shape) in want.items():
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
@@ -122,44 +126,55 @@ def _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
             raise ValueError(f"stage_a: {name} on {t.device}, bins on {bins.device}")
     if Ni % ROW_BLOCK or nb_band < 1 or nb_band * ROW_BLOCK > Ni:
         raise ValueError(f"stage_a: Ni={Ni} nb_band={nb_band}")
+    if not 32 <= width <= -(-AT // 32) * 32 or width % 32:
+        raise ValueError(f"stage_a: width {width} is not a multiple of 32 "
+                         f"in [32, {AT}]")
     return B, AT, bt
 
 
-def kernel_instance(AT: int, qt: int, device) -> str:
-    """The kernel's instance for planes ``AT`` wide and ``qt`` queries a
-    block on CUDA ``device``, as ``csrc/stage_a.cu``'s ``k1_route`` decides
-    it from the shape and the device's shared memory (asked once per
-    device, width and query tile)."""
+def kernel_instance(width: int, AT: int, qt: int, device) -> str:
+    """The kernel's instance for a launch whose rows use ``width`` columns
+    of planes ``AT`` wide, ``qt`` queries a block, on CUDA ``device``, as
+    ``csrc/stage_a.cu``'s ``k1_route`` decides it from the shape and the
+    device's shared memory (asked once per device, width, plane width and
+    query tile)."""
     dev = torch.device(device)
-    key = (dev.index, AT, qt)
+    key = (dev.index, width, AT, qt)
     name = _routes.get(key)
     if name is None:
         with torch.cuda.device(dev):
-            code = _build.load("stage_a").analiticcl_stage_a_route(AT, qt, -1)
+            code = _build.load("stage_a").analiticcl_stage_a_route(
+                width, AT, qt, -1)
         if code < 0:
             _build.check(-code, "stage_a shared-memory limit")
         name = next((k for k, v in INSTANCES.items() if v == code), None)
         if name is None:
-            raise RuntimeError(f"stage_a kernel: no instance fits planes "
-                               f"{AT} wide in the device's shared memory")
+            raise RuntimeError(f"stage_a kernel: no instance fits a "
+                               f"launch {width} wide (planes {AT} wide) in "
+                               "the device's shared memory")
         _routes[key] = name
     return name
 
 
 def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
-                  nb_band: int, totals=None):
+                  nb_band: int, extents, width: int, totals=None):
     """Banded stage-A outputs: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. The kernel wants ``AT`` (the plane width) a
-    multiple of 32, one int8 MMA k-step; ``convert.py`` pads the index with
-    zero columns. Any width launches, at :func:`kernel_instance`'s
-    instance; each launch counts in ``stage_a_masks.launches_by_instance``
-    too. The kernel adds each query's totals into ``nmatch`` and
+    version for CPU tensors. ``extents`` (int32 ``[Ni / ROW_BLOCK]``) is
+    the planes' block extents (``convert.block_extents``: every row of
+    block ``j`` is zero past column ``extents[j]``) and ``width`` (a
+    multiple of 32) at least the extent of every block the tiles read
+    (``convert.band_width``); the kernel reads no column past them. The
+    kernel wants ``AT`` (the plane width) a multiple of 32, one int8 MMA
+    k-step; ``convert.py`` pads the index with zero columns. Any width
+    launches, at :func:`kernel_instance`'s instance for ``width``; each
+    launch counts in ``stage_a_masks.launches_by_instance`` too. The
+    kernel adds each query's totals into ``nmatch`` and
     ``nexact``: the rows of ``totals`` (int32 ``[2, B]``, zeroed by the
     caller: the query planes' kernel zeroes them in its launch) where it
     is given, else two tensors of zeros made here. The plain version makes
     its own."""
     B, AT, bt = _check_inputs(bins, cc, validrows, qbin, q_cc, k_ana, k_len,
-                              start_blk, nb_band)
+                              start_blk, nb_band, extents, width)
     if totals is not None and (
             totals.dtype != torch.int32 or tuple(totals.shape) != (2, B)
             or not totals.is_contiguous() or totals.device != bins.device):
@@ -175,7 +190,7 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
     if AT % 32:
         raise ValueError(f"stage_a kernel: AT={AT} is not a multiple of 32")
     qt = min(KERNEL_QT, bt)
-    instance = kernel_instance(AT, qt, dev)
+    instance = kernel_instance(width, AT, qt, dev)
     Nb = nb_band * ROW_BLOCK
     packed_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
     exact_q = torch.empty((B, Nb // 8), dtype=torch.uint8, device=dev)
@@ -190,15 +205,16 @@ def stage_a_masks(bins, cc, validrows, qbin, q_cc, k_ana, k_len, start_blk,
         err = lib.analiticcl_stage_a(
             bins.data_ptr(), cc.data_ptr(), validrows.data_ptr(),
             qbin.data_ptr(), q_cc.data_ptr(), k_ana.data_ptr(),
-            k_len.data_ptr(), start_blk.data_ptr(),
+            k_len.data_ptr(), start_blk.data_ptr(), extents.data_ptr(),
             packed_q.data_ptr(), exact_q.data_ptr(), counts_t.data_ptr(),
             nmatch.data_ptr(), nexact.data_ptr(),
-            B, AT, nb_band, bt, qt, INSTANCES[instance],
+            B, AT, width, nb_band, bt, qt, INSTANCES[instance],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     stage_a_masks.launches += 1
     stage_a_masks.launches_by_instance[instance] += 1
-    _build.check(err, f"stage_a kernel launch ({instance} instance, AT {AT})")
+    _build.check(err, f"stage_a kernel launch ({instance} instance, width "
+                      f"{width}, AT {AT})")
     return packed_q, exact_q, counts_t, nmatch, nexact
 
 

@@ -45,7 +45,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..convert import DeviceIndex, host_layout, index_tensors_from_numpy
+from ..convert import DeviceIndex, band_width, device_index, host_layout
 from ..device import resolve_device
 from ..ops.pipeline import (
     DevicePipeline, Fetched, _batch_rows, query_stage_a, query_stage_b,
@@ -130,15 +130,19 @@ class ShardedPipeline(DevicePipeline):
             lay.bins, lay.cc, lay.validrows, lay.norms2, lay.norm_lens,
             lay.freqs, lay.first_lower,
         )]
-        # one copy of shard s per device that holds it
+        # one copy of shard s per device that holds it; the shard's block
+        # extents are reckoned once, with its first copy
         self._copies = {}
+        self._extents = [None] * self.n_lex  # host tables: the band plans
         for d in range(self.n_dp):
             for s in range(self.n_lex):
                 key = (s, self.mesh.devices[d, s])
                 if key not in self._copies:
-                    self._copies[key] = index_tensors_from_numpy(
-                        *(c[s] for c in cols), key[1]
+                    self._copies[key] = device_index(
+                        *(c[s] for c in cols), key[1],
+                        extents=self._extents[s],
                     )
+                    self._extents[s] = self._copies[key].extents_host
         self._init_async(list(self.mesh.devices.flat), self.Ni_shard)
         for idx in self._copies.values():
             self._share_with_stream(idx)
@@ -155,7 +159,7 @@ class ShardedPipeline(DevicePipeline):
     def index_bytes(self) -> int:
         """Bytes of one lexicon shard's index tensors."""
         idx = self._copies[next(iter(self._copies))]
-        return sum(t.numel() * t.element_size() for t in idx[:7])
+        return sum(t.numel() * t.element_size() for t in idx[:8])
 
     def refresh_freqs(self, freqs_canonical: np.ndarray, linked=None) -> None:
         """Re-upload each shard's frequency column on each device that holds
@@ -186,11 +190,13 @@ class ShardedPipeline(DevicePipeline):
         """Exact band plan per (mesh row, lex shard, tile).
 
         Returns (start_blk int32 [n_dp, n_lex, nqt], nb_band int
-        [n_dp, n_lex]): the tiles of mesh row ``d`` cover, in shard ``s``,
-        every row whose charcount is within their queries' bands (as
-        :meth:`DevicePipeline._band_plan` does for one index) with windows
-        of ``nb_band[d, s]`` blocks. The tile is ``_b_tile`` of the row's
-        batch and the shard's rows, as ``resolve_pairs`` computes it."""
+        [n_dp, n_lex], width int [n_dp, n_lex]): the tiles of mesh row
+        ``d`` cover, in shard ``s``, every row whose charcount is within
+        their queries' bands (as :meth:`DevicePipeline._band_plan` does for
+        one index) with windows of ``nb_band[d, s]`` blocks, whose largest
+        extent in the shard is ``width[d, s]``. The tile is ``_b_tile`` of
+        the row's batch and the shard's rows, as ``resolve_pairs`` computes
+        it."""
         B_local = B // self.n_dp
         bt = _b_tile(B_local, self.Ni_shard)
         nqt = B_local // bt
@@ -201,6 +207,7 @@ class ShardedPipeline(DevicePipeline):
         hi_t = np.where(act, cc_t + k_t, -1).max(axis=2)  # [n_dp, nqt]
         starts = np.zeros((self.n_dp, self.n_lex, nqt), dtype=np.int32)
         nb_band = np.zeros((self.n_dp, self.n_lex), dtype=np.int64)
+        width = np.zeros((self.n_dp, self.n_lex), dtype=np.int64)
         for s in range(self.n_lex):
             cc_s = self._cc_shard[s]
             lo_row = np.searchsorted(cc_s, lo_t, side="left")
@@ -211,9 +218,12 @@ class ShardedPipeline(DevicePipeline):
             st = np.minimum(st, (self.M_shard - nb)[:, None])
             starts[:, s, :] = np.maximum(st, 0)
             nb_band[:, s] = nb
-        return starts, nb_band
+            for d in range(self.n_dp):
+                width[d, s] = band_width(self._extents[s], starts[d, s],
+                                         int(nb[d]))
+        return starts, nb_band, width
 
-    def _query(self, args, window: int, nb_band, use_stop_exact: bool,
+    def _query(self, args, window: int, nb_band, width, use_stop_exact: bool,
                P: int, P2: int):
         """Per mesh row: stage A on every shard, the shards' exact counts
         summed, stage B on every shard at budgets (P, P2), each on its
@@ -241,7 +251,8 @@ class ShardedPipeline(DevicePipeline):
                     )
                     shard_args.append((idx, qn, ql, qf, ke, blk, w, thr))
                     sa = query_stage_a(
-                        idx, qc, qcc, ka, kl, blk, int(nb_band[d, s])
+                        idx, qc, qcc, ka, kl, blk, int(nb_band[d, s]),
+                        int(width[d, s]),
                     )
                     stage_a.append(sa)
                     # a copy between cards runs on the source card's

@@ -198,7 +198,7 @@ def settled_batch(pipe, queries, params):
     P, P2 = pipe._budgets(st["B"])
     return st, dict(have_freq=bool(pipe.model.have_freq), P=P, P2=P2,
                     window=st["window"], nb_band=st["nb_band"],
-                    use_stop_exact=st["use_stop_exact"])
+                    width=st["width"], use_stop_exact=st["use_stop_exact"])
 
 
 # the ladder of query_core prefixes, ending with the whole core (None)

@@ -10,9 +10,14 @@ at the zero columns the device layout pads them to. The parts:
 
 * **K5** (the query planes): bytes only: the per-character counts read
   once, the planes (at the true width) and the zeroed totals written once;
-* **K1** (stage A): the int8 multiply-adds of the binarized planes,
-  ``2 * B * Nb * AT`` operations, against the band rows, the query planes
-  and the hit bits, counts and totals;
+* **K1** (stage A): the int8 multiply-adds of the binarized planes
+  against the band rows, the query planes and the hit bits, counts and
+  totals, each block of a tile's band at its own columns
+  (``convert.block_columns``: 1 + its last column that holds a 1, not
+  rounded to the kernel's k-step): the columns past them are zero in
+  every row of the block, so the least work for the same outputs is
+  ``2 * bt * 1024 * columns`` per tile and block; ``k1_full`` counts every
+  block at the full width, ``2 * B * Nb * AT``;
 * **K3** (the slot resolve): bytes only: the per-query totals, the band
   starts and the block counts read once, the hit bits of the blocks that
   reach a slot read once, and the P slots (query, band row, device row,
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.stage_a import ROW_BLOCK
@@ -156,24 +162,40 @@ def band_rows(start_blk, nb_band: int) -> int:
     return len(blocks) * ROW_BLOCK
 
 
-def k1_work(at: int, B: int, start_blk, nb_band: int) -> Work:
+def k1_work(at: int, B: int, start_blk, nb_band: int,
+            columns=None) -> Work:
     """Stage A on these inputs, at the true plane width ``at``: the int8
     multiply-adds (2 operations each) and the bytes: the band rows' planes,
     charcounts and valid flags, the queries' planes and scalars and the
     tiles' band starts read once; the hit and exact bits, the block counts
-    and the two totals written once."""
+    and the two totals written once. With ``columns`` (the planes' columns
+    in use per block, ``convert.block_columns``) each block's planes count
+    at its columns and each tile's queries' planes at the most columns of
+    a block it reads, each capped at ``at``."""
     Nb = nb_band * ROW_BLOCK
-    nbytes = (band_rows(start_blk, nb_band) * (at + 4 + 1) + B * (at + 12)
-              + 4 * start_blk.numel() + 2 * B * Nb // 8
-              + 4 * (Nb // 128) * B + 8 * B)
-    return Work(nbytes, int8_ops=2 * B * Nb * at)
+    out_bytes = (4 * start_blk.numel() + 2 * B * Nb // 8
+                 + 4 * (Nb // 128) * B + 8 * B)
+    if columns is None:
+        nbytes = (band_rows(start_blk, nb_band) * (at + 4 + 1)
+                  + B * (at + 12) + out_bytes)
+        return Work(nbytes, int8_ops=2 * B * Nb * at)
+    ext = np.minimum(torch.as_tensor(columns).cpu().numpy(), at).astype(
+        np.int64)
+    starts = torch.as_tensor(start_blk).cpu().numpy().astype(np.int64)
+    blocks = starts[:, None] + np.arange(nb_band)  # [tiles, nb_band]
+    bt = B // len(starts)
+    distinct = np.unique(blocks)
+    nbytes = (int(ROW_BLOCK * (ext[distinct] + 5).sum())
+              + int(bt * (ext[blocks].max(1) + 12).sum()) + out_bytes)
+    return Work(nbytes, int8_ops=int(2 * bt * ROW_BLOCK * ext[blocks].sum()))
 
 
 def k1_bound_ms(at: int, B: int, start_blk, nb_band: int,
-                peaks: Peaks = H100_SXM):
+                peaks: Peaks = H100_SXM, columns=None):
     """The least time of stage A for ``B`` queries over the bands
-    ``start_blk`` of ``nb_band`` blocks, and its bound."""
-    return k1_work(at, B, start_blk, nb_band).bound_ms(peaks)
+    ``start_blk`` of ``nb_band`` blocks (at the blocks' ``columns`` where
+    given, else at the full width), and its bound."""
+    return k1_work(at, B, start_blk, nb_band, columns).bound_ms(peaks)
 
 
 def _dl_ops(a_len, b_len, L: int, W: int) -> float:
@@ -327,7 +349,8 @@ class BatchFloor(NamedTuple):
     """One batch's parts and the program, as work."""
 
     k5: Work
-    k1: Work
+    k1: Work  # at the band blocks' columns
+    k1_full: Work  # K1 at the full width
     k3: Work
     k2_valid: Work  # the pair-string entry at the valid pairs
     k2_slots: Work  # the slot entry at the budget's P slots
@@ -354,20 +377,21 @@ class BatchFloor(NamedTuple):
 
 
 def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
-                use_stop_exact: bool, have_freq: bool,
+                use_stop_exact: bool, have_freq: bool, width: int,
                 peaks: Peaks = H100_SXM) -> BatchFloor:
     """Count one batch of ``query_core`` (its arguments ``args`` on the
     index ``index``, at budgets P and P2): stage A and the slot resolve run
     once, to find the valid pairs, their lengths, and the query and
     candidate rows they touch, and the whole core once, for the number
     kept."""
+    from ..convert import block_columns
     from ..ops.dl import slot_block
     from ..ops.pipeline import query_core, query_stage_a, resolve_pairs
 
     (q_counts, q_cc, q_norms, q_lens, _q_fl, k_ana, _k_ed, k_len, _se,
      start_blk, _w, _thr) = args
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
-                       nb_band)
+                       nb_band, width)
     q, pcb, pc, _valid, total = resolve_pairs(
         sa.packed_q, sa.counts_t, sa.nmatch, start_blk, index.bins.shape[0],
         P)
@@ -384,14 +408,15 @@ def batch_floor(index, args, *, P: int, P2: int, window: int, nb_band: int,
     L = q_norms.shape[1]
     B = q_lens.shape[0]
     nbytes = q_norms.element_size()
-    k1 = k1_work(index.at, B, start_blk, nb_band)
+    k1 = k1_work(index.at, B, start_blk, nb_band, block_columns(index.bins))
     k2_valid = k2_work(ql, cl, L, window)
     n_keep = int(query_core(
         index, *args, have_freq=have_freq, P=P, P2=P2, window=window,
-        nb_band=nb_band, use_stop_exact=use_stop_exact)[9])
+        nb_band=nb_band, width=width, use_stop_exact=use_stop_exact)[9])
     return BatchFloor(
         k5=k5_work(B, q_counts.shape[1], index.at),
         k1=k1,
+        k1_full=k1_work(index.at, B, start_blk, nb_band),
         k3=k3_work(sa.counts_t, sa.nmatch, start_blk, P),
         k2_valid=k2_valid,
         k2_slots=k2_slots_work(ql, cl, P, L, window, nbytes, n_queries,

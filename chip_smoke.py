@@ -76,21 +76,25 @@ entries at L 100 and 300 against their plain versions, the wide path's
 times on the phase's batch and per 1M pairs, and K1 at planes 608, 864
 and 960 wide. Then planes wider than a resident K1 block holds (phase
 13): the main lexicon plus a 1,000-letter entry and a 64-letter one
-holding one letter 50 times (planes 1,664 wide, L 1,000) serves query,
-search and a 1x4 mesh, each holding every kernel against its plain
-version on its first 256 lookups and launching K1's streamed instance
-alone, equal to the oracle (the mesh to the single device); K1 is held
-bit for bit and timed beside its bound on the first batch of 4,096, and
-held at planes 992 to 6,016 wide and on a tile of 8 queries, timed at
-6,016 on a main-sized band. Every path must launch the one K1 instance
-its planes route to: the main one for the main lexicon (224 wide), the
-resident one for the CLI's and the 1M lexicon's (256 and 288), the
-streamed one in phases 12 and 13. K4's record also gives the library
-call's device time. The
-last two lines are the kernels' JSON record (stamped with the commit,
-launches per path and the K1 instance each check required; the wide
-path's launches are phases 12 and 13's, the streamed instance's record
-phase 13's) and ``{"ok": true, ...}``.
+holding one letter 50 times (planes 1,664 wide, L 1,000; one block that
+wide, the rest 224 or less) serves query, search and a 1x4 mesh, each
+holding every kernel against its plain version on its first 256 lookups,
+equal to the oracle (the mesh to the single device); K1 is held bit for
+bit and timed beside its bounds (at the full width and at the blocks'
+extents) on the first batch of 4,096 (streamed, each block at its
+extent) and on the 4,096 shortest other queries (the main instance),
+held at planes 992 to 6,016 wide, on planes whose blocks' extents run
+from 32 to 1,664 and on a tile of 8 queries, and timed at 1,664 and
+6,016 on a main-sized band. Each K1 launch routes by its width, the
+widest block extent it reads: every path must launch only the instances
+its index's extents route to (the main one for the main lexicon, the
+main and resident ones for the CLI's and the 1M lexicon's, main and
+streamed in phase 13), and phases 12 and 13's query and mesh paths the
+widest one among them. K4's record also gives the library call's device
+time. The last two lines are the kernels' JSON record (stamped with the
+commit, launches per path and K1's launches by instance on each path;
+the wide path's launches are phases 12 and 13's, the streamed instance's
+record phase 13's) and ``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
 card is visible. Imports no JAX. Writes nothing outside the checkout's
@@ -328,43 +332,61 @@ def k1_instances() -> dict:
     return dict(stage_a_masks.launches_by_instance)
 
 
-def k1_route(index) -> str:
-    """The K1 instance a device index's planes route to on the card (the
-    main lexicon's, 224 wide: main; wider ones: resident, or streamed
-    above AT 576)."""
-    from analiticcl_tpu_torch.ops.stage_a import KERNEL_QT, kernel_instance
+def k1_routes(pipe) -> tuple:
+    """The K1 instances a launch of the pipeline ``pipe`` may run on the
+    card, narrowest first: each launch routes by its width, the largest
+    extent of the blocks it reads (``convert.band_width``), so by one of
+    its index's block extents, or on a mesh its shard's (main up to 224
+    columns, resident up to 576, streamed above)."""
+    from analiticcl_tpu_torch.ops.stage_a import (
+        INSTANCES, KERNEL_QT, kernel_instance,
+    )
+    from analiticcl_tpu_torch.parallel.mesh import ShardedPipeline
 
-    return kernel_instance(index.bins.shape[1], KERNEL_QT, index.bins.device)
+    indexes = ([pipe.shard(d, s) for d in range(pipe.n_dp)
+                for s in range(pipe.n_lex)]
+               if isinstance(pipe, ShardedPipeline) else [pipe.index])
+    names = {kernel_instance(w, idx.bins.shape[1], KERNEL_QT,
+                             idx.bins.device)
+             for idx in indexes for w in set(idx.extents_host.tolist())}
+    return tuple(sorted(names, key=INSTANCES.get))
 
 
-K1_CHECKED: dict = {}  # phase -> the K1 instance its launches ran
+K1_CHECKED: dict = {}  # phase -> K1's launches by instance there
 
 
-def require_k1(phase: str, total: int, k1: str = "main") -> dict:
+def require_k1(phase: str, total: int, k1: str | None = "main",
+               routes: tuple | None = None) -> dict:
     """Fails unless K1's ``total`` launches since the last reset all ran
-    its ``k1`` instance (recorded in K1_CHECKED); returns the launches by
-    instance."""
+    instances of ``routes`` (default: ``k1`` alone), and ``k1`` (where
+    given) at least once; records the launches by instance in
+    K1_CHECKED and returns them."""
     by = k1_instances()
-    if by[k1] != total or sum(by.values()) != total:
+    routes = routes or (k1,)
+    if (sum(by[r] for r in routes) != total or sum(by.values()) != total
+            or (k1 is not None and by[k1] == 0)):
         raise SystemExit(f"{phase}: K1's {total} launches ran the "
-                         f"instances {by}, not the {k1} instance alone")
-    K1_CHECKED[phase] = k1
+                         f"instances {by}, not only {routes}"
+                         + (f" with {k1} among them" if k1 else ""))
+    K1_CHECKED[phase] = {r: by[r] for r in routes}
     return by
 
 
 def require_launches(phase: str, wide: bool = False,
-                     counts: dict | None = None, k1: str = "main") -> dict:
+                     counts: dict | None = None, k1: str | None = "main",
+                     routes: tuple | None = None) -> dict:
     """The launch counts since the last reset (:func:`launch_counts`), or
-    ``counts``; fails unless every kernel was launched and every K1 launch
-    ran its ``k1`` instance. With ``wide``, K2's wide path must follow each
-    launch of its slot entry once; without, it must not have run."""
+    ``counts``; fails unless every kernel was launched and K1's launches
+    ran as :func:`require_k1` requires. With ``wide``, K2's wide path must
+    follow each launch of its slot entry once; without, it must not have
+    run."""
     from analiticcl_tpu_torch.ops.dl import wide_path
 
     if counts is None:
         counts = launch_counts(wide)
     if min(counts.values()) <= 0:
         raise SystemExit(f"{phase}: a kernel was not launched: {counts}")
-    require_k1(phase, counts["stage_a"], k1)
+    require_k1(phase, counts["stage_a"], k1, routes)
     if wide and counts["dl_lcs_wide"] != counts["dl_lcs_slots"]:
         raise SystemExit(f"{phase}: K2's wide path launched other than once "
                          f"a slot-entry launch: {counts}")
@@ -408,14 +430,17 @@ def match_signature(outs):
 
 
 def k1_direct_inputs(seed: int, Ni: int, B: int, nb_band: int, A: int = 30,
-                     T: int = 7):
+                     T: int = 7, caps=None):
     """Seeded stage-A inputs on the card: charcount-sorted random count
-    planes (A x T columns, 210 by default, zero-padded to a multiple of 32
-    as the index is), the last rows padding, a few queries exact anagrams
+    planes (A x T columns, 210 by default, threshold-major and zero-padded
+    to a multiple of 32 as the index is; with ``caps``, the counts of
+    consecutive 1024-row blocks capped at them in turn, so the blocks'
+    extents differ), the last rows padding, a few queries exact anagrams
     of indexed rows, and a random band start per query tile."""
     import numpy as np
     import torch
 
+    from analiticcl_tpu_torch.convert import count_planes
     from analiticcl_tpu_torch.ops.stage_a import ROW_BLOCK, _b_tile
 
     rng = np.random.default_rng(seed)
@@ -425,10 +450,13 @@ def k1_direct_inputs(seed: int, Ni: int, B: int, nb_band: int, A: int = 30,
     cc = counts.sum(1, dtype=np.int32)
     order = np.argsort(cc, kind="stable")
     counts, cc = counts[order], cc[order]
-    levels = np.arange(T, dtype=ctype)[None, None, :]
+    if caps is not None:
+        cap = np.resize(np.asarray(caps, ctype), Ni // ROW_BLOCK)
+        counts = np.minimum(counts, cap.repeat(ROW_BLOCK)[:, None])
+        cc = counts.sum(1, dtype=np.int32)
     at_pad = -(-A * T // 32) * 32
     bins = np.zeros((Ni, at_pad), np.int8)
-    bins[:, :A * T] = (counts[:, :, None] > levels).reshape(Ni, A * T)
+    bins[:, :A * T] = count_planes(counts, T)
     valid = np.arange(Ni) < Ni - 100
     bins[~valid] = 0
     cc[~valid] = 1 << 28
@@ -449,13 +477,41 @@ def k1_direct_inputs(seed: int, Ni: int, B: int, nb_band: int, A: int = 30,
     qc[rand] = rng.integers(0, T + 1, size=(int(rand.sum()), A)) * (
         rng.random((int(rand.sum()), A)) < 0.25)
     qbin = np.zeros((B, at_pad), np.int8)
-    qbin[:, :A * T] = (qc[:, :, None] > levels).reshape(B, A * T)
+    qbin[:, :A * T] = count_planes(qc, T)
     q_cc = qc.sum(1).astype(np.int32)
     k_ana = rng.integers(0, 5, size=B).astype(np.int32)
     k_len = np.minimum(k_ana, rng.integers(0, 4, size=B)).astype(np.int32)
     k_ana[-3:] = k_len[-3:] = -1  # padding queries
     return tuple(torch.from_numpy(x).cuda() for x in (
         bins, cc, valid, qbin, q_cc, k_ana, k_len, start))
+
+
+def k1_args(seed: int, Ni: int, B: int, nb_band: int, **kw) -> tuple:
+    """K1's wrapper arguments on :func:`k1_direct_inputs` (``kw`` passed
+    on): the inputs, ``nb_band``, and the block extents and launch width
+    reckoned from the planes (``convert.k1_table``)."""
+    from analiticcl_tpu_torch.convert import k1_table
+
+    ins = k1_direct_inputs(seed, Ni, B, nb_band, **kw)
+    return ins + (nb_band, *k1_table(ins[0], ins[7], nb_band))
+
+
+def index_k1_args(idx, qbin, st, q_cc, k_ana, k_len, start_blk,
+                  nb_band=None, width=None) -> tuple:
+    """K1's wrapper arguments for a prepared batch ``st`` over the device
+    index ``idx``: its band, and the width its band plan gives (or
+    ``nb_band``/``width``: a mesh shard's)."""
+    return (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
+            start_blk, st["nb_band"] if nb_band is None else nb_band,
+            idx.extents, st["width"] if width is None else width)
+
+
+def k1_instances_of(args) -> str:
+    """The K1 instance the wrapper's arguments ``args`` route to."""
+    from analiticcl_tpu_torch.ops.stage_a import KERNEL_QT, kernel_instance
+
+    return kernel_instance(args[10], args[0].shape[1], KERNEL_QT,
+                           args[0].device)
 
 
 def hold_k1(*args):
@@ -477,7 +533,7 @@ def hold_k1(*args):
         if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
             raise SystemExit(f"stage_a kernel differs from plain in {n} at "
                              f"B={B}, Ni={args[0].shape[0]}, "
-                             f"nb_band={args[-1]}")
+                             f"nb_band={args[8]}, width {args[10]}")
     if int(want[3].sum()) == 0:
         raise SystemExit(f"stage_a check at B={B} saw no hits")
     return 0, _b_tile(B, args[0].shape[0]), int(want[4].sum())
@@ -717,7 +773,7 @@ def k2_main_pairs(pipe, queries, params):
     idx = pipe.index
     hold_k5(idx, q_counts)
     sa = query_stage_a(idx, q_counts, q_cc, k_ana, k_len, start_blk,
-                       st["nb_band"])
+                       st["nb_band"], st["width"])
     sc = score_args(pipe, st)
     pr, P, n, _slots = stage_b_slots(pipe, idx, sa, st["B"], q_norms,
                                      q_lens, k_ed, q_fl, start_blk, 3,
@@ -1016,7 +1072,9 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
 
     from analiticcl_tpu_torch.ops.dl import NARROW_LEN
     from analiticcl_tpu_torch.ops.pipeline import StageA
-    from analiticcl_tpu_torch.ops.stage_a import stage_a_masks
+    from analiticcl_tpu_torch.ops.stage_a import (
+        KERNEL_QT, kernel_instance, stage_a_masks,
+    )
     from analiticcl_tpu_torch.parallel.mesh import ShardedPipeline
 
     t0 = time.perf_counter()
@@ -1026,22 +1084,22 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
                          "device batch")
     (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len, _se,
      start_blk, _w, _thr) = st["args"]
-    nb_band = st["nb_band"]
+    nb_band, width = st["nb_band"], st["width"]
     where = ""
     if isinstance(pipe, ShardedPipeline):
         rows = slice(0, q_lens.shape[0] // pipe.n_dp)
         q_counts, q_cc, q_norms, q_lens, q_fl, k_ana, k_ed, k_len = (
             x[rows] for x in (q_counts, q_cc, q_norms, q_lens, q_fl, k_ana,
                               k_ed, k_len))
-        start_blk, nb_band, idx = start_blk[0, 0], int(nb_band[0, 0]), \
-            pipe.shard(0, 0)
+        start_blk, nb_band, width, idx = (start_blk[0, 0], int(nb_band[0, 0]),
+                                          int(width[0, 0]), pipe.shard(0, 0))
         where = (f" of mesh row 0, lex shard 0 ({idx.bins.shape[0]} shard "
                  f"rows)")
     else:
         idx = pipe.index
     qbin, totals = hold_k5(idx, q_counts)
-    a_args = (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
-              start_blk, nb_band)
+    a_args = index_k1_args(idx, qbin, st, q_cc, k_ana, k_len, start_blk,
+                           nb_band, width)
     hold_k1(*a_args)
     sa = StageA(*stage_a_masks(*a_args, totals=totals))
     W = st["window"]
@@ -1061,7 +1119,9 @@ def hold_kernels(name: str, pipe, lookups, params) -> None:
     pipe._oracle_memo.clear()  # the timed run meets over-long segments anew
     log(f"{name} kernels: K5 and K1 bit-identical to plain on "
         f"B={q_lens.shape[0]}{where} ({len(st['active'])} device lookups of "
-        f"{len(lookups)}, band {nb_band * 1024} rows); K3 bit-identical to "
+        f"{len(lookups)}, band {nb_band * 1024} rows, K1 width {width}, "
+        f"{kernel_instance(width, idx.bins.shape[1], KERNEL_QT, 'cuda')} "
+        f"instance); K3 bit-identical to "
         f"plain, K2 (both entries) equal to plain at W={W} on the "
         f"{'hits' if pipe.L >= HOLD_AT_HITS_L else 'budget'}'s "
         f"P={P} slots, {n_valid} valid{wide}, K4 bit-identical to plain "
@@ -1131,7 +1191,7 @@ def cut_bucket_phase(model, queries, params, default, oracle, card) -> None:
         (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se, start_blk,
          _w, _thr) = st["args"]
         sa = ppl.query_stage_a(pipe.index, q_counts, q_cc, k_ana, k_len,
-                               start_blk, st["nb_band"])
+                               start_blk, st["nb_band"], st["width"])
         return int(sa.nmatch.sum()), st["B"]
 
     light = [hits(r) for r in lights]
@@ -1197,14 +1257,14 @@ def cut_bucket_phase(model, queries, params, default, oracle, card) -> None:
 
 def search_phase(name: str, model, texts, params, card: str,
                  hold_n: int = 0, n_host: int = N_LINES_ORACLE,
-                 k1: str = "main") -> dict:
+                 k1: str | None = "main", routes: tuple | None = None) -> dict:
     """Search ``texts`` through the device path; hold the array-native
     consolidation against the object path and the first lines against a
     host-only search with the oracle's lookups (the first ``n_host``
     lines), and every kernel against its plain version on the path's first
     lookup batch (its first ``hold_n`` lookups, if given; the sync-free
-    ``submit`` check takes the same lookups). Every K1 launch of the
-    search must run its ``k1`` instance."""
+    ``submit`` check takes the same lookups). K1's launches must run as
+    :func:`require_k1` requires of ``k1`` and ``routes``."""
     import torch
 
     from analiticcl_tpu_torch.models import search_fast
@@ -1225,7 +1285,8 @@ def search_phase(name: str, model, texts, params, card: str,
     got = list(model.find_all_matches_stream(texts, params))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = require_launches(name, wide=pipe.L > NARROW_LEN, k1=k1)
+    launches = require_launches(name, wide=pipe.L > NARROW_LEN, k1=k1,
+                                routes=routes)
     stages = stage_line(pipe.stats)
     if len(got) != len(texts):
         raise SystemExit(f"{name}: {len(got)} results for {len(texts)} lines")
@@ -1459,10 +1520,12 @@ def cli_phase(words, queries, texts, card: str) -> dict:
         f"index {model.index.size}, read in {t_load:.3f} s, read and built "
         f"in {t_build:.3f} s | {card}")
     hold_kernels("cli", pipe, queries[:cli.MAX_BATCHSIZE], params)
-    # the second lexicon deepens the planes (T 8): K1's instance for them
-    k1 = k1_route(pipe.index)
-    log(f"cli model: planes {pipe.index.bins.shape[1]} wide, K1's {k1} "
-        f"instance")
+    # the second lexicon deepens the planes (T 8): each launch takes the
+    # instance of the widest block it reads
+    routes = k1_routes(pipe)
+    log(f"cli model: planes {pipe.index.bins.shape[1]} wide, block extents "
+        f"{sorted(set(pipe.index.extents_host.tolist()))}: K1's instances "
+        f"{routes}")
     del model, pipe
     gc.collect()
 
@@ -1485,7 +1548,7 @@ def cli_phase(words, queries, texts, card: str) -> dict:
         dt, t_model, counts = run_cli(name, argv, inputs[src], out[name])
         if min(counts.values()) <= 0:
             raise SystemExit(f"{name}: a kernel was not launched: {counts}")
-        require_k1(name, counts["stage_a"], k1)
+        require_k1(name, counts["stage_a"], None, routes)
         by_path[name] = counts
         log(f"{name}: {n} {unit} in {dt:.3f} s wall, of which {t_model:.3f} s "
             f"to read and build the model and {dt - t_model:.3f} s to serve "
@@ -1552,7 +1615,7 @@ def cli_phase(words, queries, texts, card: str) -> dict:
     t0 = time.perf_counter()
     par = m.find_variants_par(head, sp)
     dt = time.perf_counter() - t0
-    counts = require_launches("api", k1=k1)
+    counts = require_launches("api", k1=None, routes=routes)
     keys = ("text", "score", "dist_score", "freq_score")
     got = [(r["input"], [tuple(v[k] for k in keys) for v in r["variants"]])
            for r in par]
@@ -1806,9 +1869,10 @@ def mesh_1m_phase(card: str) -> dict:
     got, dt, counts = timed_stream(model, queries, params, BATCH_1M)
     if min(counts.values()) <= 0:
         raise SystemExit(f"mesh_1m: a kernel was not launched: {counts}")
-    # the 1M lexicon's planes are deeper (T 9) than the main one's
-    k1 = k1_route(pipe.shard(0, 0))
-    require_k1("mesh_1m", counts["stage_a"], k1)
+    # the 1M lexicon's planes are deeper (T 9) than the main one's: each
+    # launch takes the instance of the widest block it reads
+    routes = k1_routes(pipe)
+    require_k1("mesh_1m", counts["stage_a"], None, routes)
     stages = stage_line(pipe.stats)
     cand = pipe.candidates
     single_pipe = DevicePipeline(model, "cuda")
@@ -1851,7 +1915,7 @@ def mesh_1m_phase(card: str) -> dict:
     n = model.learn_variants(corpus, lparams, strict=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    lcounts = require_launches("mesh_1m learn", k1=k1)
+    lcounts = require_launches("mesh_1m learn", k1=None, routes=routes)
     lstages = stage_line(pipe.stats)
     log(f"mesh_1m learn: strict over {len(corpus)} words in {dt:.3f} s, "
         f"{len(corpus) / dt:.1f} words/s, {n} variants; learn_profile "
@@ -2129,7 +2193,7 @@ def wide_batch(pipe, lookups, params):
      start_blk, _w, _thr) = st["args"]
     idx = pipe.index
     sa = ppl.query_stage_a(idx, q_counts, q_cc, k_ana, k_len, start_blk,
-                           st["nb_band"])
+                           st["nb_band"], st["width"])
     P, _P2, total = stage_b_budget(pipe, st["B"], sa)
     q, pcb, pc, valid, _t = ppl.resolve_pairs(
         sa.packed_q, sa.counts_t, sa.nmatch, start_blk, idx.bins.shape[0], P)
@@ -2238,9 +2302,10 @@ def wide_phase(words, card: str, peaks) -> tuple:
     the mesh equals the single-device pipeline. Then both K2 entries at
     L 100 and 300 against their plain versions, the wide path's times, and
     K1 at planes 608, 864 and 960 wide. Every K1 launch of the paths must
-    run the instance K1 routes the lexicon's planes to. Logs the seconds
-    of each part. Returns the wide path's record, the paths' launches and
-    that instance."""
+    run an instance one of the lexicon's block extents routes to, and the
+    query and mesh paths (near the long entries) the widest's. Logs the
+    seconds of each part. Returns the wide path's record and the paths'
+    launches."""
     import dataclasses
 
     import numpy as np
@@ -2260,17 +2325,16 @@ def wide_phase(words, card: str, peaks) -> tuple:
         parts[name] = round(time.perf_counter() - t_phase - sum(
             parts.values()), 2)
 
-    from analiticcl_tpu_torch.ops.stage_a import KERNEL_QT, kernel_instance
-
     longs = wide_words()
     model = populate(VariantModel(alphabet=ALPHABET, device="cuda"),
                      list(words) + longs)
     pipe = model._pipeline()
     if pipe.L != max(WIDE_LENGTHS):
         raise SystemExit(f"wide phase: L={pipe.L}, not {max(WIDE_LENGTHS)}")
-    # the long entries' planes are wider than the main path's: K1's
-    # instance for them, which every K1 launch of the phase must run
-    k1 = kernel_instance(pipe.index.bins.shape[1], KERNEL_QT, "cuda")
+    # the long entries' blocks are wider than the main path's: a launch
+    # that reads one takes the widest block's instance
+    routes = k1_routes(pipe)
+    k1 = routes[-1]
     params = SearchParameters(
         max_anagram_distance=DistanceThreshold.absolute(3),
         max_edit_distance=DistanceThreshold.absolute(2),
@@ -2293,7 +2357,7 @@ def wide_phase(words, card: str, peaks) -> tuple:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     by_path = {"wide_query": require_launches("wide query", wide=True,
-                                              k1=k1)}
+                                              k1=k1, routes=routes)}
     lap("query")
     require_one_buffer_per_call("wide query", by_path["wide_query"])
 
@@ -2329,7 +2393,7 @@ def wide_phase(words, card: str, peaks) -> tuple:
     s_params = dataclasses.replace(params, max_ngram=2)
     by_path["wide_search"] = search_phase(
         "wide search", model, texts, s_params, card, hold_n=WIDE_HOLD,
-        n_host=N_WIDE_HOST_LINES, k1=k1)
+        n_host=N_WIDE_HOST_LINES, k1=None, routes=routes)
     lap("search")
 
     # the same queries on a 1x4 mesh of cuda:0
@@ -2338,7 +2402,9 @@ def wide_phase(words, card: str, peaks) -> tuple:
                  params)
     mgot, mdt, mcounts = timed_stream(model, queries, params, WIDE_BATCH,
                                       wide=True)
-    require_launches("wide mesh_1x4", wide=True, counts=mcounts, k1=k1)
+    mroutes = k1_routes(model._device)  # the shards' own extents
+    require_launches("wide mesh_1x4", wide=True, counts=mcounts,
+                     k1=mroutes[-1], routes=mroutes)
     require_equal("wide mesh_1x4", tuples(mgot), tuples(got), queries)
     require_one_buffer_per_call("wide mesh_1x4", mcounts)
     by_path["wide_mesh_1x4"] = mcounts
@@ -2360,15 +2426,15 @@ def wide_phase(words, card: str, peaks) -> tuple:
     # streamed instance; up to AT 960 resident blocks of 64 and 32 queries
     # took them before)
     for T in WIDE_K1_T:
-        args = k1_direct_inputs(SEED + 40 + T, 32_768, 1024, 8, T=T)
-        _err, _bt, n_exact = hold_k1(*args, 8)
+        args = k1_args(SEED + 40 + T, 32_768, 1024, 8, T=T)
+        _err, _bt, n_exact = hold_k1(*args)
         if n_exact == 0:
             raise SystemExit(f"K1 at AT={args[0].shape[1]} saw no exact hits")
         log(f"K1 stage_a at planes {args[0].shape[1]} wide (A=30, T={T}), "
             f"B=1024: bit-identical to plain ({n_exact} exact hits) | {card}")
     lap("K1 wide planes")
     log(f"phase 12 (wide): {time.perf_counter() - t_phase:.1f} s: {parts}")
-    return record, by_path, k1
+    return record, by_path
 
 
 def planes_words() -> list:
@@ -2386,21 +2452,30 @@ def planes_words() -> list:
     return [long, "".join(rng.permutation(chars))]
 
 
-def k1_stream_times(args, at: int, card: str, peaks, what: str) -> dict:
+def k1_times(args, at: int, card: str, peaks, what: str,
+             instance: str) -> dict:
     """K1 on ``args`` (the wrapper's arguments; planes ``at`` wide before
-    their padding, which route to its streamed instance): held bit for
-    bit against its plain version (:func:`hold_k1`, exact hits required),
-    then its time (CUDA events over 10 back-to-back calls, and the
-    profiler's device time of the kernel), its bound and the plain
+    their padding), which must route to ``instance``: held bit for bit
+    against its plain version (:func:`hold_k1`, exact hits required), then
+    its time (CUDA events over 10 back-to-back calls, and the profiler's
+    device time of the kernel), its bound (each band block at the columns
+    its rows use, ``convert.block_columns``: the least work for the same
+    outputs) and its bound at the planes' full width, and the plain
     version's time, once."""
+    import numpy as np
+
+    from analiticcl_tpu_torch.convert import block_columns
     from analiticcl_tpu_torch.ops.stage_a import (
         KERNEL_QT, kernel_instance, stage_a_masks, stage_a_masks_plain,
     )
     from analiticcl_tpu_torch.utils.roofline import k1_bound_ms
 
-    bins, qbin, start_blk, nb_band = args[0], args[3], args[7], args[8]
-    if kernel_instance(bins.shape[1], KERNEL_QT, bins.device) != "stream":
-        raise SystemExit(f"K1 at {what}: not the streamed instance")
+    bins, qbin, start_blk, nb_band, ext, width = (args[0], args[3], args[7],
+                                                  args[8], args[9], args[10])
+    got = kernel_instance(width, bins.shape[1], KERNEL_QT, bins.device)
+    if got != instance:
+        raise SystemExit(f"K1 at {what}: width {width} routes to the {got} "
+                         f"instance, not the {instance} one")
     err, bt, n_exact = hold_k1(*args)
     if n_exact == 0:
         raise SystemExit(f"K1 at {what} saw no exact hits")
@@ -2408,18 +2483,30 @@ def k1_stream_times(args, at: int, card: str, peaks, what: str) -> dict:
     def run():
         stage_a_masks(*args)
 
+    kernel = "stage_a_kernel_stream" if instance == "stream" else \
+        "stage_a_kernel<"
     rec = {"B": qbin.shape[0], "nb_band": nb_band, "at_pad": bins.shape[1],
-           "max_abs_err": err, "ms": time_ms(run, 10, inner=10),
-           "device_ms": device_ms(run, "stage_a_kernel_stream", 10),
+           "width": width, "instance": instance, "max_abs_err": err,
+           "ms": time_ms(run, 10, inner=10),
+           "device_ms": device_ms(run, kernel, 10),
            "plain_ms": time_ms(lambda: stage_a_masks_plain(*args), 1)}
-    rec["bound_ms"], rec["bound_by"] = k1_bound_ms(at, rec["B"], start_blk,
-                                                   nb_band, peaks)
-    log(f"K1 streamed instance at {what}: B={rec['B']} bt={bt} "
-        f"nb_band={nb_band} planes {rec['at_pad']} wide, bit-identical to "
-        f"plain ({n_exact} exact hits); {rec['ms']:.4f} ms (CUDA events, 10 "
-        f"back-to-back calls; profiler device time {ms4(rec['device_ms'])})"
-        f", plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']}) | {card}")
+    rec["bound_ms"], rec["bound_by"] = k1_bound_ms(
+        at, rec["B"], start_blk, nb_band, peaks, columns=block_columns(bins))
+    rec["bound_full_ms"], rec["bound_full_by"] = k1_bound_ms(
+        at, rec["B"], start_blk, nb_band, peaks)
+    exts = ext.cpu().numpy()[start_blk.cpu().numpy()[:, None].astype(int)
+                             + np.arange(nb_band)]
+    rec["extents"] = {int(e): int((exts == e).sum())
+                      for e in sorted(set(exts.ravel().tolist()))}
+    log(f"K1 {instance} instance at {what}: B={rec['B']} bt={bt} "
+        f"nb_band={nb_band} planes {rec['at_pad']} wide, width {width} "
+        f"(the tiles' band blocks by extent: {rec['extents']}), "
+        f"bit-identical to plain ({n_exact} exact hits); {rec['ms']:.4f} ms "
+        f"(CUDA events, 10 back-to-back calls; profiler device time "
+        f"{ms4(rec['device_ms'])}), plain {rec['plain_ms']:.3f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms at the blocks' columns ({rec['bound_by']}),"
+        f" {rec['bound_full_ms']:.4f} ms at the full width "
+        f"({rec['bound_full_by']}) | {card}")
     return rec
 
 
@@ -2428,16 +2515,24 @@ def planes_phase(words, card: str, peaks) -> tuple:
     lexicon plus :func:`planes_words` (planes 1,664 wide, L 1,000) serves
     8,192 queries (64 near the two entries) in batches of 4,096; 128
     lines through search (``max_ngram`` 2); and the same queries on a 1x4
-    mesh of ``cuda:0``. Each path holds every kernel against its plain
-    version on its first 256 lookups (K2's wide path at L 1,000 among
-    them), launches K1's streamed instance alone, and equals the oracle
+    mesh of ``cuda:0``. One block holds the two entries (extent 1,664),
+    the others the main lexicon's words (224 or less), so a launch whose
+    band reaches that block takes K1's streamed instance (each block at
+    its own extent) and the others the main one. Each path holds every
+    kernel against its plain version on its first 256 lookups (K2's wide
+    path at L 1,000 among them), launches only those two K1 instances
+    (query and mesh: the streamed one among them), and equals the oracle
     (the longest and shortest queries; search: the object path and the
     host search on its first lines); the mesh equals the single device.
-    On the first batch of 4,096 K1 is held bit for bit and timed beside
-    its bound; then K1 directly at planes 992 to 6,016 wide (bit for bit,
-    exact hits required; one tile of 8 queries), timed at 6,016 on a
-    main-sized band. Logs the seconds of each part. Returns K1's streamed
-    record and the paths' launches."""
+    K1 is held bit for bit and timed beside its bounds on the first batch
+    of 4,096 (its band reaches the entries' block: streamed) and on the
+    4,096 shortest other queries (the main instance at the narrowed
+    width); then directly on seeded planes 992 to 6,016 wide (every block
+    at the full width), on seeded planes whose blocks' extents run from 32
+    to 1,664, and on a tile of 8 queries (bit for bit, exact hits
+    required), timed at 1,664 and 6,016 on a main-sized band. Logs the
+    seconds of each part. Returns K1's streamed record and the paths'
+    launches."""
     import dataclasses
 
     import numpy as np
@@ -2466,9 +2561,12 @@ def planes_phase(words, card: str, peaks) -> tuple:
     if (pipe.L, at_pad) != (1000, PLANES_AT):
         raise SystemExit(f"planes phase: L={pipe.L}, planes {at_pad} wide, "
                          f"not 1000 and {PLANES_AT}")
-    if kernel_instance(at_pad, KERNEL_QT, "cuda") != "stream":
-        raise SystemExit(f"planes phase: planes {at_pad} wide do not take "
-                         "K1's streamed instance")
+    ext = pipe.index.extents_host
+    routes = k1_routes(pipe)
+    if routes != ("main", "stream"):
+        raise SystemExit(f"planes phase: block extents "
+                         f"{sorted(set(ext.tolist()))} route to {routes}, "
+                         "not to the main and the streamed instance")
     params = SearchParameters(
         max_anagram_distance=DistanceThreshold.absolute(3),
         max_edit_distance=DistanceThreshold.absolute(2),
@@ -2483,24 +2581,33 @@ def planes_phase(words, card: str, peaks) -> tuple:
     queries = near + corrupt_queries(words, SEED + 39,
                                      N_PLANES_QUERIES - len(near))
     log(f"planes model: {model.index.size} entries, L={pipe.L}, "
-        f"AT={pipe.index.at} (padded {at_pad}), Ni_pad={pipe.Ni_pad}")
+        f"AT={pipe.index.at} (padded {at_pad}), Ni_pad={pipe.Ni_pad}; "
+        f"block extents (blocks each): "
+        f"{ {int(e): int((ext == e).sum()) for e in sorted(set(ext.tolist()))} }")
     lap("model")
     hold_kernels("planes query", pipe, queries[:PLANES_HOLD], params)
     sync_free_submit("planes query", pipe, queries[:PLANES_HOLD], params,
                      card)
     lap("query holds")
 
-    # K1 on the first batch of 4,096, as the path gives it
-    st = prepared(pipe, queries[:PLANES_BATCH], params)
-    (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se, start_blk, _w,
-     _thr) = st["args"]
-    qbin, _totals = hold_k5(pipe.index, q_counts)
-    rec = k1_stream_times(
-        (pipe.index.bins, pipe.index.cc, pipe.index.validrows, qbin, q_cc,
-         k_ana, k_len, start_blk, st["nb_band"]), pipe.index.at, card,
-        peaks, "the wide-planes model's first batch")
-    del st, qbin
-    lap("K1 first batch")
+    # K1 on the first batch of 4,096, as the path gives it (its band
+    # reaches the two entries' block), and on the 4,096 shortest other
+    # queries (whose bands stay below it)
+    def k1_batch(lookups, instance, what):
+        st = prepared(pipe, lookups, params)
+        (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se, start_blk,
+         _w, _thr) = st["args"]
+        qbin, _totals = hold_k5(pipe.index, q_counts)
+        return k1_times(index_k1_args(pipe.index, qbin, st, q_cc, k_ana,
+                                      k_len, start_blk),
+                        pipe.index.at, card, peaks, what, instance)
+
+    rec = k1_batch(queries[:PLANES_BATCH], "stream",
+                   "the wide-planes model's first batch")
+    rec["main_batch"] = k1_batch(
+        sorted(queries[len(near):], key=len)[:PLANES_BATCH], "main",
+        "the wide-planes model's 4,096 shortest other queries")
+    lap("K1 batches")
 
     list(model.find_variants_stream(queries[:PLANES_BATCH], params,
                                     PLANES_BATCH))
@@ -2511,7 +2618,7 @@ def planes_phase(words, card: str, peaks) -> tuple:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     by_path = {"planes_query": require_launches("planes query", wide=True,
-                                                k1="stream")}
+                                                k1="stream", routes=routes)}
     require_one_buffer_per_call("planes query", by_path["planes_query"])
     lap("query")
 
@@ -2551,7 +2658,8 @@ def planes_phase(words, card: str, peaks) -> tuple:
     by_path["planes_search"] = search_phase(
         "planes search", model, texts, dataclasses.replace(params,
                                                            max_ngram=2),
-        card, hold_n=PLANES_HOLD, n_host=N_PLANES_HOST_LINES, k1="stream")
+        card, hold_n=PLANES_HOLD, n_host=N_PLANES_HOST_LINES, k1=None,
+        routes=routes)
     lap("search")
 
     model.use_mesh(cuda_mesh(1, 4))
@@ -2560,7 +2668,7 @@ def planes_phase(words, card: str, peaks) -> tuple:
     mgot, mdt, mcounts = timed_stream(model, queries, params, PLANES_BATCH,
                                       wide=True)
     require_launches("planes mesh_1x4", wide=True, counts=mcounts,
-                     k1="stream")
+                     k1="stream", routes=k1_routes(model._device))
     require_equal("planes mesh_1x4", tuples(mgot), tuples(got), queries)
     require_one_buffer_per_call("planes mesh_1x4", mcounts)
     by_path["planes_mesh_1x4"] = mcounts
@@ -2571,18 +2679,26 @@ def planes_phase(words, card: str, peaks) -> tuple:
     gc.collect()
     lap("mesh")
 
-    # K1 directly at planes 30 x T wide, and a tile of 8 queries
-    for T in PLANES_K1_T:
-        args = k1_direct_inputs(SEED + 40 + T, 32_768, 1024, 8, T=T) + (8,)
-        at = args[0].shape[1]
-        if kernel_instance(at, KERNEL_QT, "cuda") != "stream":
+    # K1 directly at planes 30 x T wide (every block at the full width),
+    # on blocks whose counts are capped at 1, 7, 8 and 55 in turn (extents
+    # 32, 224, 256 and 1,664), and a tile of 8 queries
+    for T, caps in [(T, None) for T in PLANES_K1_T] + [(55, (1, 7, 8, 55))]:
+        args = k1_args(SEED + 40 + T + (caps is not None), 32_768, 1024, 8,
+                       T=T, caps=caps)
+        at, width = args[0].shape[1], args[10]
+        if kernel_instance(width, at, KERNEL_QT, "cuda") != "stream":
             raise SystemExit(f"K1 at AT={at}: not the streamed instance")
+        exts = sorted(set(args[9].tolist()))
+        if caps is not None and exts != [32, 224, 256, at]:
+            raise SystemExit(f"K1 at capped counts: block extents {exts}")
         _err, _bt, n_exact = hold_k1(*args)
         if n_exact == 0:
             raise SystemExit(f"K1 at AT={at} saw no exact hits")
-        log(f"K1 stage_a at planes {at} wide (A=30, T={T}), B=1024: "
-            f"bit-identical to plain ({n_exact} exact hits) | {card}")
-    args = k1_direct_inputs(SEED + 8, 32_768, 8, 4, T=55) + (4,)
+        log(f"K1 stage_a at planes {at} wide (A=30, T={T}"
+            f"{f', counts capped at {caps} by block' if caps else ''}), "
+            f"block extents {exts}, B=1024: bit-identical to plain "
+            f"({n_exact} exact hits) | {card}")
+    args = k1_args(SEED + 8, 32_768, 8, 4, T=55)
     _err, bt, n_exact = hold_k1(*args)
     if n_exact == 0 or bt != 8:
         raise SystemExit(f"K1 at a tile of 8 queries: bt={bt}, "
@@ -2591,14 +2707,16 @@ def planes_phase(words, card: str, peaks) -> tuple:
         f"queries): bit-identical to plain ({n_exact} exact hits) | {card}")
     del args
     lap("K1 direct")
-    # at AT 6,016 on a band of the main path's size: 4,096 queries over
-    # 89 blocks of 131,072 rows
-    args = k1_direct_inputs(SEED + 240, 131_072, 4096, 89, T=200) + (89,)
-    rec["at_6016"] = k1_stream_times(args, 30 * 200, card, peaks,
-                                     "AT 6,016 on a main-sized band")
-    del args
+    # at AT 1,664 and 6,016 on a band of the main path's size: 4,096
+    # queries over 89 blocks of 131,072 rows, every block at the full width
+    for T in (55, 200):
+        args = k1_args(SEED + 240 + (T == 55), 131_072, 4096, 89, T=T)
+        rec[f"at_{args[0].shape[1]}"] = k1_times(
+            args, 30 * T, card, peaks,
+            f"AT {args[0].shape[1]:,} on a main-sized band", "stream")
+        del args
     torch.cuda.empty_cache()
-    lap("K1 at 6,016")
+    lap("K1 at 1,664 and 6,016")
     log(f"phase 13 (wide planes): {time.perf_counter() - t_phase:.1f} s: "
         f"{parts}")
     return rec, by_path
@@ -2612,6 +2730,7 @@ def main() -> int:
     from analiticcl_tpu_torch import (
         DistanceThreshold, SearchParameters, VariantModel,
     )
+    from analiticcl_tpu_torch.convert import block_columns
     from analiticcl_tpu_torch.ops import _build
     from analiticcl_tpu_torch.ops.dl import (
         dl_lcs, dl_metrics_windowed_plain,
@@ -2677,8 +2796,7 @@ def main() -> int:
     # ---- 3. K1 against its plain version: direct shapes, then one
     # main-path batch ----
     for B, ni, nb in K1_DIRECT:
-        k1_err, bt, n_exact = hold_k1(*k1_direct_inputs(SEED + B, ni, B, nb),
-                                      nb)
+        k1_err, bt, n_exact = hold_k1(*k1_args(SEED + B, ni, B, nb))
         if n_exact == 0:
             raise SystemExit(f"K1 direct check at B={B} saw no exact hits")
         log(f"K1 stage_a direct: B={B} bt={bt} Ni={ni} nb_band={nb} "
@@ -2687,35 +2805,51 @@ def main() -> int:
     (q_counts, q_cc, _qn, _ql, _qf, k_ana, _ke, k_len, _se,
      start_blk, _w, _thr) = st["args"]
     qbin, _totals = hold_k5(idx, q_counts)
-    a_args = (idx.bins, idx.cc, idx.validrows, qbin, q_cc, k_ana, k_len,
-              start_blk, st["nb_band"])
+    a_args = index_k1_args(idx, qbin, st, q_cc, k_ana, k_len, start_blk)
     k1_err, _bt, _ne = hold_k1(*a_args)
     k1_ms = time_ms(lambda: stage_a_masks(*a_args), 10, inner=10)
     k1_dev = device_ms(lambda: stage_a_masks(*a_args), "stage_a_kernel", 10)
     k1_plain = time_ms(lambda: stage_a_masks_plain(*a_args), 5)
     k1_bound, k1_by = k1_bound_ms(idx.at, qbin.shape[0], start_blk,
-                                  st["nb_band"], peaks)
+                                  st["nb_band"], peaks,
+                                  columns=block_columns(idx.bins))
+    k1_bound_full, _by = k1_bound_ms(idx.at, qbin.shape[0], start_blk,
+                                     st["nb_band"], peaks)
     rs = idx.bins.shape[1] + 16  # csrc/stage_a.cu smem_bytes
     log(f"K1 stage_a: dynamic shared memory "
         f"{128 * rs + 3 * (64 * rs + 320) + 2 * 4 * 128 * 33} bytes per "
         f"block of 256 threads at AT {idx.bins.shape[1]}")
     log(f"K1 stage_a: B={BATCH} nb_band={st['nb_band']} "
         f"(band {st['nb_band'] * 1024} rows of {pipe.Ni_pad}, AT {idx.at} "
-        f"padded to {idx.bins.shape[1]}) bit-identical to plain; kernel "
+        f"padded to {idx.bins.shape[1]}, width {st['width']}: the "
+        f"{k1_instances_of(a_args)} instance) bit-identical to plain; kernel "
         f"{k1_ms:.3f} ms "
         f"(CUDA events, 10 back-to-back calls; profiler device time "
         f"{ms4(k1_dev)}), "
-        f"plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms ({k1_by}) | {card}")
+        f"plain {k1_plain:.3f} ms, bound {k1_bound:.4f} ms at the blocks' "
+        f"columns ({k1_by}; at the full width {k1_bound_full:.4f} ms) | "
+        f"{card}")
     records.append({
         "name": "stage_a", "route": "cuda",
         "source": "analiticcl_tpu_torch/csrc/stage_a.cu",
         "replaces": "analiticcl_tpu/ops/stage_a.py:88",
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+        "bound_ms": k1_bound, "bound_by": k1_by,
+        "bound_full_ms": k1_bound_full,
+        "device_ms": k1_dev, "library_ms": None,
         "library_note": "no PyTorch call computes it: torch._int_mm of the "
                         "same planes writes an int32 product 32x the size "
                         "of the bits, and no call fuses the tests",
     })
+    # the resident instance at the CLI's and the 1M lexicon's plane
+    # widths, 256 and 288 (every block at the full width)
+    records[-1]["resident"] = {}
+    for T in (8, 9):
+        args = k1_args(SEED + 60 + T, 131_072, 4096, 89, T=T)
+        records[-1]["resident"][f"at_{args[0].shape[1]}"] = k1_times(
+            args, 30 * T, card, peaks,
+            f"AT {args[0].shape[1]} on a main-sized band", "resident")
+        del args
 
     # ---- 4. K3 and K2's slot entry against their plain versions on the
     # main path's first batch (and at a budget below its hits), then K2's
@@ -2916,7 +3050,7 @@ def main() -> int:
 
     # ---- 12. a lexicon wider than 64: K2's wide path ----
     gc.collect()
-    wide_rec, wide_paths, wide_k1 = wide_phase(words, card, peaks)
+    wide_rec, wide_paths = wide_phase(words, card, peaks)
     by_path.update(wide_paths)
 
     # ---- 13. planes wider than a resident K1 block holds ----
@@ -2927,7 +3061,7 @@ def main() -> int:
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
-    # every path's K1 launches ran one instance (require_k1): which
+    # every path's K1 launches by instance (require_k1)
     k1_rec = next(r for r in records if r["name"] == "stage_a")
     k1_rec["instance_by_check"] = dict(K1_CHECKED)
     records.append({
@@ -2936,15 +3070,16 @@ def main() -> int:
         "replaces": "analiticcl_tpu/ops/stage_a.py:88",
         **planes_rec, "library_ms": None,
         "library_note": k1_rec["library_note"],
-        "launches": planes_paths["planes_query"]["stage_a"],
+        "launches": K1_CHECKED["planes query"]["stream"],
         "launches_note": "K1's streamed instance (stage_a_kernel_stream: "
-                         "planes wider than a resident block of 128 "
-                         "queries holds), every K1 launch of phases 12 and "
-                         "13; counted on phase 13's query path; times on "
-                         "its first batch, at_6016's on AT 6,016",
-        "launches_by_path": {k: v["stage_a"] for k, v in by_path.items()
-                             if k in planes_paths or wide_k1 == "stream"
-                             and k in wide_paths},
+                         "launches whose band reaches a block wider than "
+                         "a resident block of 128 queries holds, each "
+                         "block at its own extent), counted on phase 13's "
+                         "query path; times on its first batch, "
+                         "main_batch's on the main instance, at_1664's and "
+                         "at_6016's on seeded full-width planes",
+        "launches_by_path": {k: v["stream"] for k, v in K1_CHECKED.items()
+                             if "stream" in v},
     })
     records.append({
         "name": "dl_lcs_wide", "route": "cuda",

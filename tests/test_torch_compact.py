@@ -42,6 +42,7 @@ import pytest
 import torch
 
 import analiticcl_tpu_torch.ops.pipeline as ppl
+from analiticcl_tpu_torch.convert import plane_columns
 from analiticcl_tpu.ops.pipeline import _compact
 from analiticcl_tpu_torch.ops.pipeline import (
     compact_survivors,
@@ -298,11 +299,13 @@ def test_compact_cpu_takes_the_plain_version():
 
 def _jax_planes(q_counts, A: int, T: int):
     """The JAX core's query planes (analiticcl_tpu/ops/pipeline.py:
-    402-408), on JAX's CPU backend."""
+    402-408), on JAX's CPU backend, in the port's threshold-major column
+    order (``plane_columns``: the JAX planes are letter-major)."""
     B = q_counts.shape[0]
     t_levels = jnp.arange(T, dtype=jnp.int32)[None, None, :]
     return np.asarray((jnp.minimum(jnp.asarray(q_counts), T)[:, :, None]
-                       > t_levels).reshape(B, A * T).astype(jnp.int8))
+                       > t_levels).reshape(B, A * T).astype(jnp.int8)
+                      )[:, plane_columns(A, T)]
 
 
 @pytest.mark.parametrize("B,A,T,at_pad", [

@@ -276,6 +276,37 @@ def test_shard_layout(words):
         host_layout(port, pad_unit=1000)
 
 
+@pytest.mark.parametrize("shape", [(1, 3), (2, 2)], ids=["1x3", "2x2"])
+def test_outlier_entry_over_mesh(words, shape):
+    """A lexicon with one entry that holds a letter 50 times (planes 1,504
+    wide; one block of one shard that wide, the rest within 224 columns):
+    the mesh equals the single-device pipeline and the oracle, on queries
+    near that entry and elsewhere, and each shard's band plan takes the
+    widest extent its tiles read in that shard."""
+    rng = np.random.default_rng(23)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    rep = "".join(rng.permutation(np.concatenate(
+        [np.repeat("e", 50), rng.choice(letters[letters != "e"], 14)])))
+    port = populate(VariantModel(alphabet=ALPHABET, device="cpu"),
+                    words[:2500] + [rep])
+    params = PARAMS["absolute"]
+    queries = (corrupt_queries([rep], 8, 6) + [rep]
+               + corrupt_queries(words[:2500], 9, 40))
+    single = _tuples(port, port.find_variants_batch(queries, params))
+    oracle = _tuples(port, [port._find_variants_oracle(q, params)
+                            for q in queries])
+    port.use_mesh(cpu_mesh(*shape))
+    pipe = port._device
+    widths = [int(pipe.shard(0, s).extents_host.max())
+              for s in range(shape[1])]
+    assert max(widths) == 1504 and min(widths) <= 224
+    got = _tuples(port, port.find_variants_batch(queries, params))
+    assert got == single == oracle
+    assert sum(any(t == rep for t, *_ in g) for g in got[:7]) >= 5
+    st = pipe.prepare(queries[:7], params)
+    assert st["width"].max() == 1504
+
+
 @pytest.mark.parametrize("lm", [False, True], ids=["nolm", "lm"])
 def test_search_over_mesh(words, lm):
     freqs = synthetic_frequencies(9, len(words))

@@ -146,3 +146,29 @@ def test_thousand_letter_entry_equals_oracle(monkeypatch, lexicon):
                             for q in queries])
     assert got == oracle
     assert all(any(t == long for t, *_ in g) for g in got[:3])
+
+
+def test_band_width_follows_the_queries(lexicon, models):
+    """A batch whose band reaches the repetitive entry's block runs stage A
+    at that block's extent (the streamed instance on the card, each block
+    at its own extent); a batch of short queries stays below it, at 224
+    columns or fewer (the main instance). Both equal the JAX package's
+    device path and the oracle."""
+    words, rep, _ = lexicon
+    port, ref = models
+    pipe = port._pipeline()
+    ext = pipe.index.extents_host
+    assert ext.max() == 1504 and (ext > 224).sum() == 1
+    near = corrupt_queries([rep], 6, 8) + [rep]
+    short = [w for w in words if len(w) <= 4][:24]
+    found = []
+    for queries, width in ((near, 1504), (short, None)):
+        st = pipe.prepare(queries, QUERY)
+        assert (st["width"] == width if width else st["width"] <= 224)
+        got = _tuples(port, port.find_variants_batch(queries, QUERY))
+        oracle = _tuples(port, [port._find_variants_oracle(q, QUERY)
+                                for q in queries])
+        want = _tuples(ref, ref.find_variants_batch(queries, to_ref(QUERY)))
+        assert got == oracle == want
+        found.append(sum(any(t == rep for t, *_ in g) for g in got))
+    assert found[0] >= 6 and found[1] == 0

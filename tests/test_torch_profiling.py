@@ -26,7 +26,9 @@ import torch
 
 import analiticcl_tpu.ops.pipeline as jpl
 from analiticcl_tpu_torch import VariantModel
-from analiticcl_tpu_torch.convert import index_tensors_from_numpy
+from analiticcl_tpu_torch.convert import (
+    band_width, block_columns, index_tensors_from_numpy,
+)
 from analiticcl_tpu_torch.ops.pipeline import (
     STOP_STAGES,
     probe,
@@ -61,6 +63,12 @@ TOOLS = Path(__file__).resolve().parent.parent / "tools"
 SCORE_RTOL = 1e-5
 
 
+def jax_static(static: dict) -> dict:
+    """The JAX core's static arguments: the port's but stage A's k
+    width (the JAX core reads every plane column)."""
+    return {k: v for k, v in static.items() if k != "width"}
+
+
 @pytest.fixture(scope="module", params=["exhaustive", "stop_at_exact"])
 def batch(request, jax_model, words):
     """One submitted JAX batch and its arguments for both cores, with its
@@ -69,11 +77,14 @@ def batch(request, jax_model, words):
     pipe = jpl.DevicePipeline(jax_model)
     st = pipe.submit(queries, to_ref(_params(request.param)))
     assert "args" in st
-    index = index_tensors_from_numpy(*(np.asarray(x) for x in pipe._idx), "cpu")
+    index = index_tensors_from_numpy(*(np.asarray(x) for x in pipe._idx), "cpu",
+                                     A=pipe.A)
     args = [torch.from_numpy(np.array(x)) for x in st["args"]]
     static = dict(have_freq=bool(jax_model.have_freq), window=st["window"],
-                  nb_band=st["nb_band"], use_stop_exact=st["use_stop_exact"])
-    full = _jax_core(*pipe._idx, *st["args"], **static, P=P_BUDGET,
+                  nb_band=st["nb_band"], use_stop_exact=st["use_stop_exact"],
+                  width=band_width(index.extents_host, st["args"][9],
+                                   st["nb_band"]))
+    full = _jax_core(*pipe._idx, *st["args"], **jax_static(static), P=P_BUDGET,
                      P2=P_BUDGET)
     totals = int(full[8]), int(full[9])
     assert 0 < totals[1] < totals[0] <= P_BUDGET
@@ -82,7 +93,7 @@ def batch(request, jax_model, words):
 
 def _both(batch, stop, P, P2):
     pipe, st, index, args, static, _ = batch
-    want = _jax_core(*pipe._idx, *st["args"], **static, P=P, P2=P2,
+    want = _jax_core(*pipe._idx, *st["args"], **jax_static(static), P=P, P2=P2,
                      stop_stage=stop)
     got = query_core(index, *args, **static, P=P, P2=P2, stop_stage=stop)
     return got, [np.asarray(w) for w in want]
@@ -120,7 +131,8 @@ def test_probes_match_jax_below_the_totals(batch, stop):
 
 def test_stop_stage_none_gives_the_outputs(batch):
     pipe, st, index, args, static, _ = batch
-    want = _jax_core(*pipe._idx, *st["args"], **static, P=P_BUDGET,
+    want = _jax_core(*pipe._idx, *st["args"], **jax_static(static),
+                     P=P_BUDGET,
                      P2=P_BUDGET)
     got = query_core(index, *args, **static, P=P_BUDGET, P2=P_BUDGET,
                      stop_stage=None)
@@ -151,9 +163,9 @@ def test_stage_functions_take_only_their_own_stops(batch):
      start_blk, weights, thr) = args
     with pytest.raises(ValueError, match="not one of"):
         query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
-                      static["nb_band"], stop_stage="resolve")
+                      static["nb_band"], static["width"], stop_stage="resolve")
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
-                       static["nb_band"])
+                       static["nb_band"], static["width"])
     with pytest.raises(ValueError, match="not one of"):
         query_stage_b(index, sa, stop_exact, q_norms, q_lens, q_fl, k_ed,
                       start_blk, weights, thr, have_freq=static["have_freq"],
@@ -274,6 +286,38 @@ def test_k1_count_at_the_main_shape(at, ops, nbytes, ms):
     assert round(got, 4) == ms
     if at == 224:
         assert f"{w.int8_ops:.3g}" == "1.67e+11"
+
+
+def test_k1_count_at_the_extents():
+    """K1 at the band blocks' columns in use: per tile, 2 x bt x 1024 x
+    columns operations for each block it reads; each distinct block's
+    planes at its columns and each tile's queries' planes at the most
+    columns of a block it reads; columns capped at the true width. On the
+    main shape, every block at the full width, the count is the full-width
+    one."""
+    start_blk = torch.tensor([0, 0, 29, 29], dtype=torch.int32)
+    full = roofline.k1_work(224, 4096, start_blk, 89)
+    at_full = roofline.k1_work(224, 4096, start_blk, 89,
+                               np.full(118, 224, np.int32))
+    assert at_full == full
+    # the main lexicon's 210 columns but a block of 1,664 (capped at AT
+    # 1,650), and blocks of 93 below block 10
+    ext = np.full(118, 210, np.int32)
+    ext[:10] = 93
+    ext[117] = 1664
+    w = roofline.k1_work(1650, 4096, start_blk, 89, ext)
+    per_tile = [ext[:89].astype(np.int64), ext[29:118].astype(np.int64)]
+    per_tile[1][-1] = 1650
+    assert w.int8_ops == 2 * 1024 * 1024 * 2 * sum(int(x.sum())
+                                                    for x in per_tile)
+    capped = np.minimum(ext, 1650).astype(np.int64)
+    out = 16 + 2 * 4096 * 11_392 + 4 * 712 * 4096 + 8 * 4096
+    assert w.nbytes == (1024 * int((capped + 5).sum())
+                        + 2 * 1024 * (210 + 12) + 2 * 1024 * (1650 + 12)
+                        + out)
+    by_full = roofline.k1_bound_ms(1650, 4096, start_blk, 89)
+    by_ext = roofline.k1_bound_ms(1650, 4096, start_blk, 89, columns=ext)
+    assert by_ext[0] < by_full[0] / 5 and by_ext[1] == "operations"
 
 
 def test_k2_and_glue_counts():
@@ -420,7 +464,7 @@ def test_batch_floor_counts_this_batch(batch):
     # the valid pairs by an enumeration of stage A's hit bits (all of them
     # fit in P_BUDGET): the query rows and candidate rows they touch
     sa = query_stage_a(index, q_counts, q_cc, k_ana, k_len, start_blk,
-                       static["nb_band"])
+                       static["nb_band"], static["width"])
     hits = np.unpackbits(sa.packed_q.numpy(), axis=1, bitorder="little")
     q_ref, r_ref = np.nonzero(hits)
     assert len(q_ref) == total_match
@@ -453,6 +497,13 @@ def test_batch_floor_counts_this_batch(batch):
         f.ms("k5")[0] + f.ms("k1")[0] + f.ms("k3")[0] + f.ms("k2_slots")[0]
         + f.ms("k4")[0] + f.ms("glue")[0])
     assert f.program.int8_ops == f.k1.int8_ops > 0
+    # K1 at the index's block columns: no more than at the full width
+    assert f.k1 == roofline.k1_work(index.at, B, start_blk,
+                                    static["nb_band"],
+                                    block_columns(index.bins))
+    assert f.k1_full == roofline.k1_work(index.at, B, start_blk,
+                                         static["nb_band"])
+    assert 0 < f.k1.int8_ops <= f.k1_full.int8_ops
     assert f.program.int32_ops == f.k2_valid.int32_ops
     # the program moves less than its parts: K1's bits and counts, the
     # slots and the metrics stay between its stages
@@ -543,7 +594,9 @@ def test_profile_query_tool_learn(capsys):
 def test_roofline_tool(capsys):
     assert _tool("roofline_torch").main(SMALL) == 0
     out = capsys.readouterr().out
-    for part in ("K1:", "K3 (slot resolve):", "K2 at the valid pairs:",
+    for part in ("K1 (each band block at its columns):",
+                 "K1 at the full width:",
+                 "K3 (slot resolve):", "K2 at the valid pairs:",
                  "K2 at the P slots:", "glue:", "program floor",
                  "measured: not measured"):
         assert part in out

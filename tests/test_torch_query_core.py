@@ -24,9 +24,11 @@ from analiticcl_tpu_torch import (
     VariantModel,
 )
 from analiticcl_tpu_torch.convert import (
+    band_width,
     host_layout,
     index_tensors_from_model,
     index_tensors_from_numpy,
+    plane_columns,
 )
 from analiticcl_tpu_torch.ops.pipeline import query_core
 from analiticcl_tpu_torch.testing import (
@@ -100,11 +102,13 @@ def _both_cores(jax_model, words, stop: str, budgets):
     P, P2 = budgets(total_match, total_keep)
     want = full if (P, P2) == (P_BUDGET, P_BUDGET) else jax_core(P, P2)
 
-    index = index_tensors_from_numpy(*(np.asarray(x) for x in pipe._idx), "cpu")
+    index = index_tensors_from_numpy(*(np.asarray(x) for x in pipe._idx), "cpu",
+                                     A=pipe.A)
     args = [torch.from_numpy(np.array(x)) for x in st["args"]]
     got = query_core(
         index, *args, have_freq=have_freq, P=P, P2=P2, window=st["window"],
         nb_band=st["nb_band"], use_stop_exact=st["use_stop_exact"],
+        width=band_width(index.extents_host, st["args"][9], st["nb_band"]),
     )
     return got, want, P, P2, st["B"]
 
@@ -132,17 +136,29 @@ def test_query_core_matches_jax(jax_model, words, stop):
 
 def test_index_layout_matches_jax(jax_model, words, freqs):
     """The port's own model and layout of the same lexicon equal the JAX
-    pipeline's, and its planes are zero-padded to a multiple of 32."""
+    pipeline's, its planes the JAX planes' columns in the port's
+    threshold-major order (``plane_columns``), zero-padded to a multiple
+    of 32; the JAX arrays carried over by ``index_tensors_from_numpy``
+    give the same index, block extents included."""
     pipe = jpl.DevicePipeline(jax_model)
     port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words, freqs)
     lay = host_layout(port)
+    jbins = np.asarray(pipe._idx[0])
+    np.testing.assert_array_equal(lay.bins,
+                                  jbins[:, plane_columns(pipe.A, pipe.T)])
     ours = index_tensors_from_model(port, "cpu")
-    theirs = index_tensors_from_numpy(*(np.asarray(x) for x in pipe._idx), "cpu")
+    theirs = index_tensors_from_numpy(*(np.asarray(x) for x in pipe._idx), "cpu",
+                                      A=pipe.A)
     assert ours.at == theirs.at == pipe.A * pipe.T
     assert ours.bins.shape[1] % 32 == 0
     assert not ours.bins[:, ours.at:].any()
-    for name in ours._fields[:-1]:
-        assert torch.equal(getattr(ours, name), getattr(theirs, name)), name
+    for name in ours._fields:
+        got, want = getattr(ours, name), getattr(theirs, name)
+        if isinstance(got, torch.Tensor):
+            assert torch.equal(got, want), name
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(ours.extents.numpy(), ours.extents_host)
     np.testing.assert_array_equal(lay.canon_of, pipe._canon_of)
     np.testing.assert_array_equal(
         lay.freqs, np.asarray(pipe._idx[5]).astype(np.int64)

@@ -39,7 +39,11 @@ from analiticcl_tpu_torch.ops.pipeline import (
 )
 from analiticcl_tpu_torch.ops.stage_a import ROW_BLOCK, _b_tile
 from test_torch_dl import host_slots_fn
-from test_torch_profiling import _assert_probes_equal, batch  # noqa: F401
+from test_torch_profiling import (  # noqa: F401  (fixtures)
+    _assert_probes_equal,
+    batch,
+    jax_static,
+)
 from test_torch_query_core import (  # noqa: F401  (fixtures)
     P_BUDGET,
     _jax_core,
@@ -198,7 +202,8 @@ def _budgets(batch):
 def _jax(batch, stop, P, P2):
     pipe, st, _, _, static, _ = batch
     return [np.asarray(w) for w in _jax_core(
-        *pipe._idx, *st["args"], **static, P=P, P2=P2, stop_stage=stop)]
+        *pipe._idx, *st["args"], **jax_static(static), P=P, P2=P2,
+        stop_stage=stop)]
 
 
 def _port(batch, stop, P, P2):

@@ -17,6 +17,9 @@ import analiticcl_tpu.ops.pipeline as jpl
 import analiticcl_tpu.ops.stage_a as jsa
 import analiticcl_tpu_torch.ops.stage_a as tsa
 from analiticcl_tpu_torch import DistanceThreshold, SearchParameters, VariantModel
+from analiticcl_tpu_torch.convert import (
+    block_extents, count_planes, k1_table, plane_columns,
+)
 from analiticcl_tpu_torch.ops.pipeline import DevicePipeline, query_planes
 from analiticcl_tpu_torch.testing import populate
 from fixtures import TEST_ALPHABET, get_test_searchparams
@@ -33,13 +36,12 @@ def _inputs(seed, Ni, A, T, B, nb_band, n_pad_rows=100):
     cc = counts.sum(1).astype(np.int32)
     order = np.argsort(cc, kind="stable")
     counts, cc = counts[order], cc[order]
-    levels = np.arange(T)[None, None, :]
-    bins = (counts[:, :, None] > levels).reshape(Ni, A * T).astype(np.int8)
+    bins = count_planes(counts, T)
     valid = np.arange(Ni) < Ni - n_pad_rows
     bins[~valid] = 0
     cc[~valid] = 1 << 28
     qc = rng.integers(0, T + 1, size=(B, A)) * (rng.random((B, A)) < 0.25)
-    qbin = (qc[:, :, None] > levels).reshape(B, A * T).astype(np.int8)
+    qbin = count_planes(qc, T)
     q_cc = qc.sum(1).astype(np.int32)
     k_ana = rng.integers(0, 5, size=B).astype(np.int32)
     k_ana[-3:] = -1  # padding queries
@@ -62,7 +64,8 @@ def _compare(args, nb_band, pad_to=None):
         extra = pad_to - targs[0].shape[1]
         targs[0] = torch.nn.functional.pad(targs[0], (0, extra))
         targs[3] = torch.nn.functional.pad(targs[3], (0, extra))
-    got = tsa.stage_a_masks(*targs, nb_band)
+    got = tsa.stage_a_masks(*targs, nb_band,
+                            *k1_table(targs[0], targs[7], nb_band))
     names = ("packed_q", "exact_q", "counts_t", "nmatch", "nexact")
     for name, g, w in zip(names, got, want):
         w = np.asarray(w)
@@ -93,11 +96,16 @@ def test_zero_padded_planes_are_exact(monkeypatch):
 def test_kernel_inputs_are_checked():
     args = _inputs(1, Ni=2048, A=4, T=4, B=8, nb_band=1)
     targs = [torch.from_numpy(np.ascontiguousarray(x)) for x in args]
+    ext = block_extents(targs[0])
     with pytest.raises(ValueError):
-        tsa.stage_a_masks(*targs, 3)  # band wider than the index
+        tsa.stage_a_masks(*targs, 3, ext, 32)  # band wider than the index
+    for bad_ext, width in ((ext, 16), (ext, 64), (ext[:1], 32),
+                           (ext.long(), 32)):
+        with pytest.raises(ValueError):  # width or table out of shape
+            tsa.stage_a_masks(*targs, 1, bad_ext, width)
     targs[1] = targs[1].to(torch.int64)
     with pytest.raises(ValueError):
-        tsa.stage_a_masks(*targs, 1)
+        tsa.stage_a_masks(*targs, 1, ext, 32)
 
 
 def _fragment_accumulators(bins, qbin, start, bt, qt, nb_band):
@@ -172,10 +180,85 @@ def test_kernel_epilogue_on_host(monkeypatch, host_epilogue, b_tile, B,
     assert out[3].sum() > 0 and out[4].sum() > 0
 
 
-# (A, T, plane width padded to 32): AT 992, 1,056 (not a multiple of the
-# streamed instance's 64-byte k-chunks), 1,664, 2,048 and 6,016
+# (A, T, plane width padded to 32): AT 992 and 1,056 (not multiples of the
+# streamed instance's 128-byte k-chunks), 1,664, 2,048 and 6,016
 STREAM_WIDTHS = [(30, 33, 992), (30, 35, 1056), (30, 55, 1664),
                  (30, 68, 2048), (30, 200, 6016)]
+MAIN_WIDTH = 224  # the main instance's k width (the streamed instance's
+# blocks of extent up to 224 run its body)
+
+
+def _mixed_inputs(seed, Ni, A, T, B, nb_band, at_pad, caps):
+    """Threshold-major planes ``at_pad`` wide whose 1024-row blocks cap
+    their counts at ``caps`` in turn (so their extents run from 32 up to
+    the full width), charcounts from the planes, the last 100 rows
+    padding; queries as :func:`_inputs` makes them, with a band start per
+    tile."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, T + 1, size=(Ni, A)) * (rng.random((Ni, A)) < 0.25)
+    cap = np.resize(np.asarray(caps), Ni // 1024).repeat(1024)
+    counts = np.minimum(counts, cap[:, None])
+    bins = np.zeros((Ni, at_pad), np.int8)
+    bins[:, :A * T] = count_planes(counts, T)
+    valid = np.arange(Ni) < Ni - 100
+    bins[~valid] = 0
+    cc = bins.sum(1, dtype=np.int32)
+    cc[~valid] = 1 << 28
+    qc = rng.integers(0, T + 1, size=(B, A)) * (rng.random((B, A)) < 0.25)
+    qbin = np.zeros((B, at_pad), np.int8)
+    qbin[:, :A * T] = count_planes(qc, T)
+    q_cc = qc.sum(1).astype(np.int32)
+    k_ana = rng.integers(0, 5, size=B).astype(np.int32)
+    k_len = np.minimum(k_ana, rng.integers(0, 4, size=B)).astype(np.int32)
+    k_ana[-3:] = k_len[-3:] = -1
+    bt = tsa._b_tile(B, Ni)
+    start = rng.integers(0, Ni // 1024 - nb_band + 1,
+                         size=B // bt).astype(np.int32)
+    for q in range(0, B, 5):  # exact anagrams of rows of the tile's band
+        r = int(start[q // bt]) * 1024 + int(rng.integers(nb_band * 1024))
+        if valid[r]:
+            qbin[q], q_cc[q] = bins[r], cc[r]
+    return bins, cc, valid, qbin, q_cc, k_ana, k_len, start
+
+
+def _stream_host(lib, ins, B, at_pad, nb_band, bt, qt):
+    """``analiticcl_stage_a_stream_host`` on numpy inputs: the outputs and
+    each block's walk (ring steps, plane bytes a row's products read)."""
+    Nb = nb_band * 1024
+    out = [np.zeros((B, Nb // 8), np.uint8), np.zeros((B, Nb // 8), np.uint8),
+           np.zeros((Nb // 128, B), np.int32), np.zeros(B, np.int32),
+           np.zeros(B, np.int32)]
+    bins, cc, valid, qbin, q_cc, k_ana, k_len, start = ins
+    ext = block_extents(bins).numpy()
+    walk = np.zeros((B // qt, nb_band, 2), np.int32)
+    arrs = [np.ascontiguousarray(x) for x in (
+        bins, cc, valid.astype(np.uint8), qbin, q_cc, k_ana, k_len, start,
+        ext)]
+    ptr = ctypes.c_void_p
+    lib.analiticcl_stage_a_stream_host(
+        *[ptr(x.ctypes.data) for x in (*arrs, *out)],
+        *map(ctypes.c_int, (B, at_pad, nb_band, bt, qt)),
+        ptr(walk.ctypes.data),
+    )
+    return out, walk, ext
+
+
+def _check_stream(out, walk, ext, ins, nb_band, bt, qt):
+    """The host walk's outputs equal stage_a_masks_plain byte for byte, and
+    each block walked its own extent: 16 rounds of kchunks(extent) steps
+    (128-byte k-chunks), or the main body's 16 chunks at 224 columns."""
+    want = tsa.stage_a_masks_plain(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in ins), nb_band)
+    names = ("packed_q", "exact_q", "counts_t", "nmatch", "nexact")
+    for name, g, w in zip(names, out, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    assert out[3].sum() > 0 and out[4].sum() > 0
+    start = ins[7]
+    for qb, band_blk in np.ndindex(walk.shape[:2]):
+        e = int(ext[start[qb * qt // bt] + band_blk])
+        want_walk = ((16, MAIN_WIDTH) if e <= MAIN_WIDTH
+                     else (16 * -(-e // 128), e))
+        assert tuple(walk[qb, band_blk]) == want_walk, (qb, band_blk, e)
 
 
 @pytest.mark.parametrize(
@@ -191,7 +274,8 @@ def test_streamed_loop_on_host(monkeypatch, host_epilogue, A, T, at_pad,
     ``analiticcl_stage_a_stream_host``: the kernel's piece offsets, a scalar
     dot for each accumulator in fragment order, the same epilogue) against
     stage_a_masks_plain byte for byte, at planes wider than any resident
-    block holds, 128 queries a block and (bt 8) 8."""
+    block holds, 128 queries a block and (bt 8) 8; random threshold-major
+    planes, nearly every block at the full width."""
     monkeypatch.setattr(tsa, "B_TILE", b_tile)
     bins, cc, valid, qbin, q_cc, k_ana, k_len, start = _inputs(
         at_pad + B, Ni=Ni, A=A, T=T, B=B, nb_band=nb_band)
@@ -200,52 +284,83 @@ def test_streamed_loop_on_host(monkeypatch, host_epilogue, A, T, at_pad,
     bt = tsa._b_tile(B, Ni)
     qt = min(tsa.KERNEL_QT, bt)
     assert qt == min(128, b_tile)
-    Nb = nb_band * 1024
-    out = [np.zeros((B, Nb // 8), np.uint8), np.zeros((B, Nb // 8), np.uint8),
-           np.zeros((Nb // 128, B), np.int32), np.zeros(B, np.int32),
-           np.zeros(B, np.int32)]
-    ins = [np.ascontiguousarray(x) for x in (
-        bins, cc, valid.astype(np.uint8), qbin, q_cc, k_ana, k_len, start)]
-    ptr = ctypes.c_void_p
-    host_epilogue.analiticcl_stage_a_stream_host(
-        *[ptr(x.ctypes.data) for x in (*ins, *out)],
-        *map(ctypes.c_int, (B, at_pad, nb_band, bt, qt)),
-    )
-    want = tsa.stage_a_masks_plain(
-        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (
-            bins, cc, valid, qbin, q_cc, k_ana, k_len, start)), nb_band,
-    )
-    names = ("packed_q", "exact_q", "counts_t", "nmatch", "nexact")
-    for name, g, w in zip(names, out, want):
-        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
-    assert out[3].sum() > 0 and out[4].sum() > 0
+    ins = (bins, cc, valid, qbin, q_cc, k_ana, k_len, start)
+    out, walk, ext = _stream_host(host_epilogue, ins, B, at_pad, nb_band, bt,
+                                  qt)
+    _check_stream(out, walk, ext, ins, nb_band, bt, qt)
+
+
+# the count caps of consecutive blocks: extents 32 (one level of 30
+# letters), 224 (the main lexicon's 7), 256 (8), and the full width
+MIXED_CAPS = (1, 7, 8, 200)
+
+
+@pytest.mark.parametrize("at_pad,T,b_tile,B,nb_band", [
+    (1664, 55, 128, 256, 3),  # tiles span narrow and wide blocks
+    (1664, 55, 8, 16, 4),
+    (992, 33, 128, 128, 4),  # the last k-chunk 96 bytes wide
+    (6016, 200, 64, 128, 4),
+], ids=["AT1664", "AT1664-bt8", "AT992", "AT6016"])
+def test_streamed_loop_at_block_extents(monkeypatch, host_epilogue, at_pad, T,
+                                        b_tile, B, nb_band):
+    """A lexicon whose blocks' extents run from 32 to the full width: the
+    streamed instance walks each band block at its own extent (the main
+    body at most 224), and its outputs equal stage_a_masks_plain's byte
+    for byte."""
+    monkeypatch.setattr(tsa, "B_TILE", b_tile)
+    Ni = 8192
+    ins = _mixed_inputs(at_pad + B + MAIN_WIDTH, Ni, 30, T, B, nb_band,
+                        at_pad, MIXED_CAPS)
+    bt = tsa._b_tile(B, Ni)
+    qt = min(tsa.KERNEL_QT, bt)
+    out, walk, ext = _stream_host(host_epilogue, ins, B, at_pad, nb_band, bt,
+                                  qt)
+    assert sorted(set(ext.tolist())) == [32, 224, 256, at_pad]
+    _check_stream(out, walk, ext, ins, nb_band, bt, qt)
+    assert len({tuple(w) for w in walk.reshape(-1, 2)}) >= 3
 
 
 H100_SMEM = 232_448  # the dynamic shared memory a block may opt in to
 
 
-@pytest.mark.parametrize("at_pad,qt,limit,want", [
-    (224, 128, H100_SMEM, "main"),
-    (224, 8, H100_SMEM, "main"),
-    (256, 128, H100_SMEM, "resident"),
-    (576, 128, H100_SMEM, "resident"),  # the last that fits 128 queries
-    (608, 128, H100_SMEM, "stream"),
-    (608, 8, H100_SMEM, "stream"),
-    (992, 128, H100_SMEM, "stream"),
-    (6016, 128, H100_SMEM, "stream"),
-    (224, 128, 111_552, "main"),  # the main block: 111,552 bytes
-    (224, 128, 111_551, "stream"),  # a lowered limit
-    (992, 128, 96_512, "stream"),  # the streamed block: 96,512 bytes
-    (992, 128, 96_511, None),  # nothing fits
-    (992, 8, 96_511, "stream"),  # 32 query rows: 40,448 bytes
+@pytest.mark.parametrize("width,at_pad,qt,limit,want", [
+    (224, 224, 128, H100_SMEM, "main"),
+    (224, 224, 8, H100_SMEM, "main"),
+    (256, 256, 128, H100_SMEM, "resident"),
+    (576, 576, 128, H100_SMEM, "resident"),  # the last that fits 128 queries
+    (608, 608, 128, H100_SMEM, "stream"),
+    (608, 608, 8, H100_SMEM, "stream"),
+    (992, 992, 128, H100_SMEM, "stream"),
+    (6016, 6016, 128, H100_SMEM, "stream"),
+    (224, 224, 128, 111_552, "main"),  # the main block: 111,552 bytes
+    (224, 224, 128, 111_551, None),  # a lowered limit: nothing fits
+    # the streamed block runs the main body, so it takes the main block's
+    # shared memory: its ring alone is 89,728 bytes (36,736 at 32 query
+    # rows)
+    (992, 992, 128, 111_552, "stream"),
+    (992, 992, 128, 111_551, None),
+    (992, 992, 8, 111_552, "stream"),
+    (992, 992, 8, 111_551, None),
+    # the launch's width, not the planes', decides
+    (224, 1664, 128, H100_SMEM, "main"),  # the main lexicon's blocks
+    (96, 1664, 128, H100_SMEM, "main"),
+    (256, 1664, 128, H100_SMEM, "resident"),  # planes 256 and 288 wide
+    (256, 256, 128, H100_SMEM, "resident"),
+    (224, 288, 128, H100_SMEM, "main"),
+    (96, 96, 128, H100_SMEM, "resident"),  # planes narrower than 224
+    (576, 1664, 128, H100_SMEM, "resident"),
+    (608, 1664, 128, H100_SMEM, "stream"),
+    (1664, 1664, 128, H100_SMEM, "stream"),
+    (224, 1664, 128, 111_551, None),
 ])
-def test_kernel_routing(host_epilogue, at_pad, qt, limit, want):
-    """``k1_route`` at its edges: the main instance at AT 224, a resident
-    one while its planes fit the limit, else the streamed one, whose shared
-    memory does not depend on the width."""
+def test_kernel_routing(host_epilogue, width, at_pad, qt, limit, want):
+    """``k1_route`` at its edges: the main instance for a launch whose rows
+    use at most 224 columns, a resident one while its width fits the
+    limit, else the streamed one, whose shared memory does not depend on
+    the width (the main block's, since it runs the main body too)."""
     route = host_epilogue.analiticcl_stage_a_route
-    route.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-    code = route(at_pad, qt, limit)
+    route.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+    code = route(width, at_pad, qt, limit)
     names = {v: k for k, v in tsa.INSTANCES.items()}
     assert names.get(code) == want
 
@@ -285,7 +400,8 @@ def test_banded_pipeline_matches_oracle(monkeypatch, b_tile):
 
 def test_band_plan_matches_jax(monkeypatch):
     """The port's band is the exact need, never wider than the JAX plan's
-    bucketed band, and covers every tile's charcount range."""
+    bucketed band, and covers every tile's charcount range; its width is
+    the largest extent of the blocks the tiles read."""
     monkeypatch.setattr(jsa, "B_TILE", 8)
     monkeypatch.setattr(tsa, "B_TILE", 8)
     jm = _mixed_model()
@@ -295,9 +411,12 @@ def test_band_plan_matches_jax(monkeypatch):
     rng = np.random.default_rng(0)
     q_cc = np.sort(rng.integers(2, 21, size=B).astype(np.int32))
     k_ana = rng.integers(0, 4, size=B).astype(np.int32)
-    start, nb = pipe._band_plan(q_cc, k_ana, B)
+    start, nb, width = pipe._band_plan(q_cc, k_ana, B)
     _, jnb = jpipe._band_plan(q_cc, k_ana, B)
     assert nb <= jnb
+    ext = block_extents(pipe.index.bins).numpy()
+    np.testing.assert_array_equal(ext, pipe.index.extents_host)
+    assert width == max(int(ext[s:s + nb].max()) for s in start)
     np.testing.assert_array_equal(pipe._cc_dev, jpipe._cc_dev)
     rows = np.arange(len(pipe._cc_dev))
     for j in range(B // 8):
@@ -321,13 +440,21 @@ def test_all_padding_tile(monkeypatch):
 
 def test_index_planes_padded_to_32_match_jax():
     """The port pads the index's count planes (and so the query planes) with
-    zero columns to a multiple of 32, one int8 MMA k-step. On a batch of the
-    port's pipeline, stage A over the padded planes equals the JAX package's
-    over the same planes without the padding."""
-    model = _port_mixed_model()
+    zero columns to a multiple of 32, one int8 MMA k-step, and orders their
+    columns threshold-major. On a batch of the port's pipeline, stage A
+    over the padded planes, at the band's width, equals the JAX package's
+    over the JAX pipeline's own planes of the same lexicon (letter-major,
+    the port's under ``plane_columns``) without the padding."""
+    jm = _mixed_model()
+    model = _port_mixed_model(jm)
     pipe = DevicePipeline(model, "cpu")
+    jpipe = jpl.DevicePipeline(jm)
     idx = pipe.index
     assert idx.bins.shape[1] % 32 == 0 and idx.bins.shape[1] > idx.at
+    cols = plane_columns(jpipe.A, jpipe.T)
+    jbins = np.asarray(jpipe._idx[0])
+    np.testing.assert_array_equal(idx.bins[:, :idx.at].numpy(),
+                                  jbins[:, cols])
     queries = ["cat", "dogg", "windwo", "bottel", "gadren", "pilow",
                "carpets", "aproximately", "pens", "suns", "extraordinry"]
     st = pipe.prepare(queries, to_port(get_test_searchparams()))
@@ -335,12 +462,15 @@ def test_index_planes_padded_to_32_match_jax():
     qbin = query_planes(idx, q_counts)
     assert qbin.shape[1] == idx.bins.shape[1]
     got = tsa.stage_a_masks(idx.bins, idx.cc, idx.validrows, qbin, q_cc,
-                            k_ana, k_len, start_blk, st["nb_band"])
+                            k_ana, k_len, start_blk, st["nb_band"],
+                            idx.extents, st["width"])
     at = idx.at
+    jqbin = np.empty((qbin.shape[0], at), np.int8)
+    jqbin[:, cols] = qbin[:, :at].numpy()  # the JAX core's query planes
     want = jsa.stage_a_masks_xla(
-        *(jnp.asarray(x.numpy()) for x in (
-            idx.bins[:, :at], idx.cc, idx.validrows, qbin[:, :at], q_cc,
-            k_ana, k_len, start_blk)),
+        jnp.asarray(jbins), *(jnp.asarray(x.numpy()) for x in (
+            idx.cc, idx.validrows)), jnp.asarray(jqbin),
+        *(jnp.asarray(x.numpy()) for x in (q_cc, k_ana, k_len, start_blk)),
         st["nb_band"],
     )
     for name, g, w in zip(("packed_q", "exact_q", "counts_t", "nmatch",

@@ -78,11 +78,14 @@ def main(argv=None) -> int:
     print(f"peaks: {peaks.name}: {peaks.int8_ops_per_s:.4g} int8 op/s, "
           f"{peaks.hbm_bytes_per_s:.4g} B/s, {peaks.int32_ops_per_s:.4g} "
           "32-bit op/s")
-    print(f"batch: B={st['B']}, band {static['nb_band'] * 1024} rows, "
+    print(f"batch: B={st['B']}, band {static['nb_band'] * 1024} rows "
+          f"(K1 width {static['width']}), "
           f"P={static['P']} ({floor.n_valid} valid pairs over "
           f"{floor.cand_rows} candidate rows), P2={static['P2']}, "
           f"window {static['window']}")
-    for name, part in (("K5 (query planes)", "k5"), ("K1", "k1"),
+    for name, part in (("K5 (query planes)", "k5"),
+                       ("K1 (each band block at its columns)", "k1"),
+                       ("K1 at the full width", "k1_full"),
                        ("K3 (slot resolve)", "k3"),
                        ("K2 at the valid pairs", "k2_valid"),
                        ("K2 at the P slots", "k2_slots"),
