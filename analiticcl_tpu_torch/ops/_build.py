@@ -43,12 +43,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
+    # each ends with the stream and the wide path's work list and counters
     "dl_lcs": {
-        "analiticcl_dl_lcs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "analiticcl_dl_lcs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                              _P],
         "analiticcl_dl_lcs_slots": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # slots and tables
             _I, _P, _P,  # table element bytes, outputs
-            _I, _I, _I, _P,  # P, L, W, stream
+            _I, _I, _I, _P, _P, _P,  # P, L, W, stream, work list
         ],
         "analiticcl_dl_lcs_slots_scored": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # slots and tables
@@ -56,7 +58,7 @@ SIGNATURES = {
             _P, _P, _I, _P, _P, _P, _P,  # pc_band, exact bits, nb8, flags,
             # freqs, weights, threshold
             _P, _P, _P, _P, _P,  # keep, metrics, max_freq, score, counts
-            _I, _I, _I, _P,  # P, L, W, stream
+            _I, _I, _I, _P, _P, _P,  # P, L, W, stream, work list
         ],
     },
     "compact": {

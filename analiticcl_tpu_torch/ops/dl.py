@@ -15,9 +15,10 @@ On pair strings, three functions:
 The kernel takes any width ``L``, on two paths: a pair whose two strings
 are both at most :data:`NARROW_LEN` long runs the byte-cell DP (one thread a
 pair; every pair up to L 64); above L 64 a pair with a longer string runs
-the wide path (one warp a pair, O(W) state), a second launch that the same
-C entry makes after the first. Its launches are counted in
-:data:`wide_path`.
+the wide path (one warp a pair: the band DP in O(W) state, the LCS row by
+row on packed runs), a second launch that the same C entry makes after the
+first, on the pairs the first put on a work list (:func:`_work_list`). Its
+launches are counted in :data:`wide_path`.
 
 Inputs are int32 ``[P, L]`` strings, queries padded with ``PAD_A`` and
 candidates with ``PAD_B`` so that padding never matches, and int32 ``[P]``
@@ -63,6 +64,42 @@ NARROW_LEN = 64  # the byte DP's longest string; longer ones take the wide path
 # K2's wide path, launched by either entry after its byte path whenever L >
 # NARROW_LEN: the entries' wrappers count its launches here
 wide_path = SimpleNamespace(launches=0)
+# the wide path's counters, zero between calls: one int32 [3] buffer per
+# (device, stream), made at the stream's first call above L 64
+_counters: dict = {}
+
+
+def _work_list(P: int, L: int, dev: torch.device):
+    """The wide path's work list for a call at width ``L`` on ``dev``'s
+    current stream: an int32 ``[P]`` scratch list and the stream's
+    counters; ``(None, None)`` at or below L 64, where it has no wide
+    path. The byte launch lists its pairs over 64 and counts them, the
+    wide launch takes them and its last block zeroes the counters again,
+    so one buffer serves every call on the stream in order."""
+    if L <= NARROW_LEN:
+        return None, None
+    key = (torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    ctr = _counters.get(key)
+    if ctr is None:
+        ctr = _counters[key] = torch.zeros(3, dtype=torch.int32, device=dev)
+    return torch.empty(P, dtype=torch.int32, device=dev), ctr
+
+
+def _launch(entry: str, args, L: int, P: int, dev: torch.device) -> int:
+    """Call K2's C entry ``entry`` on ``dev``'s current stream, with the
+    wide path's work list above L 64; returns its CUDA error. After a
+    failed call the stream's counters are zeroed, as its launches would
+    have left them."""
+    with torch.cuda.device(dev):
+        items, ctr = _work_list(P, L, dev)
+        err = getattr(_build.load("dl_lcs"), entry)(
+            *args, torch.cuda.current_stream(dev).cuda_stream,
+            None if items is None else items.data_ptr(),
+            None if ctr is None else ctr.data_ptr())
+        if err and ctr is not None:
+            ctr.zero_()
+    return err
 
 
 def met_dtype(L: int) -> torch.dtype:
@@ -212,11 +249,10 @@ def dl_lcs(a, a_len, b, b_len, max_len: int, window: int):
     lcs = torch.empty(P, dtype=torch.int32, device=a.device)
     if P == 0:
         return ld, lcs
-    with torch.cuda.device(a.device):
-        err = _build.load("dl_lcs").analiticcl_dl_lcs(
-            a.data_ptr(), a_len.data_ptr(), b.data_ptr(), b_len.data_ptr(),
-            ld.data_ptr(), lcs.data_ptr(), P, max_len, window,
-            torch.cuda.current_stream(a.device).cuda_stream)
+    err = _launch("analiticcl_dl_lcs",
+                  (a.data_ptr(), a_len.data_ptr(), b.data_ptr(),
+                   b_len.data_ptr(), ld.data_ptr(), lcs.data_ptr(), P,
+                   max_len, window), max_len, P, a.device)
     dl_lcs.launches += 1
     wide_path.launches += max_len > NARROW_LEN
     _build.check(err, "dl_lcs kernel launch")
@@ -497,9 +533,7 @@ def dl_lcs_slots(index, q_norms, q_lens, k_ed, q_first_lower, q, pc, valid,
                 met.data_ptr(),
                 ptr(max_freq if s.freqs is not None else None),
                 ptr(f32), counts.data_ptr(), P, L, window)
-    with torch.cuda.device(dev):
-        err = getattr(_build.load("dl_lcs"), entry)(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
+    err = _launch(entry, args, L, P, dev)
     dl_lcs_slots.launches += 1
     dl_lcs.launches += 1
     wide_path.launches += L > NARROW_LEN

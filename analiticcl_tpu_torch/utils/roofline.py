@@ -200,9 +200,13 @@ def k1_bound_ms(at: int, B: int, start_blk, nb_band: int,
 
 def _dl_ops(a_len, b_len, L: int, W: int) -> float:
     """About 10 operations per banded DL cell (``a_len * (2W + 3)`` cells)
-    and 3 per LCS cell (``a_len * b_len``); empty pairs cost none."""
+    and 2.5 per LCS cell (``a_len * b_len``): 10 per 32-bit word of four
+    cells' runs packed as bytes, the least of the kernel's LCS walks (the
+    wide path's packed rows; csrc/dl_lcs.cu ``lcs_word``); empty pairs cost
+    none."""
     al = a_len.clamp(max=L).double()
-    return float((10 * al * (2 * W + 3) + 3 * al * b_len.clamp(max=L)).sum())
+    return float((10 * al * (2 * W + 3)
+                  + 2.5 * al * b_len.clamp(max=L)).sum())
 
 
 def k2_work(a_len, b_len, L: int, W: int) -> Work:

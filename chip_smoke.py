@@ -72,14 +72,17 @@ mesh of ``cuda:0``, each holding every kernel against its plain version on
 its first 256 lookups (K4 at int32 metrics), launching K2's wide path (a
 second launch, by the same C entry, for the pairs with a string over 64)
 once after each slot-entry launch and equal to the oracle; then both K2
-entries at L 100 and 300 against their plain versions, the wide path's
-times on the phase's batch and per 1M pairs, and K1 at planes 608, 864
-and 960 wide. Then planes wider than a resident K1 block holds (phase
+entries at L 100, 255, 256 and 300 against their plain versions (each
+with two equal 255-letter strings; at L 300 also on lists long enough for
+two pairs a warp), the wide path's times on the phase's batch, on a batch
+without a pair over 64 and per 1M pairs, and K1 at planes 608, 864 and
+960 wide. Then planes wider than a resident K1 block holds (phase
 13): the main lexicon plus a 1,000-letter entry and a 64-letter one
 holding one letter 50 times (planes 1,664 wide, L 1,000; one block that
 wide, the rest 224 or less) serves query, search and a 1x4 mesh, each
 holding every kernel against its plain version on its first 256 lookups,
-equal to the oracle (the mesh to the single device); K1 is held bit for
+equal to the oracle (the mesh to the single device); both K2 entries are
+held at L 1,000 against their plain versions; K1 is held bit for
 bit and timed beside its bounds (at the full width and at the blocks'
 extents) on the first batch of 4,096 (streamed, each block at its
 extent) and on the 4,096 shortest other queries (the main instance),
@@ -2059,6 +2062,30 @@ def wide_words() -> list:
             for _ in range(N_WIDE_EACH)]
 
 
+def wide_queries(words, longs) -> tuple:
+    """Phase 12's queries: N_WIDE_NEAR near (or equal to) the long entries
+    ``longs`` and the rest corrupted main-lexicon words, shuffled; and the
+    near ones."""
+    import numpy as np
+
+    from analiticcl_tpu_torch.testing import corrupt_queries
+
+    near = corrupt_queries(longs, SEED + 21, N_WIDE_NEAR - len(longs)) + longs
+    rest = corrupt_queries(words, SEED + 22, N_WIDE_QUERIES - len(near))
+    order = np.random.default_rng(SEED + 23).permutation(N_WIDE_QUERIES)
+    return [(near + rest)[i] for i in order], near
+
+
+def short_queries(words) -> list:
+    """The 4,096 shortest of 16,384 corrupted main-lexicon words: a batch
+    of a wide lexicon (phase 12's) with no pair over 64, on which K2's wide
+    launch has no pair to take."""
+    from analiticcl_tpu_torch.testing import corrupt_queries
+
+    pool = corrupt_queries(words, SEED + 25, 4 * BATCH)
+    return sorted(pool, key=len)[:BATCH]
+
+
 def wide_pair_strings(seed: int, L: int, n: int):
     """``n`` seeded int32 pairs at width ``L`` for K2's pair-string entry,
     made on the card: three in four of lengths 65 to L (the wide path), the
@@ -2087,20 +2114,42 @@ def wide_pair_strings(seed: int, L: int, n: int):
     return a, al.contiguous(), b, al.clone()
 
 
+def equal_pair(seed: int, a, al, b, bl, L: int) -> int:
+    """Pair 0 of :func:`wide_pair_strings`' output made two equal seeded
+    strings of min(L, 255) letters, in place: the longest run a byte holds
+    (its LCS must not wrap). Returns their length."""
+    import torch
+
+    from analiticcl_tpu_torch.ops.dl import PAD_A, PAD_B
+
+    m = min(L, 255)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = torch.randint(1, 27, (m,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    a[0], b[0] = PAD_A, PAD_B
+    a[0, :m] = s
+    b[0, :m] = s
+    al[0] = bl[0] = m
+    return m
+
+
 def hold_wide_pairs(L: int, W: int, n: int, card: str) -> None:
     """K2's pair-string entry at width ``L`` (both launches) against its
-    plain version on :func:`wide_pair_strings`: DL clipped at W + 1, LCS
+    plain version on :func:`wide_pair_strings`, pair 0 two equal strings
+    of min(L, 255) letters (:func:`equal_pair`): DL clipped at W + 1, LCS
     exact."""
     import torch
 
     from analiticcl_tpu_torch.ops.dl import dl_lcs, dl_metrics_windowed_plain
 
     a, al, b, bl = wide_pair_strings(SEED + L + W, L, n)
+    m = equal_pair(SEED + L, a, al, b, bl, L)
     ld, lcs = dl_lcs(a, al, b, bl, L, W)
     ld_p, lcs_p, _, _ = dl_metrics_windowed_plain(a, al, b, bl, L, W)
     torch.cuda.synchronize()
     if not (torch.equal(ld.clamp(max=W + 1), ld_p.clamp(max=W + 1))
-            and torch.equal(lcs, lcs_p)):
+            and torch.equal(lcs, lcs_p) and int(lcs[0]) == m
+            and int(ld[0]) == 0):
         raise SystemExit(f"dl_lcs pair-string entry differs from plain at "
                          f"L={L}, W={W}")
     n_wide = int((al > 64).sum())
@@ -2113,7 +2162,8 @@ def hold_wide_slots(L: int, W: int, card: str, B: int = 256) -> None:
     """K2's slot entry at width ``L`` (both launches; metrics and scored
     instances) against its plain version on seeded tables: B queries of
     lengths 1 to L, each paired with a row made from it by up to three
-    substitutions and with an unrelated row. The metrics as in
+    substitutions (query 0's an equal copy of min(L, 255) letters,
+    :func:`equal_pair`) and with an unrelated row. The metrics as in
     :func:`hold_glue`; the epilogue's keep flags, frequency maxima and
     block counts exactly, and K4 on its outputs (int32 metrics from L 256)
     bit for bit against its plain version."""
@@ -2121,7 +2171,8 @@ def hold_wide_slots(L: int, W: int, card: str, B: int = 256) -> None:
 
     from analiticcl_tpu_torch.ops import dl as tdl
 
-    a, al, b, _bl = wide_pair_strings(SEED + 3 * L + W, L, B)
+    a, al, b, bl = wide_pair_strings(SEED + 3 * L + W, L, B)
+    m = equal_pair(SEED + 2 * L, a, al, b, bl, L)  # slot 0: LCS m
     g = torch.Generator(device="cuda").manual_seed(SEED + L)
     other = torch.randint(1, 27, (B, L), generator=g, device="cuda",
                           dtype=torch.int32)
@@ -2145,13 +2196,15 @@ def hold_wide_slots(L: int, W: int, card: str, B: int = 256) -> None:
     pc = torch.arange(2 * B, device="cuda", dtype=torch.int32)
     valid = torch.ones(2 * B, dtype=torch.bool, device="cuda")
     s_args = (idx, q_norms, al, k_ed, q_fl, q, pc, valid, W)
-    m = tdl.dl_lcs_slots(*s_args)
+    sm = tdl.dl_lcs_slots(*s_args)
     mp = tdl.dl_lcs_slots_plain(*s_args)
     torch.cuda.synchronize()
-    bad = [f for f, x, y in zip(tdl.SlotMetrics._fields[1:], m[1:], mp[1:])
+    bad = [f for f, x, y in zip(tdl.SlotMetrics._fields[1:], sm[1:], mp[1:])
            if x.dtype != y.dtype or not torch.equal(x, y)]
-    if not torch.equal(m.ld.clamp(max=W + 1), mp.ld.clamp(max=W + 1)):
+    if not torch.equal(sm.ld.clamp(max=W + 1), mp.ld.clamp(max=W + 1)):
         bad.append("ld")
+    if int(sm.lcs[0]) != m:
+        bad.append("the equal pair's lcs")
     score = tdl.ScoreInputs(
         torch.zeros(2 * B, dtype=torch.int32, device="cuda"),
         torch.zeros((B, 1), dtype=torch.uint8, device="cuda"), None,
@@ -2177,6 +2230,23 @@ def hold_wide_slots(L: int, W: int, card: str, B: int = 256) -> None:
         f"path, equal to plain; its epilogue exact ({int(ks.keep.sum())} "
         f"kept, {ks.met.dtype} metrics), K4 bit-identical to plain on them "
         f"| {card}")
+
+
+def first_design_block_list(wide) -> int:
+    """The largest list of wide slots (the bool [P] mask ``wide``) that one
+    block of the wide path's first design took in one turn of its scan:
+    run r of 32 slots went to block r % grid in turn r // (16 * grid), over
+    a grid of min(max(ceil(P / 512), 1), 1024) blocks of 16 warps, which
+    took a block's list one pair a warp."""
+    import torch
+
+    P = wide.numel()
+    grid = min(max(-(-P // 512), 1), 1024)
+    at = wide.nonzero()[:, 0] // 32
+    if not at.numel():
+        return 0
+    key = (at // grid // 16) * grid + at % grid
+    return int(torch.bincount(key).max())
 
 
 def wide_batch(pipe, lookups, params):
@@ -2206,12 +2276,15 @@ def wide_batch(pipe, lookups, params):
     return s_args, score, pr, P, min(total, P)
 
 
-def wide_records(pipe, lookups, params, card: str, peaks) -> dict:
+def wide_records(pipe, lookups, short, params, card: str, peaks) -> dict:
     """The wide path's numbers: on the first batch of the wide phase (its
     pairs with a string over 64, as gathered strings through the
     pair-string entry, whose byte launch has none of them to do, against
     the plain version on the same pairs and their bound; the scored slot
-    entry's two launches at the batch's budget), and per 1M pairs at
+    entry's two launches at the batch's budget, the pairs on the wide
+    launch's one work list and the largest list a block of the first
+    design's scan took); the same launch on ``short``, a batch without a
+    pair over 64, where it has nothing to do; and per 1M pairs at
     WIDE_TIMED. The wide kernel's device time is read by its name."""
     import torch
 
@@ -2255,8 +2328,22 @@ def wide_records(pipe, lookups, params, card: str, peaks) -> dict:
         "wide_device_ms": device_ms(
             lambda: tdl.dl_lcs_slots(*s_args, score=score),
             "dl_lcs_slots_wide_kernel", 10),
+        "list": n_wide,
+        "first_design_block_list": first_design_block_list(
+            torch.maximum(pr.ql, pr.cl) > tdl.NARROW_LEN),
     }
     rec["at_batch"] = slot
+    s_args, score, pr, P_s, _ = wide_batch(pipe, short, params)
+    if bool((torch.maximum(pr.ql, pr.cl) > tdl.NARROW_LEN).any()):
+        raise SystemExit("wide phase: the short batch has a pair over 64")
+    rec["no_wide_batch"] = {
+        "P": P_s, "B": len(short),
+        "ms": time_ms(lambda: tdl.dl_lcs_slots(*s_args, score=score), 10,
+                      inner=10),
+        "wide_device_ms": device_ms(
+            lambda: tdl.dl_lcs_slots(*s_args, score=score),
+            "dl_lcs_slots_wide_kernel", 10),
+    }
     log(f"K2 wide path on the wide batch: {n_wide} of {n_valid} valid "
         f"slots have a string over 64 (L={L}, W={W}); the pair-string "
         f"entry on them {rec['ms']:.4f} ms (both launches, CUDA events, 10 "
@@ -2265,7 +2352,11 @@ def wide_records(pipe, lookups, params, card: str, peaks) -> dict:
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); the scored slot "
         f"entry at P={P}: {slot['ms']:.4f} ms both launches (device: byte "
         f"path {ms4(slot['byte_device_ms'])}, wide path "
-        f"{ms4(slot['wide_device_ms'])}) | {card}")
+        f"{ms4(slot['wide_device_ms'])}; {n_wide} pairs on the work list, "
+        f"the first design's scan gave a block up to "
+        f"{slot['first_design_block_list']}); on {len(short)} queries "
+        f"without a pair over 64 (P={P_s}) the wide launch "
+        f"{ms4(rec['no_wide_batch']['wide_device_ms'])} device | {card}")
     per = {}
     for Lt, Wt in WIDE_TIMED:
         a, al, b, bl = wide_pair_strings(SEED + 7 * Lt + Wt, Lt, WIDE_PAIRS)
@@ -2300,7 +2391,8 @@ def wide_phase(words, card: str, peaks) -> tuple:
     must launch K2's wide path once after each slot-entry launch, and
     equals the oracle (search: the object path and the host search);
     the mesh equals the single-device pipeline. Then both K2 entries at
-    L 100 and 300 against their plain versions, the wide path's times, and
+    L 100, 255, 256 and 300 against their plain versions (at L 300 also
+    on lists long enough for two pairs a warp), the wide path's times, and
     K1 at planes 608, 864 and 960 wide. Every K1 launch of the paths must
     run an instance one of the lexicon's block extents routes to, and the
     query and mesh paths (near the long entries) the widest's. Logs the
@@ -2308,14 +2400,13 @@ def wide_phase(words, card: str, peaks) -> tuple:
     launches."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from analiticcl_tpu_torch import (
         DistanceThreshold, SearchParameters, VariantModel,
     )
     from analiticcl_tpu_torch.testing import (
-        ALPHABET, corrupt_queries, populate, synthetic_text,
+        ALPHABET, populate, synthetic_text,
     )
 
     t_phase = time.perf_counter()
@@ -2341,10 +2432,7 @@ def wide_phase(words, card: str, peaks) -> tuple:
         max_matches=10,
         score_threshold=0.25,
     )
-    near = corrupt_queries(longs, SEED + 21, N_WIDE_NEAR - len(longs)) + longs
-    rest = corrupt_queries(words, SEED + 22, N_WIDE_QUERIES - len(near))
-    order = np.random.default_rng(SEED + 23).permutation(N_WIDE_QUERIES)
-    queries = [(near + rest)[i] for i in order]
+    queries, near = wide_queries(words, longs)
     lap("model")
     hold_kernels("wide query", pipe, queries[:WIDE_HOLD], params)
     sync_free_submit("wide query", pipe, queries[:WIDE_HOLD], params, card)
@@ -2384,7 +2472,8 @@ def wide_phase(words, card: str, peaks) -> tuple:
         f"{by_path['wide_query']}, K1's {k1} instance (planes "
         f"{pipe.index.bins.shape[1]} wide) | {card}")
     lap("query oracle")
-    record = wide_records(pipe, queries[:WIDE_BATCH], params, card, peaks)
+    record = wide_records(pipe, queries[:WIDE_BATCH], short_queries(words),
+                          params, card, peaks)
     lap("wide times")
 
     # search over lines that carry long tokens
@@ -2415,11 +2504,15 @@ def wide_phase(words, card: str, peaks) -> tuple:
     gc.collect()
     lap("mesh")
 
-    # both K2 entries at L 100 and 300, directly
-    for L in (100, 300):
+    # both K2 entries at L 100, 255, 256 (a run a byte holds, and the
+    # width from which the packed LCS rows take 16-bit runs) and 300
+    for L in (100, 255, 256, 300):
         hold_wide_pairs(L, 3, 4096, card)
         hold_wide_slots(L, 3, card)
     hold_wide_slots(300, 12, card)
+    # lists that outnumber the wide launch's warps: two pairs a warp
+    hold_wide_pairs(300, 3, 65536, card)
+    hold_wide_slots(300, 6, card, B=16384)
     lap("K2 entries")
 
     # K1 at planes too wide for a resident block of 128 queries (the
@@ -2678,6 +2771,12 @@ def planes_phase(words, card: str, peaks) -> tuple:
     del model, pipe
     gc.collect()
     lap("mesh")
+
+    # both K2 entries at L 1,000: the longest pairs take the LCS along the
+    # diagonals, the rest the packed rows
+    hold_wide_pairs(1000, 3, 4096, card)
+    hold_wide_slots(1000, 3, card)
+    lap("K2 entries")
 
     # K1 directly at planes 30 x T wide (every block at the full width),
     # on blocks whose counts are capped at 1, 7, 8 and 55 in turn (extents
@@ -3089,10 +3188,10 @@ def main() -> int:
         "library_note": "no PyTorch call computes banded Damerau-Levenshtein",
         "launches": wide_paths["wide_query"]["dl_lcs_wide"],
         "launches_note": "K2's wide path (one warp a pair with a string "
-                         "over 64), which either entry launches after its "
-                         "byte path above L 64 (once a slot-entry launch, "
-                         "checked on each path); counted on phase 12's "
-                         "query path",
+                         "over 64, taken from the byte launch's work list), "
+                         "which either entry launches after its byte path "
+                         "above L 64 (once a slot-entry launch, checked on "
+                         "each path); counted on phase 12's query path",
         "launches_by_path": {k: v["dl_lcs_wide"]
                              for k, v in {**wide_paths,
                                           **planes_paths}.items()},

@@ -548,7 +548,7 @@ def test_slot_entry_cpu_takes_the_plain_version():
 # ---- widths above 64: the byte path for pairs that fit, the wide path for
 # the rest (one warp a pair in the kernel, its lanes walked on the host) ----
 
-WIDE_LS = (65, 83, 100, 255, 256, 300, 1000)
+WIDE_LS = (65, 83, 100, 255, 256, 300, 1000, 1100)
 
 
 def _wide_pairs(rng, L: int):
@@ -710,3 +710,130 @@ def test_host_scored_slot_entry_wide_equals_plain(host_slots, L, window,
     assert (keep & wide).any() and (keep & ~wide).any()
     if L >= 256:
         assert int(got.met[1:4, keep].max()) > 255
+
+
+# ---- the wide path's edge cases: the packed LCS rows' run widths, the
+# band's reach, an LCS off the main diagonal, empty strings, and int32
+# symbols over a byte (which take the LCS along the diagonals) ----
+
+WIDE_CASES = ("equal", "band_edge", "off_diagonal", "empty", "symbols")
+
+
+def _case_pairs(case: str, L: int, window: int):
+    """Pair strings at width ``L`` for one of :data:`WIDE_CASES`:
+    ``equal``, equal strings of min(L, 255) letters (a run a byte holds)
+    and of 128, 129 and min(L, 256); ``band_edge``, lengths that differ by
+    window + 1 (the band reaches cell (al, bl)) and window + 2 (it does
+    not: DL is the wide path's big), each way, at lengths over 64 and over
+    512; ``off_diagonal``, a common substring on the main diagonal
+    shorter than one off it, both ways; ``empty``, an empty string against
+    one of 0, 70 and L letters, both ways; ``symbols``, near-equal strings
+    of symbols 250 to 299."""
+    rng = np.random.default_rng(L + 101 * window + 7 * WIDE_CASES.index(case))
+    rows = []
+
+    def letters(n, lo=1, hi=27):
+        return list(rng.integers(lo, hi, n))
+
+    if case == "equal":
+        for n in (min(L, 255), 128, 129, min(L, 256)):
+            s = letters(n)
+            rows.append((s, s))
+    elif case == "band_edge":
+        for n in (100, min(L, 600)):
+            s = letters(n)
+            for d in (window + 1, window + 2):
+                t = list(s[:n - d])
+                t[len(t) // 2] = int(rng.integers(1, 27))
+                rows += [(s, t), (t, s)]
+    elif case == "off_diagonal":
+        r, m = L // 3, L // 2
+        R, S = letters(r), letters(m)
+        a = R + [27] + S + [28] * 3
+        b = R + [29] * 4 + S
+        rows += [(a[:L], b[:L]), (b[:L], a[:L])]
+    elif case == "empty":
+        for n in (0, 70, L):
+            rows += [([], letters(n)), (letters(n), [])]
+    else:
+        s = letters(min(L, 300), 250, 300)
+        t = list(s)
+        t[len(t) // 3] = 251
+        rows += [(s, t), (s[:90], t[:92]), (letters(80, 250, 300), s)]
+    P = len(rows)
+    a = np.full((P, L), tdl.PAD_A, np.int32)
+    b = np.full((P, L), tdl.PAD_B, np.int32)
+    al = np.zeros(P, np.int32)
+    bl = np.zeros(P, np.int32)
+    for p, (sa, sb) in enumerate(rows):
+        al[p], bl[p] = len(sa), len(sb)
+        a[p, :len(sa)] = sa
+        b[p, :len(sb)] = sb
+    return a, al, b, bl
+
+
+def _pairs_as_slots(a, al, b, bl, L: int, dtype):
+    """The pairs as the slot entry reads them: slot p pairs query p (a's
+    row p) with index row p (b's row p, forward | reversed, zero past its
+    length)."""
+    P = len(al)
+    norms2 = np.zeros((P, 2 * L), dtype)
+    q_norms = np.zeros((P, L), dtype)
+    for p in range(P):
+        norms2[p, :bl[p]] = b[p, :bl[p]]
+        norms2[p, L:L + bl[p]] = b[p, :bl[p]][::-1]
+        q_norms[p, :al[p]] = a[p, :al[p]]
+    index = _slot_index(norms2, bl.copy(), np.zeros(P, bool))
+    slots = np.arange(P, dtype=np.int32)
+    return (index, *_t(q_norms, al.copy(), np.full(P, 3, np.int32),
+                       np.zeros(P, bool)),
+            *_t(slots, slots.copy(), np.ones(P, bool)))
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+@pytest.mark.parametrize("window", [3, 6, 12])
+@pytest.mark.parametrize("L", [255, 256, 1100])
+def test_host_wide_cases(host_slots, host_dp_lib, L, window, case):
+    """Each edge case of the wide path against the plain version (DL
+    clipped at window + 1, LCS exact), and bit for bit between the u8 and
+    int host builds of the pair-string entry and the slot entry's host
+    build (int32 tables, and int8 where the symbols fit), with each case's
+    own outcome: equal strings' LCS their length (255 in a byte run,
+    without wrapping) and DL 0; the band's reach decides DL, exact at
+    window + 1 and the path's big at window + 2; the LCS off the main
+    diagonal; an empty string's DL the other's length and LCS 0."""
+    host_u8, host_int = host_dp_lib
+    a, al, b, bl = _case_pairs(case, L, window)
+    ld, lcs = host_u8(a, al, b, bl, L, window)
+    ld_i, lcs_i = host_int(a, al, b, bl, L, window)
+    np.testing.assert_array_equal(ld, ld_i)
+    np.testing.assert_array_equal(lcs, lcs_i)
+    for dtype in (np.int32, np.int8):
+        if dtype == np.int8 and case == "symbols":
+            continue
+        m = host_slots(*_pairs_as_slots(a, al, b, bl, L, dtype), window)
+        np.testing.assert_array_equal(m.ld.numpy(), ld)
+        np.testing.assert_array_equal(m.lcs.numpy(), lcs)
+    want_ld, want_lcs, _, _ = tdl.dl_metrics_windowed_plain(
+        *_t(a, al, b, bl), L, window)
+    clip = window + 1
+    np.testing.assert_array_equal(np.minimum(ld, clip),
+                                  np.minimum(want_ld.numpy(), clip))
+    np.testing.assert_array_equal(lcs, want_lcs.numpy())
+    assert (np.maximum(al, bl) > tdl.NARROW_LEN).any()
+    big = _route_big(al, bl, L)
+    if case == "equal":
+        np.testing.assert_array_equal(lcs, al)
+        assert (ld == 0).all() and lcs[0] == min(L, 255)
+    elif case == "band_edge":
+        d = np.abs(al - bl)
+        assert set(d) == {window + 1, window + 2}
+        assert (ld[d == window + 1] < big[d == window + 1]).all()
+        np.testing.assert_array_equal(ld[d == window + 2],
+                                      big[d == window + 2])
+    elif case == "off_diagonal":
+        assert (lcs == L // 2).all()
+    elif case == "empty":
+        np.testing.assert_array_equal(ld, np.maximum(al, bl))
+        assert (lcs == 0).all()
+

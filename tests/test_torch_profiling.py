@@ -324,9 +324,11 @@ def test_k2_and_glue_counts():
     a_len = torch.tensor([3, 0, 30], dtype=torch.int32)
     b_len = torch.tensor([4, 5, 2], dtype=torch.int32)
     w = roofline.k2_work(a_len, b_len, L=25, W=3)
-    # 10 ops per banded DL cell (a_len * 9 cells), 3 per LCS cell; a_len
-    # clipped at L; the empty slot costs its bytes only
-    assert w.int32_ops == 10 * 3 * 9 + 3 * 3 * 4 + 10 * 25 * 9 + 3 * 25 * 2
+    # 10 ops per banded DL cell (a_len * 9 cells), 2.5 per LCS cell (10 a
+    # word of four packed runs); a_len clipped at L; the empty slot costs
+    # its bytes only
+    assert w.int32_ops == (10 * 3 * 9 + 2.5 * 3 * 4 + 10 * 25 * 9
+                           + 2.5 * 25 * 2)
     assert w.int8_ops == 0
     assert w.nbytes == 3 * (8 * 25 + 16)
     assert roofline.k2_bound_ms(a_len, b_len, 25, 3)[1] == "bytes"
