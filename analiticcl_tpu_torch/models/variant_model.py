@@ -2640,10 +2640,10 @@ class VariantModel:
     ) -> int:
         """Bootstrap weighted variants from a corpus (lib.rs:1062-1139).
 
-        Batched lookup replaces the reference's rayon parallelism; the merge
-        phase is sequential, as in the reference, with the JAX package's
-        semantics: first mention wins, and the VariantOf-side dedup quirk
-        (lib.rs:497-508) stays."""
+        Batched lookup replaces the reference's rayon parallelism; every
+        input is looked up before the merge, which is sequential, as in
+        the reference, with the JAX package's semantics: first mention
+        wins, and the VariantOf-side dedup quirk (lib.rs:497-508) stays."""
         vocabparams = VocabParams().with_vocab_type(
             VocabType.TRANSPARENT
         ).with_freq_handling(FrequencyHandling.MAX)
@@ -2735,7 +2735,12 @@ class VariantModel:
         bumped: set = set()  # vids whose frequency changed
         n_decoder_before = len(decoder)
 
-        for inputstr, ref_id, dist_score in timed_triples():
+        # every lookup before the merge, as the reference collects them
+        # (lib.rs:1086-1088): no lookup may see the links that the merge
+        # of an earlier input adds (the JAX package's host path and its
+        # later device batches do, through expand_variants)
+        found = list(timed_triples())
+        for inputstr, ref_id, dist_score in found:
             vocab_id = encoder_get(inputstr)
             if vocab_id is not None:
                 if prev != inputstr:

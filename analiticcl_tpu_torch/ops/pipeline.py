@@ -694,8 +694,10 @@ class DevicePipeline:
         # stage-A hits and f32-filter survivors summed over collected batches
         self.candidates = 0
         self.survivors = 0
-        # (text, params) -> oracle results for over-long queries; cleared
-        # whenever frequencies refresh (freq_score is part of the results)
+        # (text, params, early-confusables flag, confusable count) -> oracle
+        # results for over-long queries; cleared whenever frequencies
+        # refresh (freq_score is part of the results). The confusables'
+        # flag and count may change on a model that has served queries.
         self._oracle_memo: dict = {}
 
     def _init_async(self, devices, budget_rows: int) -> None:
@@ -958,7 +960,9 @@ class DevicePipeline:
             if ln - max_cand_len > k_ed_i:
                 results[i] = []
             else:
-                key = (text, _params_key(params))
+                key = (text, _params_key(params),
+                       model.confusables_before_pruning,
+                       len(model.confusables))
                 got = self._oracle_memo.get(key)
                 if got is None:
                     with self.stats.stage("host_oracle_fallback"):

@@ -175,6 +175,77 @@ def synthetic_confusables(words: Sequence[str], seed: int) -> List[str]:
     return lines
 
 
+def synthetic_variants(refs: Sequence[str], seed: int,
+                       scores: Optional[Sequence[float]] = None,
+                       stride: Optional[int] = None, max_forms: int = 3,
+                       freqs: bool = False) -> List[str]:
+    """Lines of a weighted variant list (``-V``; reference lib.rs:772-897)
+    over the lexicon words ``refs``: each reference, then its forms, each
+    with a score. Form k of ``refs[i]`` is ``refs[i]`` under one or two
+    random edits from the seed ``seed + k * stride + i`` (``stride``
+    defaults to ``len(refs)``). ``scores`` gives every line's forms by
+    their scores; without it a generator seeded with ``seed`` draws 1 to
+    ``max_forms`` forms a line, each scored in [0.5, 1.0]. With ``freqs``
+    the lines take the frequency-bearing layout: the reference, its
+    frequency, then (form, score, frequency) triples, the frequencies drawn
+    from the same generator. A reader tells the two layouts apart by the
+    column count and the second column."""
+    rng = np.random.default_rng(seed)
+    stride = len(refs) if stride is None else stride
+    lines = []
+    for i, w in enumerate(refs):
+        line_scores = scores
+        if line_scores is None:
+            n = 1 + int(rng.integers(max_forms))
+            line_scores = np.round(rng.uniform(0.5, 1.0, size=n), 3).tolist()
+        fields = [w]
+        if freqs:
+            fields.append(str(int(rng.integers(1, 100_000))))
+        for k, score in enumerate(line_scores):
+            fields += [corrupt_queries([w], seed + k * stride + i, 1)[0],
+                       f"{score:g}"]
+            if freqs:
+                fields.append(str(int(rng.integers(1, 1000))))
+        lines.append("\t".join(fields))
+    return lines
+
+
+def synthetic_errors(refs: Sequence[str], seed: int,
+                     scores: Optional[Sequence[float]] = None,
+                     stride: Optional[int] = None) -> List[str]:
+    """Lines of an error list (``-E``, read as a transparent variant list):
+    :func:`synthetic_variants` with one or two error forms a reference."""
+    return synthetic_variants(refs, seed, scores, stride, max_forms=2)
+
+
+def synthetic_contextrules(words: Sequence[str], bigrams, text: Sequence[str],
+                           groups: int = 1) -> List[str]:
+    """Lines of a context-rule list (``-R``: pattern, score, tags, tag
+    offsets; reference lib.rs:570-656), a comment and then ``groups``
+    groups of seven: three tagged and two untagged rules over word pairs of
+    the bigram list ``bigrams`` (as :func:`synthetic_bigrams` gives it)
+    that the lines ``text`` hold, one tagged rule over a single word of
+    such a pair, and a disjunction of two of ``words`` before any word,
+    tagged at its first position only."""
+    held = set()
+    for line in text:
+        toks = line.split(" ")
+        held.update(zip(toks, toks[1:]))
+    pairs = [b.split(" ") for b, _ in bigrams
+             if tuple(b.split(" ")) in held][:6 * groups]
+    if len(pairs) < 6 * groups:
+        raise ValueError(f"the text holds {len(pairs)} of the bigrams, "
+                         f"not {6 * groups}")
+    rules = ["# seeded rules"]
+    for g in range(groups):
+        p = pairs[6 * g : 6 * g + 6]
+        rules += [f"{a}; {b}\t1.25\tpair" for a, b in p[:3]]
+        rules += [f"{a}; {b}\t0.8" for a, b in p[3:5]]
+        rules += [f"{p[5][0]}\t1.1\tsingle",
+                  f"{words[7 + 2 * g]}|{words[8 + 2 * g]}; ?\t1.2\tany\t0:1"]
+    return rules
+
+
 def lm_bigram_hits(model, outs) -> int:
     """How many adjacent selected matches in the search results ``outs``
     form a bigram of ``model``'s language model."""

@@ -94,14 +94,31 @@ its index's extents route to (the main one for the main lexicon, the
 main and resident ones for the CLI's and the 1M lexicon's, main and
 streamed in phase 13), and phases 12 and 13's query and mesh paths the
 widest one among them. K4's record also gives the library call's device
-time. The last two lines are the kernels' JSON record (stamped with the
-commit, launches per path and K1's launches by instance on each path;
-the wide path's launches are phases 12 and 13's, the streamed instance's
-record phase 13's) and ``{"ok": true, ...}``.
+time. Then the configurations beyond plain lexicons (phase 14): the main
+lexicon with weighted variant lists in both column layouts (14,000
+references), an error list (4,000), 203 context rules, an LM and
+confusables, read from files under ``build/chip_smoke_cli/`` through the
+API's readers, serve 16,384 queries (StopAtExactMatch off and on) equal to
+the oracle on the first 512, with rows on the object tail and results
+through variant links and error forms (none showing an error form), and
+search with the rules and the LM on the object consolidation, equal to a
+host-only search with the oracle's lookups, tags included; a checkpoint
+of that model, loaded onto the card and onto a 1x4 mesh of ``cuda:0``,
+gives the same queries and lines; early confusables equal the oracle;
+and the CLI's query (TSV, JSON, ``-s``, ``--early-confusables``),
+search and strict learn with them equal the ``--backend oracle``
+commands' output byte for byte (those run meanwhile in processes of
+their own), ``index`` and ``testinput`` on ``--device cuda`` equal
+``--device cpu``. The phase's model, the loaded one, its mesh and the
+CLI's model hold every kernel on their first batch, and each of its
+paths launches every kernel. The last two lines are the kernels' JSON
+record (stamped with the commit, launches per path and K1's launches by
+instance on each path; the wide path's launches are phases 12 and 13's,
+the streamed instance's record phase 13's) and ``{"ok": true, ...}``.
 
 Needs one CUDA card and ``nvcc``; exits non-zero on any failure, and when no
 card is visible. Imports no JAX. Writes nothing outside the checkout's
-``build/`` directory (the kernels' builds and phase 9's files).
+``build/`` directory (the kernels' builds and phase 9's and 14's files).
 """
 
 from __future__ import annotations
@@ -186,6 +203,24 @@ N_PLANES_LINES = 128
 N_PLANES_HOST_LINES = 2
 # K1 held directly at planes 30 x T wide: 992, 1,216, 1,664, 2,048, 6,016
 PLANES_K1_T = (33, 40, 55, 68, 200)
+# phase 14: the main lexicon with weighted variant and error lists,
+# context rules, an LM and confusables, built from files under
+# build/chip_smoke_cli/
+N_VAR_REFS = 12_000  # references of the two-column variant list
+N_VAR_FREQ_REFS = 2_000  # references of the frequency-bearing one
+N_ERR_REFS = 4_000  # references of the error list
+N_RULE_GROUPS = 29  # context rules, seven a group: 203
+N_VAR_FORM_QUERIES = 4096  # of the 16,384 queries: forms, or forms edited
+N_VAR_EXACT = 64  # exact lexicon words among the queries
+N_VAR_UPPER = 64  # upper-cased queries
+N_VAR_LINES = 1024  # lines of text, over whose bigrams the rules are made
+N_VAR_SEARCH = 32  # of them searched: 203 rules make a line cost ~0.2 s
+N_VAR_ORACLE = 512  # queries the oracle checks in query mode, and
+N_VAR_ORACLE_MORE = 256  # under StopAtExactMatch and early confusables
+N_VAR_EARLY = 4096
+N_VAR_HOST_LINES = 8  # lines of the host search, and of the CLI's search
+N_VAR_CLI_HEAD = 256  # queries of the oracle backend's query heads
+N_VAR_LEARN = 512  # words of the CLI's strict learn
 
 
 def log(msg: str) -> None:
@@ -399,6 +434,17 @@ def require_launches(phase: str, wide: bool = False,
     return counts
 
 
+def with_wide_and_stream(counts: dict) -> dict:
+    """``counts`` with the launches since the last reset of K2's wide path
+    (``dl_lcs_wide``) and of K1's streamed instance (``stage_a_stream``),
+    read from their counters, for those two kernels' records of a path
+    that :func:`require_launches` checked."""
+    from analiticcl_tpu_torch.ops.dl import wide_path
+
+    return {**counts, "dl_lcs_wide": wide_path.launches,
+            "stage_a_stream": k1_instances()["stream"]}
+
+
 def require_one_buffer_per_call(phase: str, counts: dict) -> None:
     """Every core call of a path launches K5 with K1 (stage A) and K4 with
     K3 (stage B), once each."""
@@ -418,10 +464,13 @@ def stage_line(stats) -> str:
     return ", ".join(parts)
 
 
-def match_signature(outs):
+def match_signature(outs, tags: bool = False):
+    """Search results as comparable tuples; with ``tags``, each match's
+    context-rule tags and their sequence numbers too."""
     return [
         [
             (m.text, m.offset.begin, m.offset.end, m.selected, m.n,
+             *((tuple(m.tag), tuple(m.seqnr)) if tags else ()),
              None if m.variants is None else [
                  (r.vocab_id, r.dist_score, r.freq_score, r.via)
                  for r in m.variants
@@ -1434,10 +1483,13 @@ class StampedStderr(io.TextIOBase):
         return sys.__stderr__.write(s)
 
 
-def run_cli(name: str, argv, stdin_path: Path, stdout_path: Path):
+def run_cli(name: str, argv, stdin_path: Path, stdout_path: Path,
+            serves: bool = True):
     """``cli.main(argv)`` in this process, its standard input and output
     redirected to files; returns (wall seconds, seconds to the model's read
-    and build, the launch counts of the run). Fails unless it exits 0."""
+    and build, the launch counts of the run). Fails unless it exits 0 and,
+    where it ``serves`` (query, search, learn), announced its serving
+    loop."""
     import torch
 
     from analiticcl_tpu_torch import cli
@@ -1459,9 +1511,9 @@ def run_cli(name: str, argv, stdin_path: Path, stdout_path: Path):
             dt = time.perf_counter() - t0
         finally:
             sys.stdin = old
-    if rc != 0 or err.serving_at is None:
+    if rc != 0 or (serves and err.serving_at is None):
         raise SystemExit(f"{name}: cli.main exited {rc}")
-    return dt, err.serving_at - t0, launch_counts()
+    return (dt, err.serving_at - t0 if serves else dt, launch_counts())
 
 
 def write_lines(path: Path, lines) -> Path:
@@ -2232,23 +2284,6 @@ def hold_wide_slots(L: int, W: int, card: str, B: int = 256) -> None:
         f"| {card}")
 
 
-def first_design_block_list(wide) -> int:
-    """The largest list of wide slots (the bool [P] mask ``wide``) that one
-    block of the wide path's first design took in one turn of its scan:
-    run r of 32 slots went to block r % grid in turn r // (16 * grid), over
-    a grid of min(max(ceil(P / 512), 1), 1024) blocks of 16 warps, which
-    took a block's list one pair a warp."""
-    import torch
-
-    P = wide.numel()
-    grid = min(max(-(-P // 512), 1), 1024)
-    at = wide.nonzero()[:, 0] // 32
-    if not at.numel():
-        return 0
-    key = (at // grid // 16) * grid + at % grid
-    return int(torch.bincount(key).max())
-
-
 def wide_batch(pipe, lookups, params):
     """The slots of ``lookups`` as one device batch at its budget: stage A
     and K3 on the card; returns the slot entry's arguments, its scoring
@@ -2329,8 +2364,6 @@ def wide_records(pipe, lookups, short, params, card: str, peaks) -> dict:
             lambda: tdl.dl_lcs_slots(*s_args, score=score),
             "dl_lcs_slots_wide_kernel", 10),
         "list": n_wide,
-        "first_design_block_list": first_design_block_list(
-            torch.maximum(pr.ql, pr.cl) > tdl.NARROW_LEN),
     }
     rec["at_batch"] = slot
     s_args, score, pr, P_s, _ = wide_batch(pipe, short, params)
@@ -2352,9 +2385,8 @@ def wide_records(pipe, lookups, short, params, card: str, peaks) -> dict:
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); the scored slot "
         f"entry at P={P}: {slot['ms']:.4f} ms both launches (device: byte "
         f"path {ms4(slot['byte_device_ms'])}, wide path "
-        f"{ms4(slot['wide_device_ms'])}; {n_wide} pairs on the work list, "
-        f"the first design's scan gave a block up to "
-        f"{slot['first_design_block_list']}); on {len(short)} queries "
+        f"{ms4(slot['wide_device_ms'])}; {n_wide} pairs on the work "
+        f"list); on {len(short)} queries "
         f"without a pair over 64 (P={P_s}) the wide launch "
         f"{ms4(rec['no_wide_batch']['wide_device_ms'])} device | {card}")
     per = {}
@@ -2821,6 +2853,553 @@ def planes_phase(words, card: str, peaks) -> tuple:
     return rec, by_path
 
 
+@contextlib.contextmanager
+def object_tail_rows():
+    """Counts, inside the block, the rows that a model ranks on its exact
+    object tail (``VariantModel.score_and_rank``: rows whose survivors
+    carry variant links, a batch under early confusables, the host oracle):
+    yields a dict whose ``"rows"`` grows with each."""
+    from analiticcl_tpu_torch.models.variant_model import VariantModel
+
+    real = VariantModel.score_and_rank
+    seen = {"rows": 0}
+
+    def counting(self, *args, **kw):
+        seen["rows"] += 1
+        return real(self, *args, **kw)
+
+    VariantModel.score_and_rank = counting
+    try:
+        yield seen
+    finally:
+        VariantModel.score_and_rank = real
+
+
+def result_tuples(model, results) -> list:
+    """Query results as (text, dist_score, freq_score, via's text)."""
+    dec = model.decoder
+    return [[(dec[r.vocab_id].text, r.dist_score, r.freq_score,
+              None if r.via is None else dec[r.via].text) for r in res]
+            for res in results]
+
+
+def via_counts(name: str, model, results) -> dict:
+    """The results reached through a weighted variant link and through an
+    error form (a transparent entry: the JAX package's and the reference's
+    error lists, lib.rs:772-897); fails when either count is 0, or when a
+    transparent entry is a result's text (an error form is shown only as
+    ``via``)."""
+    from analiticcl_tpu_torch.vocab import VocabType
+
+    transparent = int(VocabType.TRANSPARENT)
+    dec = model.decoder
+    link = err = shown = 0
+    for res in results:
+        for r in res:
+            if r.via is not None:
+                if int(dec[r.via].vocabtype) & transparent:
+                    err += 1
+                else:
+                    link += 1
+            shown += bool(int(dec[r.vocab_id].vocabtype) & transparent)
+    if shown:
+        raise SystemExit(f"{name}: {shown} results show an error form")
+    if not link or not err:
+        raise SystemExit(f"{name}: {link} results through a variant link, "
+                         f"{err} through an error form")
+    return {"via_variant": link, "via_error": err}
+
+
+def rules_fired(name: str, model, outs) -> dict:
+    """How the context rules acted on search output: matches tagged by a
+    rule, and lines whose selected words a rule matches (a context score
+    other than 1); fails when both are 0."""
+    tagged = sum(1 for out in outs for m in out if m.tag)
+    scored = 0
+    for out in outs:
+        vids = [(m.solution().vocab_id if m.solution() else 0) for m in out]
+        scored += bool(vids) and model.test_context_rules(vids)[0] != 1.0
+    if not tagged and not scored:
+        raise SystemExit(f"{name}: no context rule fired")
+    return {"tagged_matches": tagged, "rule_lines": scored}
+
+
+def served_queries(name: str, model, queries, params, routes):
+    """One warm pass of ``find_variants_stream`` over ``queries`` in
+    batches of BATCH: (results, seconds, launches, object-tail rows); every
+    kernel must launch (K1 on ``routes``) and each core call write one
+    output buffer."""
+    import torch
+
+    list(model.find_variants_stream(queries[:BATCH], params, BATCH))  # warm
+    reset_counts()
+    torch.cuda.synchronize()
+    with object_tail_rows() as tail:
+        t0 = time.perf_counter()
+        got = list(model.find_variants_stream(queries, params, BATCH))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = with_wide_and_stream(
+        require_launches(name, k1=None, routes=routes))
+    require_one_buffer_per_call(name, counts)
+    if not tail["rows"]:
+        raise SystemExit(f"{name}: no row took the object tail")
+    return got, dt, counts, tail["rows"]
+
+
+def served_search(name: str, model, texts, params, routes):
+    """One warm pass of ``find_all_matches_stream`` over ``texts``:
+    (results, seconds, launches, object-tail rows, :func:`via_counts` of
+    the matches' variants); every kernel must launch (K1 on ``routes``),
+    some row take the object tail, and the consolidation must be the
+    object path that context rules take."""
+    import torch
+
+    pipe = model._device
+    list(model.find_all_matches_stream(texts[:8], params))  # warm
+    reset_counts()
+    pipe.stats.clear()
+    torch.cuda.synchronize()
+    with object_tail_rows() as tail:
+        t0 = time.perf_counter()
+        got = list(model.find_all_matches_stream(texts, params))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = with_wide_and_stream(
+        require_launches(name, k1=None, routes=routes))
+    if not tail["rows"]:
+        raise SystemExit(f"{name}: no row took the object tail")
+    stages = set(pipe.stats.totals)
+    if ("search_consolidate_obj" not in stages
+            or "search_consolidate" in stages):
+        raise SystemExit(f"{name}: the consolidation ran {sorted(stages)}, "
+                         f"not the object path alone")
+    if len(got) != len(texts):
+        raise SystemExit(f"{name}: {len(got)} results for {len(texts)} lines")
+    vias = via_counts(name, model, [m.variants for out in got for m in out
+                                    if m.variants])
+    return got, dt, counts, tail["rows"], vias
+
+
+def variant_data(words, d: Path) -> SimpleNamespace:
+    """Phase 14's inputs, each from SEED, with the files written under
+    ``d``: the main lexicon with frequencies, a weighted variant list over
+    N_VAR_REFS references (two columns a form) and one over
+    N_VAR_FREQ_REFS more (the frequency-bearing layout), an error list over
+    N_ERR_REFS, context rules over bigrams the text holds, the LM's
+    bigrams, phase 9's confusables; 16,384 queries, N_VAR_FORM_QUERIES of
+    them forms of the lists or forms edited, a few exact words and some
+    upper-cased; N_VAR_LINES lines of text carrying the bigrams with some
+    tokens replaced by forms (the first N_VAR_SEARCH lines, which are
+    searched); and the words of a strict learn."""
+    import numpy as np
+
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, corrupt_queries, synthetic_bigrams, synthetic_confusables,
+        synthetic_contextrules, synthetic_errors, synthetic_frequencies,
+        synthetic_text, synthetic_variants,
+    )
+
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 70)
+    pick = rng.permutation(len(words))
+    cuts = np.cumsum([N_VAR_REFS, N_VAR_FREQ_REFS, N_ERR_REFS])
+    var_refs, freq_refs, err_refs = ([words[i] for i in part] for part in
+                                     np.split(pick[:cuts[-1]], cuts[:-1]))
+    variants = synthetic_variants(var_refs, SEED + 71)
+    variants_freq = synthetic_variants(freq_refs, SEED + 72, freqs=True)
+    errors = synthetic_errors(err_refs, SEED + 73)
+
+    def forms(lines, step, first):
+        return [f for line in lines for f in line.split("\t")[first::step]]
+
+    var_forms = forms(variants, 2, 1) + forms(variants_freq, 3, 2)
+    err_forms = forms(errors, 2, 1)
+    bigrams = synthetic_bigrams(words, SEED + 4, N_BIGRAMS)
+    texts = synthetic_text(words, SEED + 74, N_VAR_LINES, bigrams)
+    rules = synthetic_contextrules(words, bigrams, texts, N_RULE_GROUPS)
+    every = var_forms + err_forms
+
+    def swap(tok):  # a tenth of the tokens become a form of either list
+        r = rng.random()
+        if r < 0.05:
+            return var_forms[int(rng.integers(len(var_forms)))]
+        if r < 0.1:
+            return err_forms[int(rng.integers(len(err_forms)))]
+        return tok
+
+    texts = [" ".join(swap(t) for t in line.split(" "))
+             for line in texts[:N_VAR_SEARCH]]
+    n_forms = N_VAR_FORM_QUERIES // 4
+    queries = ([var_forms[int(i)] for i in rng.integers(len(var_forms),
+                                                        size=n_forms)]
+               + [err_forms[int(i)] for i in rng.integers(len(err_forms),
+                                                          size=n_forms)]
+               + corrupt_queries(every, SEED + 75, 2 * n_forms)
+               + [words[int(i)] for i in rng.integers(len(words),
+                                                       size=N_VAR_EXACT)])
+    rest = corrupt_queries(words, SEED + 76, N_QUERIES - len(queries))
+    queries += [q.upper() for q in rest[:N_VAR_UPPER]] + rest[N_VAR_UPPER:]
+    queries = [queries[int(i)] for i in rng.permutation(len(queries))]
+    learn = corrupt_queries(every, SEED + 77, N_VAR_LEARN // 2) + \
+        corrupt_queries(words, SEED + 78, N_VAR_LEARN // 2)
+    freqs = synthetic_frequencies(SEED + 41, len(words))
+    files = {
+        "alphabet": write_lines(d / "alphabet.tsv",
+                                ["\t".join(c) for c in ALPHABET]),
+        "lexicon": write_lines(d / "lexicon.tsv",
+                               [f"{w}\t{f}" for w, f in zip(words, freqs)]),
+        "variants": write_lines(d / "variants.tsv", variants),
+        "variants_freq": write_lines(d / "variants_freq.tsv", variants_freq),
+        "errors": write_lines(d / "errors.tsv", errors),
+        "rules": write_lines(d / "rules.tsv", rules),
+        "lm": write_lines(d / "lm.tsv", [f"{b}\t{f}" for b, f in bigrams]),
+        "confusables": write_lines(d / "confusables.tsv",
+                                   synthetic_confusables(words, SEED + 43)),
+        "queries": write_lines(d / "variants_queries.txt", queries),
+        "queries_head": write_lines(d / "variants_queries_head.txt",
+                                    queries[:N_VAR_CLI_HEAD]),
+        "text": write_lines(d / "variants_text.txt", texts),
+        "text_head": write_lines(d / "variants_text_head.txt",
+                                 texts[:N_VAR_HOST_LINES]),
+        "learn_head": write_lines(d / "variants_learn.txt", learn),
+    }
+    return SimpleNamespace(
+        files={k: str(v) for k, v in files.items()}, queries=queries,
+        texts=texts, n_forms=len(set(every) - set(words)),
+        n_rules=len(rules) - 1, n_bigrams=len(bigrams))
+
+
+def start_cli(argv, stdin_path: Path, stdout_path: Path):
+    """``python -m analiticcl_tpu_torch.cli argv`` in a process of its own,
+    from this checkout, in this process's directory, its standard input
+    and output on files (its standard error beside the output, ``.err``);
+    returns the process."""
+    import os
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with open(stdin_path, "rb") as fin, open(stdout_path, "wb") as fout, \
+            open(stdout_path.with_suffix(".err"), "wb") as ferr:
+        return subprocess.Popen(
+            [sys.executable, "-m", "analiticcl_tpu_torch.cli", *argv],
+            stdin=fin, stdout=fout, stderr=ferr, env=env)
+
+
+def variants_cli(data, d: Path, card: str) -> dict:
+    """Check 6 of phase 14: ``cli.main`` on the card for query (TSV, JSON,
+    StopAtExactMatch, early confusables), search (``-N 2``, the LM, the
+    context rules, JSON: the tags) and strict learn, each with both
+    variant lists, the error list and the confusables; each device run
+    must launch every kernel, and its output equal, byte for byte, that
+    of the same command with ``--backend oracle`` on its input's head
+    (query mode: the device output begins with it) or its whole input
+    (search and learn, whose inputs are short). The oracle commands run
+    meanwhile on ``--device cpu``, each in a process of its own. Then
+    ``index`` and ``testinput`` on ``--device cuda`` byte for byte against
+    ``--device cpu``."""
+    from analiticcl_tpu_torch import cli
+
+    f = data.files
+    common = ["-a", f["alphabet"], "-l", f["lexicon"], "-V", f["variants"],
+              "-V", f["variants_freq"], "-E", f["errors"],
+              "-C", f["confusables"], "--device", "cuda"]
+    query = ["query", *common, "--backend", "device"]
+    runs = {  # name: (argv, input, the oracle's input)
+        "cli_var_query": (query, "queries", "queries_head"),
+        "cli_var_query_json": (query + ["--json"], "queries", "queries_head"),
+        "cli_var_query_stop": (query + ["-s"], "queries", "queries_head"),
+        "cli_early_confusables": (query + ["--early-confusables"], "queries",
+                                  "queries_head"),
+        "cli_var_search": (["search", *common, "--backend", "device", "-N",
+                            "2", "--lm", f["lm"], "-R", f["rules"],
+                            "--json"], "text_head", "text_head"),
+        "cli_var_learn": (["learn", *common, "--backend", "device",
+                           "--strict"], "learn_head", "learn_head"),
+    }
+    t_oracle = time.perf_counter()
+    oracles = {}
+    try:
+        for name, (argv, _, head) in runs.items():
+            oracles[name] = start_cli(  # the host oracle needs no card
+                [{"device": "oracle", "cuda": "cpu"}.get(a, a) for a in argv],
+                Path(f[head]), d / f"{name}_oracle.out")
+        args = cli.build_argparser().parse_args(query)
+        model, params = cli.build_model_from_args(args)
+        model.build()
+        pipe = model._pipeline()
+        hold_kernels("cli variants", pipe, data.queries[:cli.MAX_BATCHSIZE],
+                     params)
+        routes = k1_routes(pipe)
+        del model, pipe
+        gc.collect()
+        by_path, outs = {}, {}
+        for name, (argv, src, _) in runs.items():
+            out = d / f"{name}.out"
+            with object_tail_rows() as tail:
+                dt, t_model, counts = run_cli(name, argv, Path(f[src]), out)
+            counts = with_wide_and_stream(require_launches(
+                name, counts=counts, k1=None, routes=routes))
+            if not tail["rows"]:
+                raise SystemExit(f"{name}: no row took the object tail")
+            by_path[name] = counts
+            outs[name] = text = out.read_text(encoding="utf-8")
+            extra = ""
+            if "--json" in argv:  # results through a link, the rules' tags
+                n_via, n_tag = text.count(' "via": '), text.count(' "tag": ')
+                if not n_via or (not n_tag and "search" in argv):
+                    raise SystemExit(f"{name}: no result with via, or no tag")
+                extra = f", {n_via} results with via, {n_tag} tagged matches"
+            n = len(Path(f[src]).read_text(encoding="utf-8").splitlines())
+            log(f"{name}: {n} input lines in {dt:.3f} s wall, of which "
+                f"{t_model:.3f} s to read and build the model; "
+                f"{tail['rows']} object-tail rows{extra}; {len(text)} "
+                f"characters out; launches {counts} | {card}")
+        t_wait = time.perf_counter()
+        for name, proc in oracles.items():
+            if proc.wait() != 0:
+                raise SystemExit(f"{name}: the oracle backend exited "
+                                 f"{proc.returncode}")
+        t_wait = time.perf_counter() - t_wait
+    finally:
+        for proc in oracles.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    checks = []
+    for name, (argv, src, head) in runs.items():
+        got = (d / f"{name}_oracle.out").read_text(encoding="utf-8")
+        want = outs[name]
+        if "--json" in argv and src != head:
+            got = got[:-len("]\n")]  # the head's closing bracket
+        if not (want.startswith(got) if src != head else want == got) \
+                or got.count("\n") < 16:
+            bad = sum(a != b for a, b in zip(got.split("\n"),
+                                              want.split("\n")))
+            raise SystemExit(f"{name}: {bad} lines differ from the oracle "
+                             f"backend's")
+        checks.append(f"{name} {got.count(chr(10))} lines")
+    log(f"cli variants checks: device output equal to the oracle backend's, "
+        f"byte for byte: {', '.join(checks)} (the oracle commands in "
+        f"processes of their own, {time.perf_counter() - t_oracle:.1f} s "
+        f"from their start, {t_wait:.1f} s waited for) | {card}")
+    for name, argv, src in (
+            ("index", ["index", "-a", f["alphabet"], "-l", f["lexicon"], "-V",
+                       f["variants"], "-V", f["variants_freq"], "-E",
+                       f["errors"]], "queries_head"),
+            ("testinput", ["testinput", "-a", f["alphabet"]], "queries")):
+        got = []
+        for dev in ("cuda", "cpu"):
+            path = d / f"{name}_{dev}.out"
+            dt, _, _ = run_cli(name, [*argv, "--device", dev], Path(f[src]),
+                               path, serves=False)
+            got.append(path.read_bytes())
+        if got[0] != got[1] or not got[0]:
+            raise SystemExit(f"cli {name}: --device cuda differs from cpu")
+        log(f"cli {name}: --device cuda equal to --device cpu, "
+            f"{len(got[0])} bytes ({dt:.3f} s) | {card}")
+    return by_path
+
+
+def variants_phase(words, card: str) -> dict:
+    """Phase 14: the configurations beyond plain lexicons. The main
+    lexicon with weighted variant lists (both layouts), an error list,
+    context rules, an LM and confusables, read from files through the
+    API's readers and served by its engine on the card: (1) 16,384
+    queries equal to the oracle on the first N_VAR_ORACLE, with rows on
+    the object tail and results through variant links and error forms;
+    (2) the same under StopAtExactMatch (the oracle on
+    N_VAR_ORACLE_MORE); (3) search with the rules and the LM
+    (``max_ngram`` 2) on the object consolidation, equal to a host-only
+    search on the first lines, tags included, some rule firing; (5) a
+    checkpoint of that model loaded onto the card, and onto a 1x4 mesh
+    of ``cuda:0``, giving the same queries and lines; (4) early
+    confusables on N_VAR_EARLY queries against the oracle; (6) the CLI
+    with them (:func:`variants_cli`). The model, the loaded one, its
+    mesh and the CLI's hold every kernel on their first batch, and every
+    path launches every kernel. Logs the seconds of each part. Returns
+    the paths' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from analiticcl_tpu_torch import (
+        DistanceThreshold, SearchParameters, StopCriterion, VariantModel, api,
+    )
+
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = round(time.perf_counter() - t_phase - sum(
+            parts.values()), 2)
+
+    d = Path("build/chip_smoke_cli")
+    data = variant_data(words, d)
+    f = data.files
+    lap("data")
+    m = api.VariantModel(f["alphabet"], api.Weights(), device="cuda")
+    m.read_lexicon(f["lexicon"])
+    m.read_variants(f["variants"])
+    m.read_variants(f["variants_freq"])
+    m.read_variants(f["errors"], transparent=True)
+    m.read_lm(f["lm"])
+    m.read_confusablelist(f["confusables"])
+    m.read_contextrules(f["rules"])
+    m.build()
+    model = m.engine
+    pipe = model._pipeline()
+    torch.cuda.synchronize()
+    n_linked = int(pipe._has_variants.sum())
+    if model.index.size != len(words) + data.n_forms or not n_linked:
+        raise SystemExit(f"variants: index {model.index.size}, not "
+                         f"{len(words)} + {data.n_forms} forms, or no row "
+                         f"with a link ({n_linked})")
+    routes = k1_routes(pipe)
+    log(f"variants model: {len(words)} lexicon entries + {data.n_forms} "
+        f"variant and error forms = index {model.index.size} "
+        f"({n_linked} rows with variant links), {data.n_rules} context "
+        f"rules, {data.n_bigrams} LM bigrams, {len(model.confusables)} "
+        f"confusables; read and built in {time.perf_counter() - t_phase:.1f} "
+        f"s; K1's instances {routes} | {card}")
+    lap("model")
+    params = SearchParameters(
+        max_anagram_distance=DistanceThreshold.absolute(3),
+        max_edit_distance=DistanceThreshold.absolute(2),
+        max_matches=10,
+        score_threshold=0.25,
+    )
+    queries, texts = data.queries, data.texts
+    hold_kernels("variants query", pipe, queries[:BATCH], params)
+    by_path = {}
+
+    def query_check(name, model, queries, params, routes, n_oracle):
+        got, dt, counts, rows = served_queries(name, model, queries, params,
+                                               routes)
+        t0 = time.perf_counter()
+        head = queries[:n_oracle]
+        want = [model._find_variants_oracle(q, params) for q in head]
+        require_equal(f"{name} vs oracle",
+                      result_tuples(model, got[:len(head)]),
+                      result_tuples(model, want), head)
+        vias = via_counts(name, model, got)
+        by_path[name.replace(" ", "_")] = counts
+        log(f"{name}: {len(queries)} queries in batches of {BATCH}: "
+            f"{len(queries) / dt:.1f} q/s warm ({dt:.3f} s); {rows} rows on "
+            f"the object tail, {vias['via_variant']} results through a "
+            f"variant link, {vias['via_error']} through an error form, none "
+            f"showing one; equal to the oracle on {len(head)} "
+            f"({time.perf_counter() - t0:.1f} s); launches {counts} | {card}")
+        return got
+
+    # (1) query with the variant and error lists, (2) StopAtExactMatch
+    got1 = query_check("variants query", model, queries, params, routes,
+                       N_VAR_ORACLE)
+    lap("query")
+    stop = dataclasses.replace(
+        params, stop_criterion=StopCriterion.STOP_AT_EXACT_MATCH)
+    query_check("variants query stop", model, queries, stop, routes,
+                N_VAR_ORACLE_MORE)
+    lap("query stop")
+
+    # (3) search with the rules and the LM: the object consolidation
+    s_params = dataclasses.replace(params, max_ngram=2, lm_weight=1.0)
+    outs, dt, counts, rows, vias = served_search("variants search", model,
+                                                 texts, s_params, routes)
+    sig3 = match_signature(outs, tags=True)
+    fired = rules_fired("variants search", model, outs)
+    t0 = time.perf_counter()
+    head = texts[:N_VAR_HOST_LINES]
+    preps, uniq, lookups = model._fam_prepare(head, s_params)
+    found = [model._find_variants_oracle(q, s_params) for q in lookups]
+    host = match_signature(model._fam_consolidate(preps, uniq, found,
+                                                   s_params), tags=True)
+    if host != sig3[:len(head)]:
+        bad = sum(a != b for a, b in zip(host, sig3))
+        raise SystemExit(f"variants search: {bad} lines differ from the "
+                         f"oracle-lookup host search")
+    by_path["variants_search"] = counts
+    n_tok = sum(len(t.split()) for t in texts)
+    log(f"variants search: {len(texts)} lines, {n_tok} tokens in {dt:.3f} "
+        f"s: {n_tok / dt:.1f} tokens/s on the object consolidation; "
+        f"{rows} rows on the object tail, {vias['via_variant']} variants "
+        f"through a variant link and {vias['via_error']} through an error "
+        f"form among the matches; {fired['tagged_matches']} matches tagged "
+        f"by a rule, "
+        f"{fired['rule_lines']} lines whose selection a rule matches; equal "
+        f"to the oracle-lookup host search on {len(head)} lines, tags "
+        f"included ({len(lookups)} lookups, {time.perf_counter() - t0:.1f} "
+        f"s); launches {counts} | {card}")
+    lap("search")
+
+    # (5) the model to a checkpoint, loaded onto the card and a 1x4 mesh
+    path = d / "variants_model.npz"
+    t0 = time.perf_counter()
+    model.save(str(path))
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = VariantModel.load(str(path), device="cuda")
+    lpipe = loaded._pipeline()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if not np.array_equal(lpipe._has_variants, pipe._has_variants):
+        raise SystemExit("checkpoint: the loaded index's variant flags "
+                         "differ from the saved model's")
+    log(f"checkpoint: {path.stat().st_size} bytes, saved in {t_save:.3f} s, "
+        f"loaded onto cuda in {t_load:.3f} s ({len(loaded.context_rules)} "
+        f"rules, {len(loaded.confusables)} confusables, {len(loaded.ngrams)} "
+        f"n-grams, {int(lpipe._has_variants.sum())} rows with variant links) "
+        f"| {card}")
+    want1 = result_tuples(model, got1)
+    for name, pipe_of in (("checkpoint", lambda: loaded._pipeline()),
+                          ("checkpoint mesh_1x4", None)):
+        if pipe_of is None:
+            loaded.use_mesh(cuda_mesh(1, 4))
+        lp = loaded._device if pipe_of is None else pipe_of()
+        lroutes = k1_routes(lp)
+        hold_kernels(f"{name} query", lp, queries[:BATCH], params)
+        got, dt, counts, rows = served_queries(f"{name} query", loaded,
+                                               queries, params, lroutes)
+        require_equal(f"{name} query", result_tuples(loaded, got), want1,
+                      queries)
+        by_path[f"{name.replace(' ', '_')}_query"] = counts
+        outs, sdt, scounts, _, _ = served_search(f"{name} search", loaded,
+                                                 texts, s_params, lroutes)
+        if match_signature(outs, tags=True) != sig3:
+            raise SystemExit(f"{name} search: the lines differ from the "
+                             f"saved model's")
+        by_path[f"{name.replace(' ', '_')}_search"] = scounts
+        log(f"{name}: {len(queries)} queries ({len(queries) / dt:.1f} q/s "
+            f"warm, {rows} object-tail rows) and {len(texts)} lines "
+            f"({sdt:.3f} s) equal to the saved model's; launches {counts}, "
+            f"search {scounts} | {card}")
+        lap(name)
+    del loaded, lpipe, lp
+    gc.collect()
+
+    # (4) early confusables, on the model the checkpoint was taken of
+    model.set_confusables_before_pruning()
+    early_q = queries[:N_VAR_EARLY]
+    got4 = query_check("early confusables", model, early_q, params, routes,
+                       N_VAR_ORACLE_MORE)
+    n_moved = sum(a != b for a, b in zip(result_tuples(model, got4), want1))
+    log(f"early confusables: {n_moved} of {len(early_q)} results differ "
+        f"from the late confusables' | {card}")
+    model.confusables_before_pruning = False
+    del m, model, pipe
+    gc.collect()
+    lap("early confusables")
+
+    # (6) the CLI
+    by_path.update(variants_cli(data, d, card))
+    lap("cli")
+    log(f"phase 14 (variants): {time.perf_counter() - t_phase:.1f} s: "
+        f"{parts} | {card}")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3157,6 +3736,12 @@ def main() -> int:
     planes_rec, planes_paths = planes_phase(words, card, peaks)
     by_path.update(planes_paths)
 
+    # ---- 14. variant and error lists, rules, early confusables,
+    # checkpoints ----
+    gc.collect()
+    variant_paths = variants_phase(words, card)
+    by_path.update(variant_paths)
+
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
@@ -3177,8 +3762,10 @@ def main() -> int:
                          "query path; times on its first batch, "
                          "main_batch's on the main instance, at_1664's and "
                          "at_6016's on seeded full-width planes",
-        "launches_by_path": {k: v["stream"] for k, v in K1_CHECKED.items()
-                             if "stream" in v},
+        "launches_by_path": {
+            **{k: v["stage_a_stream"] for k, v in variant_paths.items()},
+            **{k: v["stream"] for k, v in K1_CHECKED.items()
+               if "stream" in v}},
     })
     records.append({
         "name": "dl_lcs_wide", "route": "cuda",
@@ -3192,9 +3779,10 @@ def main() -> int:
                          "which either entry launches after its byte path "
                          "above L 64 (once a slot-entry launch, checked on "
                          "each path); counted on phase 12's query path",
-        "launches_by_path": {k: v["dl_lcs_wide"]
-                             for k, v in {**wide_paths,
-                                          **planes_paths}.items()},
+        "launches_by_path": {
+            **{k: v["dl_lcs_wide"] for k, v in variant_paths.items()},
+            **{k: v["dl_lcs_wide"]
+               for k, v in {**wide_paths, **planes_paths}.items()}},
     })
     log(json.dumps(stamp({"kernels": records})))
     log(json.dumps({"ok": True, "device": {

@@ -35,9 +35,12 @@ from analiticcl_tpu_torch.testing import (
     ALPHABET,
     corrupt_queries,
     synthetic_bigrams,
+    synthetic_contextrules,
+    synthetic_errors,
     synthetic_frequencies,
     synthetic_lexicon,
     synthetic_text,
+    synthetic_variants,
 )
 
 torch.set_num_threads(2)
@@ -86,25 +89,15 @@ def cli_files(tmp_path_factory):
     text = synthetic_text(words, 26, 24, bigrams)
     # variant and error lists: a lexicon word, then one or two corrupted
     # forms with a score
-    var_src, err_src = words[100:140], words[200:240]
-    variants = [f"{w}\t{corrupt_queries([w], 30 + i, 1)[0]}\t0.9"
-                for i, w in enumerate(var_src)]
-    errors = [f"{w}\t{corrupt_queries([w], 80 + i, 1)[0]}\t1\t"
-              f"{corrupt_queries([w], 130 + i, 1)[0]}\t0.75"
-              for i, w in enumerate(err_src)]
+    variants = synthetic_variants(words[100:140], 30, scores=(0.9,))
+    errors = synthetic_errors(words[200:240], 80, scores=(1, 0.75), stride=50)
     queries = (corrupt_queries(words, 24, 112) + corrupt_queries(other, 25, 16)
                + [line.split("\t")[1] for line in variants[:8]]
                + [line.split("\t")[1] for line in errors[:8]]
                + words[:4] + [words[5].upper(), ""])
     # context rules over word pairs of the bigram list that the text holds,
     # and single words
-    pairs = [b.split(" ") for b, _ in bigrams
-             if any(f" {b} " in f" {line} " for line in text)][:6]
-    assert len(pairs) == 6
-    rules = ["# seeded rules"]
-    rules += [f"{a}; {b}\t1.25\tpair" for a, b in pairs[:3]]
-    rules += [f"{a}; {b}\t0.8" for a, b in pairs[3:5]]
-    rules += [f"{pairs[5][0]}\t1.1\tsingle", f"{words[7]}|{words[8]}; ?\t1.2\tany\t0:1"]
+    rules = synthetic_contextrules(words, bigrams, text)
     unicode_text = [
         line.replace(" ", " café ", 1).replace(" ", " naïve—", 3)
         + " Grüße"

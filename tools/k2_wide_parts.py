@@ -31,9 +31,7 @@ each turn a fresh process, it times every variant on three inputs:
 
 by CUDA events (10 back-to-back calls of the entry, both launches) and
 by the profiler's device time of the wide kernel by its name, and of the
-byte launch on the batch. It also gives the wide pairs of each input and
-the largest list of them one block of the first design's scan took
-(``chip_smoke.first_design_block_list``).
+byte launch on the batch. It also gives the wide pairs of each input.
 Prints ptxas's registers per variant, the card's name and power limit,
 one line per turn and variant, and one JSON line. Needs ``nvcc``; imports
 no JAX.
@@ -216,8 +214,6 @@ def turn(tag: str, paths: dict) -> dict:
             raise SystemExit(f"k2_wide_parts: the {name} batch has "
                              f"{int(wide.sum())} pairs over 64")
         inputs[name] = {"P": P, "valid": n_valid, "wide": int(wide.sum()),
-                        "first_design_block_list":
-                            chip_smoke.first_design_block_list(wide),
                         "call": (lambda a=s_args, s=score:
                                  tdl.dl_lcs_slots(*a, score=s)),
                         "kernel": "dl_lcs_slots_wide_kernel"}
@@ -240,8 +236,6 @@ def turn(tag: str, paths: dict) -> dict:
         wide = torch.maximum(al, bl) > tdl.NARROW_LEN
         inputs[f"L{L}_W{W}"] = {
             "P": chip_smoke.WIDE_PAIRS, "wide": int(wide.sum()),
-            "first_design_block_list":
-                chip_smoke.first_design_block_list(wide),
             "call": (lambda a=a, al=al, b=b, bl=bl, L=L, W=W:
                      tdl.dl_lcs(a, al, b, bl, L, W)),
             "kernel": "dl_lcs_wide_kernel"}
