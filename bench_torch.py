@@ -5,10 +5,11 @@
     python3 bench_torch.py --cell search_synth120k [--seed S]
 
 Each cell is a file of its own, ``bench_cells/<cell>.json`` (``read_cell``
-lists its keys): its mode (``query`` or ``search``), the size of its seeded
-synthetic lexicon, its search parameters, its traffic and the sizes of its
-checks. This script reads that file and names no cell in its code: a cell
-with another size or mix is a new file. Every cell builds
+lists its keys): its mode (``query``, ``search`` or ``search_lm``), the
+size of its seeded synthetic lexicon, its search parameters, its traffic
+and the sizes of its checks. This script reads that file and names no
+cell in its code: a cell with another size or mix is a new file. Every
+cell builds
 ``VariantModel(device="cuda")`` from ``testing.synthetic_lexicon(seed,
 lexicon_entries)`` (eng.aspell's size in both cells; eng.aspell is not in
 the repository, so every number is labelled ``synthetic-120k``) or, with
@@ -18,8 +19,9 @@ the device backend explicitly.
 Every result the run reports as correct is held against ``Reference``, a
 plain implementation in this file that shares no code with the port: its
 own normalization, anagram filter, Damerau-Levenshtein distance, score,
-ranking, segmentation and lattice decode, at the cell's parameters. One
-differing result aborts the run with a non-zero exit and no metric.
+ranking, segmentation, lattice decode and n-best language-model decode,
+at the cell's parameters. One differing result aborts the run with a
+non-zero exit and no metric.
 
 A ``query`` cell (``find_variants_stream``, the main path): two gates
 come first, each comparing full ``(text, dist_score, freq_score, via)``
@@ -44,6 +46,21 @@ warm-up pass against the reference; then ROUNDS timed blocks of
 first ``lines_checked`` lines are held against the reference after the
 rounds. A round's rate is all its tokens over the summed time of its
 passes.
+
+A ``search_lm`` cell is a ``search`` cell over a model that also holds a
+bigram language model of ``bigrams`` entries
+(``testing.synthetic_bigrams(words, seed, bigrams)``, added as LM
+entries), whose lines carry some of their tokens in pairs drawn from
+those bigrams (``synthetic_text(..., bigrams)``), decoded at
+``lm_weight``, ``variantmodel_weight`` and ``max_seq``: the
+``max_seq`` cheapest paths of each hard batch scored by the language
+model, the best by the weighted mean of the two. The reference decodes
+the same way and its answers are held exactly, as in a ``search`` cell.
+The run aborts unless the language model changes the choice on some
+checked line (``lm_changed_lines``: the reference's choice is not its
+cheapest path). ``bench_cells/`` holds no cell of this mode: synthetic
+bigrams stand for no deployment, and the repository holds no n-gram list
+counted from a public corpus.
 
 The metric of any cell is all the work of every round over all their
 time; the median round and the rounds' spread are printed beside it. The
@@ -118,6 +135,9 @@ MODE_KEYS = {
               "w12_thresholds", "sample_every"),
     "search": ("max_ngram", "lines", "passes", "lines_checked"),
 }
+# a search_lm cell's language-model settings, as SearchParameters names them
+LM_SETTINGS = ("lm_weight", "variantmodel_weight", "max_seq")
+MODE_KEYS["search_lm"] = MODE_KEYS["search"] + ("bigrams",) + LM_SETTINGS
 # query_synth120k's batch and window (bench_cells/query_synth120k.json),
 # which chip_smoke.core_shapes imports; the harness reads the cell's file
 BATCH = 4096
@@ -133,6 +153,9 @@ QUERY_STAGES = {"host_prep": "host_prep", "dispatch": "dispatch",
 SEARCH_STAGES = ("search_prepare", "search_consolidate", "host_prep",
                  "dispatch", "host_tail", "host_oracle_fallback")
 NOT_MEASURED = "not measured"  # a device metric of a CPU run
+# analiticcl's default weight of the context rules, which a search_lm cell
+# leaves as it is (the model holds no rules: their term is log 1)
+CONTEXTRULES_WEIGHT = 1.0
 # the top-level packages of JAX and of the JAX package, none of which a run
 # may load
 JAX_PACKAGES = ("jax", "jaxlib", "flax", "analiticcl_tpu")
@@ -229,7 +252,9 @@ def read_cell(name: str, cells=CELLS_DIR) -> SimpleNamespace:
     ``w12_thresholds``, and ``sample_every`` (every n-th result of a timed
     window is checked); a ``search`` cell ``max_ngram``, ``lines`` and
     ``passes`` (per round) and ``lines_checked`` (the leading lines of the
-    gate pass and of every timed pass that are checked)."""
+    gate pass and of every timed pass that are checked); a ``search_lm``
+    cell those of ``search`` and ``bigrams`` (the language model's
+    entries), ``lm_weight``, ``variantmodel_weight`` and ``max_seq``."""
     path = Path(cells) / f"{name}.json"
     spec = json.loads(path.read_text())
     want = set(CELL_KEYS) | set(MODE_KEYS.get(spec.get("mode"), ()))
@@ -245,24 +270,36 @@ def read_cell(name: str, cells=CELLS_DIR) -> SimpleNamespace:
 
 def scoring(cell) -> dict:
     """The parameters ``Reference`` takes from ``cell``."""
-    return {"thresholds": cell.thresholds, "max_matches": cell.max_matches,
-            "score_threshold": cell.score_threshold,
-            "cutoff_threshold": cell.cutoff_threshold,
-            "max_ngram": getattr(cell, "max_ngram", 1)}
+    out = {"thresholds": cell.thresholds, "max_matches": cell.max_matches,
+           "score_threshold": cell.score_threshold,
+           "cutoff_threshold": cell.cutoff_threshold,
+           "max_ngram": getattr(cell, "max_ngram", 1)}
+    if hasattr(cell, "bigrams"):
+        out.update({k: getattr(cell, k) for k in LM_SETTINGS},
+                   contextrules_weight=CONTEXTRULES_WEIGHT)
+    return out
 
 
 # ---------------------------------------------------------------------------
-# The plain reference. It is given the alphabet and the lexicon and shares
-# no code with the port. It follows analiticcl's definitions for a model
-# without confusables, variant lists, language model or context rules, at
-# the default weights (ld 0.5, lcs, prefix, suffix and case 0.125 each) and
-# freq_weight 0: retrieval by anagram distance (L1 between character counts),
-# unrestricted Damerau-Levenshtein distance with transpositions, the score,
-# a stable rank in the lexicon's anagram-value order, the crop at
-# max_matches with its tie rule and the cutoff threshold; for search, the
-# byte-offset segmentation, hard-boundary batches, n-grams, the redundancy
-# filter and the cheapest path through the lattice of each batch.
+# The plain reference. It is given the alphabet, the lexicon and, for a
+# search_lm cell, the language model's entries, and shares no code with the
+# port. It follows analiticcl's definitions for a model without
+# confusables, variant lists or context rules, at the default weights (ld
+# 0.5, lcs, prefix, suffix and case 0.125 each) and freq_weight 0:
+# retrieval by anagram distance (L1 between character counts), unrestricted
+# Damerau-Levenshtein distance with transpositions, the score, a stable rank
+# in the lexicon's anagram-value order, the crop at max_matches with its tie
+# rule and the cutoff threshold; for search, the byte-offset segmentation,
+# hard-boundary batches, n-grams, the redundancy filter and the cheapest
+# path through the lattice of each batch; with a language model, the
+# max_seq cheapest paths, each path's perplexity under the bigram counts
+# and the weighted log-space selection (analiticcl src/lib.rs:2088-2495,
+# 2580-2674).
 # ---------------------------------------------------------------------------
+
+BOS, EOS, UNK = "<bos>", "<eos>", "<unk>"  # the vocabulary's special texts
+SMOOTHING = math.log(1e-6)  # the log-probability of an unseen transition
+MAX_ORDER = 5  # a language-model entry of more tokens is left out
 
 
 def first_primes(n: int) -> list:
@@ -328,12 +365,15 @@ class Reference:
     """Query and search results computed plainly from the lexicon, at the
     parameters ``params`` (``scoring``: the anagram and edit thresholds
     lookups take by default, max_matches, score_threshold,
-    cutoff_threshold, max_ngram)."""
+    cutoff_threshold, max_ngram; with a language model also lm_weight,
+    variantmodel_weight, contextrules_weight and max_seq). ``lm`` is the
+    language model's entries, ``(text, frequency)`` with the words of a
+    text joined by spaces, or None."""
 
-    def __init__(self, alphabet, words, params: dict, freqs=None):
+    def __init__(self, alphabet, words, params: dict, freqs=None, lm=None):
         if any(len(c) != 1 for cls in alphabet for c in cls):
             raise ValueError("the reference takes one-character alphabets")
-        self.inputs = (alphabet, words, params, freqs)
+        self.inputs = (alphabet, words, params, freqs, lm)
         self.params = SimpleNamespace(**params)
         self.code = {c: i for i, cls in enumerate(alphabet) for c in cls}
         self.unknown = len(alphabet)
@@ -355,6 +395,56 @@ class Reference:
         self.by_len = [(rows, counts[rows]) for rows in (
             np.nonzero(lens == n)[0] for n in range(lens.max() + 1))]
         self.memo = {}
+        self.lm_entries = lm
+        self.ngrams = self._language_model(words, lm or ())
+        self.use_lm = bool(self.ngrams) and getattr(self.params, "lm_weight",
+                                                    0) > 0
+
+    def _language_model(self, words, lm) -> dict:
+        """The n-gram counts of the language model's entries: each entry's
+        words as tokens (a word outside the vocabulary as UNK), the
+        frequencies of the entries that give the same tokens summed; an
+        entry repeated keeps its largest frequency."""
+        entries = {}
+        for text, freq in lm:
+            entries[text] = max(entries.get(text, freq), freq)
+        self.vocab = set(words) | set(entries) | {BOS, EOS, UNK}
+        if len(self.vocab) != len(set(words)) + len(entries) + 3:
+            raise ValueError("the reference takes language-model entries "
+                             "apart from the lexicon")
+        counts = {}
+        for text, freq in entries.items():
+            ngram = self.tokens(text)
+            if ngram is not None:
+                counts[ngram] = counts.get(ngram, 0) + freq
+        return counts
+
+    def tokens(self, text: str):
+        """The tokens of a vocabulary entry: its words, each itself if the
+        vocabulary holds it and UNK if not; None above MAX_ORDER words."""
+        parts = text.split(" ")
+        if len(parts) > MAX_ORDER:
+            return None
+        return tuple(p if p in self.vocab else UNK for p in parts)
+
+    def perplexity(self, tokens: list) -> float:
+        """The perplexity of a token stream under the bigram counts: the
+        log-probability of each transition (the joint count, over the first
+        token's own count where that is at least the joint count; SMOOTHING
+        where the bigram is unknown or a token is out of the vocabulary),
+        summed in order, its negative mean."""
+        logprob, n = 0.0, 0
+        for t0, t1 in zip(tokens, tokens[1:]):
+            n += 1
+            joint = (None if t0 is None or t1 is None
+                     else self.ngrams.get((t0, t1)))
+            if joint is None:
+                logprob += SMOOTHING
+                continue
+            prior = self.ngrams.get((t0,), 1)
+            logprob += (math.log(joint) if prior < joint
+                        else math.log(joint / prior))
+        return -1.0 / n * logprob if n else 0.0
 
     def normalize(self, text: str) -> bytes:
         return bytes(self.code.get(c, self.unknown) for c in text)
@@ -427,6 +517,12 @@ class Reference:
     def search(self, text: str) -> list:
         """Per selected match: ``(text, begin, end, selected, n, variants)``,
         offsets in bytes."""
+        return self.search_decoded(text)[0]
+
+    def search_decoded(self, text: str) -> tuple:
+        """``(matches, changed)``: ``search``'s matches, and whether the
+        language model chose other than the cheapest path in some hard
+        batch."""
         data = text.encode()
         bounds, start, pos = [], None, 0  # runs of non-letters
         for ch in text:
@@ -437,15 +533,19 @@ class Reference:
                 start = None
             pos += len(ch.encode())
         bounds.append((start, pos) if start is not None else (pos, pos))
-        out, begin, first = [], 0, 0
+        out, changed, begin, first = [], False, 0, 0
         for i, (b, e) in enumerate(bounds):
             hard = i == len(bounds) - 1 or e - b > 1
             if hard and b != begin:
-                out += self._decode(data, bounds[first:i + 1], begin, b)
+                path, lm = self._decode(data, bounds[first:i + 1], begin, b)
+                out += path
+                changed |= lm
                 begin, first = e, i + 1
-        return out
+        return out, changed
 
-    def _decode(self, data, bounds, begin, end) -> list:
+    def _decode(self, data, bounds, begin, end) -> tuple:
+        """``(path, changed)`` of a hard batch: its selected matches, and
+        whether the language model chose other than the cheapest path."""
         matches = []  # [text, begin, end, n, variants]
         for n in range(1, self.params.max_ngram + 1):
             for seg in self._ngrams(data, bounds, begin, end, n):
@@ -478,6 +578,8 @@ class Reference:
                 symbols.append((mi, None))
         for i in range(len(bounds)):  # epsilon arcs: a failsafe path
             arcs[i].append((i + 1, 100.0, None))
+        if self.use_lm:
+            return self._lm_decode(data, bounds, end, matches, arcs, symbols)
         cost = [0.0] + [math.inf] * len(bounds)
         back = [None] * (len(bounds) + 1)
         for state in range(1, len(bounds) + 1):
@@ -496,7 +598,66 @@ class Reference:
                 mi, vi = symbols[sym]
                 t, mb, me, n, variants = matches[mi]
                 path.append((t, mb, me, vi, n, variants))
-        return path[::-1]
+        return path[::-1], False
+
+    def _lm_decode(self, data, bounds, end, matches, arcs, symbols) -> tuple:
+        """``(path, changed)`` of a batch under the language model: the
+        max_seq cheapest paths (``nbest_paths``), each path's perplexity
+        over BOS, the tokens of every selected match each followed by those
+        of the boundary after it, and EOS; the path of the best weighted
+        mean of the normalised variant, LM and context scores (the first of
+        equals). A batch without arcs keeps its matches, none selected."""
+        p = self.params
+        if not symbols:
+            return [(t, mb, me, None, n, variants)
+                    for t, mb, me, n, variants in matches], False
+        finals = [i + 1 for i, (b, e) in enumerate(bounds)
+                  if b == end or e == end]
+        costs, paths, perps = [], [], []
+        for c, steps in nbest_paths(arcs, finals, max(1, p.max_seq)):
+            path, tokens = [], [BOS]
+            for sym, state in steps:
+                mi, vi = symbols[sym]
+                t, mb, me, n, variants = matches[mi]
+                path.append((t, mb, me, vi, n, variants))
+                tokens += ([None] if vi is None
+                           else self.tokens(variants[vi][0]) or [])
+                # the boundary the symbol's state stands for
+                tokens += self._boundary_tokens(data, bounds[state - 1])
+            costs.append(c)
+            paths.append(path)
+            perps.append(self.perplexity(tokens + [EOS]))
+        best_perp = min([999999.0] + perps)
+        best_cost = min([(len(bounds) - 1) * 2.0] + costs)
+        weights = p.lm_weight + p.variantmodel_weight + p.contextrules_weight
+        scores = []
+        for c, perp in zip(costs, perps):
+            if c <= 0:
+                variant = 0.0
+            elif best_cost <= 0:
+                variant = -math.inf
+            else:
+                variant = math.log(best_cost / c)
+            scores.append((p.lm_weight * math.log(best_perp / perp)
+                           + p.variantmodel_weight * variant
+                           + p.contextrules_weight * math.log(1.0))
+                          / weights)
+        best_score, pick = -99999999.0, -1
+        for k, score in enumerate(scores):
+            if score > best_score or pick < 0:
+                best_score, pick = score, k
+        return paths[pick], paths[pick] != paths[0]
+
+    def _boundary_tokens(self, data, bound) -> list:
+        """The tokens of a boundary's text, stripped: none if it is empty,
+        its entry's if the vocabulary holds it, else one out of the
+        vocabulary (None)."""
+        text = data[bound[0]:bound[1]].decode().strip()
+        if not text:
+            return []
+        if text not in self.vocab:
+            return [None]
+        return list(self.tokens(text) or ())
 
     @staticmethod
     def _ngrams(data, bounds, begin, end, n) -> list:
@@ -513,6 +674,39 @@ class Reference:
         return out
 
 
+def nbest_paths(arcs: list, finals: list, nbest: int) -> list:
+    """The ``nbest`` cheapest paths from state 0 to a state of ``finals``
+    through the lattice whose state ``s`` has the arcs ``arcs[s]``
+    (``(target, cost, symbol)``, targets above ``s``), cheapest first, each
+    ``(cost, [(symbol, the state it leads to), ...])`` without the arcs of
+    no symbol (None). Each state keeps its ``nbest`` cheapest hypotheses;
+    equal costs keep the order of their source state, then of the arc
+    among the source's arcs, then of the source's hypothesis, and the final
+    states' hypotheses are taken by cost, state and hypothesis."""
+    into = [[] for _ in arcs]  # per state: (source, cost, symbol)
+    for src, out in enumerate(arcs):
+        for target, c, sym in out:
+            into[target].append((src, c, sym))
+    # per state: (cost, source state, source hypothesis, symbol)
+    hyps = [[(0.0, -1, -1, None)]]
+    for state in range(1, len(arcs)):
+        found = [(hyp[0] + c, src, h, sym) for src, c, sym in into[state]
+                 for h, hyp in enumerate(hyps[src])]
+        found.sort(key=lambda x: x[0])
+        hyps.append(found[:nbest])
+    paths = []
+    for c, s, h in sorted((hyps[s][h][0], s, h) for s in finals
+                          for h in range(len(hyps[s])))[:nbest]:
+        steps = []
+        while s > 0:
+            _, src, sh, sym = hyps[s][h]
+            if sym is not None:
+                steps.append((sym, s))
+            s, h = src, sh
+        paths.append((c, steps[::-1]))
+    return paths
+
+
 _REFERENCE = None  # a reference process's own Reference
 
 
@@ -523,13 +717,13 @@ def _reference_start(inputs) -> None:
 
 def _job(ref, method: str, args: tuple):
     """One item of ``reference_answers``: a method of ``ref`` (``lookup``,
-    ``search``), or ``lines``: ``testing.synthetic_text`` over its lexicon,
-    the search cell's traffic, made here because it takes about a second
-    a pass."""
+    ``search``, ``search_decoded``), or ``lines``: ``testing.synthetic_text``
+    over its lexicon and language model, the search cells' traffic, made
+    here because it takes about a second a pass."""
     if method == "lines":
         from analiticcl_tpu_torch.testing import synthetic_text
 
-        return synthetic_text(ref.inputs[1], *args)
+        return synthetic_text(ref.inputs[1], *args, ref.lm_entries)
     return getattr(ref, method)(*args)
 
 
@@ -540,13 +734,12 @@ def _reference_call(job):
 @contextlib.contextmanager
 def reference_answers(ref):
     """``answers(method, items)``: ``_job`` over each tuple of ``items``,
-    in order (``ref``'s ``lookup`` or ``search``, or ``lines``). With
-    WORKERS above
-    1, the items go to that many spawned processes (at most one fewer than
-    the cores this process may run on), each with its own Reference over
-    the same lexicon; the answers come back as an iterator that waits for
-    them, so the caller can run the port meanwhile. The processes end with
-    the block. The answers are the reference's either way: the check is
+    in order (``ref``'s ``lookup``, ``search`` or ``search_decoded``, or
+    ``lines``). With WORKERS above 1, the items go to that many spawned
+    processes (at most one fewer than the cores this process may run on),
+    each with its own Reference over the same lexicon; the answers come
+    back as an iterator that waits for them, so the caller can run the
+    port meanwhile. The processes end with the block. The answers are the reference's either way: the check is
     the same, only sooner."""
     workers = min(WORKERS, len(os.sched_getaffinity(0)) - 1)
     if workers <= 1:
@@ -621,7 +814,8 @@ def search_parameters(cell, rules: tuple = None):
     from analiticcl_tpu_torch import SearchParameters
 
     rules = rules or cell.thresholds
-    changed = {"max_ngram": cell.max_ngram} if cell.mode == "search" else {}
+    changed = {k: getattr(cell, k) for k in ("max_ngram",) + LM_SETTINGS
+               if hasattr(cell, k)}
     return SearchParameters(
         max_anagram_distance=threshold(rules[0]),
         max_edit_distance=threshold(rules[1]),
@@ -694,11 +888,13 @@ def launch_rules(model) -> dict:
 
 def index_shape(model) -> dict:
     """The device index's rows, string width L, plane width and widest
-    block extent (the widest K1 launch)."""
+    block extent (the widest K1 launch), and the language model's n-grams,
+    which hold no row."""
     pipe = model._device
     return {"rows": int(pipe.index.bins.shape[0]), "L": int(pipe.L),
             "plane_width": int(pipe.index.bins.shape[1]),
-            "widest_block": int(pipe.index.extents_host.max())}
+            "widest_block": int(pipe.index.extents_host.max()),
+            "lm_ngrams": len(model.ngrams)}
 
 
 def launches_since(before: dict, what: str, wide: bool) -> dict:
@@ -1133,28 +1329,37 @@ def lexicon(args, cell) -> tuple:
 def build_model(args, cell):
     """``(model, words, reference, lexicon label, metrics, built)``: every
     kernel built (``build_kernels``), then the model on the device backend,
-    with both build times, and the reference over the same lexicon at
-    ``cell``'s parameters."""
+    with both build times, and the reference over the same lexicon (and
+    language model, where the cell has ``bigrams``) at ``cell``'s
+    parameters."""
     from analiticcl_tpu_torch import VariantModel
-    from analiticcl_tpu_torch.testing import ALPHABET, populate
-    from analiticcl_tpu_torch.vocab import VocabParams
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, populate, synthetic_bigrams,
+    )
+    from analiticcl_tpu_torch.vocab import VocabParams, VocabType
 
     metrics = {}
     built = build_kernels(args.device, metrics)
     words, freqs, label = lexicon(args, cell)
+    bigrams = (synthetic_bigrams(words, args.seed, cell.bigrams)
+               if hasattr(cell, "bigrams") else None)
     with Timed(args.device) as t:
         model = VariantModel(alphabet=ALPHABET, device=args.device)
         if args.lexicon:
             model.read_vocabulary(args.lexicon, VocabParams())
+            for text, freq in bigrams or ():
+                model.add_to_vocabulary(
+                    text, freq, VocabParams(vocab_type=VocabType.LM))
             model.build()
         else:
-            populate(model, words)
+            populate(model, words, bigrams=bigrams)
         model.set_backend("device")  # "auto" takes the oracle below 64 rows
         model._pipeline()
     metrics["build_s"] = (t.s, "s")
-    log(f"model: {model.index.size} entries ({label}) built in {t.s:.1f} s")
+    log(f"model: {model.index.size} entries ({label}), "
+        f"{len(model.ngrams)} n-grams, built in {t.s:.1f} s")
     t0 = time.perf_counter()
-    reference = Reference(ALPHABET, words, scoring(cell), freqs)
+    reference = Reference(ALPHABET, words, scoring(cell), freqs, bigrams)
     metrics["reference_build_s"] = (time.perf_counter() - t0, "s")
     return model, words, reference, label, metrics, built
 
@@ -1408,15 +1613,18 @@ def search_cell(args, cell, model, words, ref, metrics: dict,
     """Gate on a warm-up pass, while the reference's processes make every
     timed pass's lines and then answer their leading lines; heap freeze,
     ROUNDS timed blocks, the leading lines of every pass against the
-    answers, then the profiled pass."""
+    answers, then the profiled pass. With a language model (a
+    ``search_lm`` cell) the run aborts unless the model changed the
+    reference's choice on some checked line."""
     from analiticcl_tpu_torch.testing import synthetic_text
 
     params = search_parameters(cell)
     head, n_lines, n_passes = cell.lines_checked, cell.lines, cell.passes
-    warm = synthetic_text(words, (args.seed, n_passes), n_lines)
+    warm = synthetic_text(words, (args.seed, n_passes), n_lines,
+                          ref.lm_entries)
     t0 = time.perf_counter()
     with reference_answers(ref) as answers:
-        want_gate = answers("search", [(t,) for t in warm[:head]])
+        want_gate = answers("search_decoded", [(t,) for t in warm[:head]])
         # round r's pass p: fresh lines from (seed, r, p), apart from the
         # warm-up's (seed, passes)
         lines = answers("lines", [((args.seed, r, p), n_lines)
@@ -1430,9 +1638,10 @@ def search_cell(args, cell, model, words, ref, metrics: dict,
         passes = [lines[r * n_passes:(r + 1) * n_passes]
                   for r in range(ROUNDS)]
         heads = [t for texts in lines for t in texts[:head]]
-        want = answers("search", [(t,) for t in heads])
+        want = answers("search_decoded", [(t,) for t in heads])
+        want_gate = list(want_gate)
         hold("gate search", [match_signature(model, o) for o in got[:head]],
-             list(want_gate), warm[:head])
+             [m for m, _ in want_gate], warm[:head])
         metrics["gate_search_s"] = (time.perf_counter() - t0, "s")
         log(f"gate search: {head} lines equal to the reference")
         want = list(want)
@@ -1452,10 +1661,21 @@ def search_cell(args, cell, model, words, ref, metrics: dict,
     host_state(metrics, "after_timed")
 
     t0 = time.perf_counter()
-    hold("timed passes", kept, want, heads)
+    hold("timed passes", kept, [m for m, _ in want], heads)
     metrics["check_timed_s"] = (time.perf_counter() - t0, "s")
     log(f"timed passes: {head} lines of each pass of {ROUNDS} rounds equal "
         "to the reference")
+    checked = {"gate_lines": head, "timed_lines": len(heads)}
+    if ref.use_lm:
+        changed = sum(c for _, c in want_gate + want)
+        log(f"language model: {changed} of {head + len(heads)} checked lines "
+            "chose other than the cheapest path")
+        if not changed:
+            raise SystemExit(f"lm: the language model chose the cheapest "
+                             f"path on all {head + len(heads)} checked "
+                             "lines; benchmark aborted")
+        metrics["lm_changed_lines"] = (changed, "lines")
+        checked["lm_changed_lines"] = changed
 
     every = [d for rd in rounds for d in rd["passes"]]
     seconds = sum(d["seconds"] for d in every)
@@ -1481,12 +1701,12 @@ def search_cell(args, cell, model, words, ref, metrics: dict,
            for k in every[0]["launches"]},
         "peak_device_memory": peak_memory(args.device),
     })
-    profiled = synthetic_text(words, (args.seed, n_passes + 1), n_lines)
+    profiled = synthetic_text(words, (args.seed, n_passes + 1), n_lines,
+                              ref.lm_entries)
     profile = profiled_window(args, pipe, lambda: list(
         model.find_all_matches_stream(profiled, params)), metrics)
     return "search_throughput", {
-        "rounds": rounds, "profiled": profile,
-        "checked": {"gate_lines": head, "timed_lines": len(heads)}}
+        "rounds": rounds, "profiled": profile, "checked": checked}
 
 
 def parse_args(argv):
@@ -1533,7 +1753,8 @@ def run(args, host: dict) -> int:
     model, words, ref, label, metrics, built = build_model(args, cell)
     metrics.update(host)
     rules = launch_rules(model)
-    drive = {"query": query_cell, "search": search_cell}[cell.mode]
+    drive = {"query": query_cell, "search": search_cell,
+             "search_lm": search_cell}[cell.mode]
     try:
         name, extra = drive(args, cell, model, words, ref, metrics, rules)
     finally:

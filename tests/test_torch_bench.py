@@ -18,14 +18,16 @@ loaded during the run. The cells' files are the benchmark's cells and
 are read strictly; the launch rules come from the built index; every
 kernel source is built before the model. The script's own reference
 agrees with the port's host oracle, with distances worked by hand and
-with itself in spawned processes; ``settled_view`` makes ``bench.py``'s
-selection; the round statistic, the card's busy intervals and idle gaps,
+with itself in spawned processes, and its language-model decode with the
+JAX package's and the port's search at three n-best depths;
+``settled_view`` makes ``bench.py``'s selection; the round statistic, the card's busy intervals and idle gaps,
 the card's CPU list and the host readings are checked by hand, a source
 the kernel does not keep reading "not measured"; and ``--device cuda``
 raises without a card."""
 
 import importlib.util
 import json
+import math
 import os
 import sys
 from pathlib import Path
@@ -49,17 +51,26 @@ SMALL = {"ROUNDS": 3, "WORKERS": 0}  # the harness's own constants
 CUT = {"lexicon_entries": 3000, "batch": 64, "window_queries": 256,
        "gate_queries": 64, "w12_queries": 16, "sample_every": 16,
        "lines": 64, "passes": 4}
+# a cell of mode search_lm, which bench_cells/ holds none of (no n-gram
+# list from a public corpus is in the repository): the search cell with a
+# language model of synthetic bigrams at analiticcl's defaults
+LM_CELL = {"mode": "search_lm", "bigrams": 2500, "lm_weight": 1.0,
+           "variantmodel_weight": 3.0, "max_seq": 250}
 
 
 def cut_cells(directory: Path, **cut) -> list:
     """``--cells`` naming ``directory``, which gets a copy of every cell
     file of ``bench_cells/`` with the values of CUT and ``cut`` in place of
-    the file's where it has the key."""
+    the file's where it has the key, and ``search_lm.json``: the cut search
+    cell with LM_CELL's keys."""
     directory.mkdir(parents=True, exist_ok=True)
     for path in (ROOT / "bench_cells").glob("*.json"):
         spec = json.loads(path.read_text())
         spec.update({k: v for k, v in {**CUT, **cut}.items() if k in spec})
         (directory / path.name).write_text(json.dumps(spec))
+        if path.stem == "search_synth120k":
+            (directory / "search_lm.json").write_text(
+                json.dumps({**spec, **LM_CELL}))
     return ["--cells", str(directory)]
 
 
@@ -196,8 +207,13 @@ def _host_fields_are_sane(h: dict) -> None:
         assert isinstance(h[f"gc_gen{g}"], int) and h[f"gc_gen{g}"] >= 0
 
 
-@pytest.mark.parametrize("cell", ["query_synth120k", "search_synth120k"])
+@pytest.mark.parametrize("cell", ["query_synth120k", "search_synth120k",
+                                  "search_lm"])
 def test_cell_runs_on_the_cpu(cell, counted, cells, capsys):
+    """A cut cell runs on the CPU; ``search_lm``, a cell of the benchmark's
+    search_lm mode written beside the cut cells, is held to the search
+    cell's workload, whose metrics it prints, and prints
+    ``lm_changed_lines`` beside them."""
     affinity, threads = os.sched_getaffinity(0), torch.get_num_threads()
     bench = _bench(**{**SMALL, "WORKERS": 2})  # the reference in processes
     assert bench.main(["--cell", cell] + cells + CPU) == 0
@@ -213,13 +229,20 @@ def test_cell_runs_on_the_cpu(cell, counted, cells, capsys):
     assert record["kernel_sources"] == list(bench.KERNEL_SOURCES)
     # the cut file's values, as the run read them
     spec = record["cell_spec"]
+    lm = spec["mode"] == "search_lm"
     assert spec["name"] == cell and spec["lexicon_entries"] == 3000
-    assert spec == json.loads(json.dumps({**vars(bench.read_cell(cell)), **{
-        k: v for k, v in CUT.items() if k in spec}}))
+    read = (bench.read_cell("search_synth120k") if lm
+            else bench.read_cell(cell))
+    assert spec == json.loads(json.dumps({**vars(read), **{
+        k: v for k, v in CUT.items() if k in spec}, "name": cell,
+        **(LM_CELL if lm else {})}))
     assert record["launch_rules"] == {"wide": False}
     assert record["index"]["L"] <= NARROW_LEN
-    spec = _cell(cell)
-    assert spec["chips"] == 1 and f"--cell {cell}" in spec["command"]
+    # the language model's entries hold no index row
+    assert record["index"]["lm_ngrams"] == (LM_CELL["bigrams"] if lm else 0)
+    spec = _cell("search_synth120k" if lm else cell)
+    assert spec["chips"] == 1
+    assert lm or f"--cell {cell}" in spec["command"]
     assert record["metric"] == spec["metric"]["name"]
     assert record["unit"] == spec["metric"]["unit"]
     assert record["value"] > 0
@@ -283,8 +306,14 @@ def test_cell_runs_on_the_cpu(cell, counted, cells, capsys):
             assert rd["tokens"] == sum(p["tokens"] for p in rd["passes"])
             assert rd["seconds"] == pytest.approx(
                 sum(p["seconds"] for p in rd["passes"]))
-        assert record["checked"] == {"gate_lines": 32,
-                                     "timed_lines": 3 * 4 * 32}
+        checked = record["checked"]
+        assert {k: checked.pop(k) for k in ("gate_lines", "timed_lines")} == {
+            "gate_lines": 32, "timed_lines": 3 * 4 * 32}
+        if lm:  # the language model changed some choice the gates held
+            assert checked.pop("lm_changed_lines") == metrics[
+                "lm_changed_lines"] >= 1
+            assert "lm_changed_lines" in printed
+        assert checked == {}
         work = [(rd["tokens"], rd["seconds"]) for rd in rounds]
         rows = [p for rd in rounds for p in rd["passes"]]
     # every round's traffic is fresh
@@ -361,6 +390,32 @@ def _tamper_search(monkeypatch, call=0):
     monkeypatch.setattr(VariantModel, "find_all_matches_stream", stream)
 
 
+def _tamper_selection(monkeypatch, call=0):
+    """In the ``call``-th stream (as ``_tamper_search``), select another
+    variant, of another score, of the first match among the checked lines
+    that has one: the language model's choice changed."""
+    real = VariantModel.find_all_matches_stream
+    calls = []
+
+    def stream(self, *args, **kwargs):
+        calls.append(None)
+        mine = len(calls) - 1 == call
+        for k, out in enumerate(real(self, *args, **kwargs)):
+            for i, m in enumerate(out if mine and k < 32 else ()):
+                other = [j for j, v in enumerate(m.variants or ())
+                         if m.selected is not None and v.dist_score
+                         != m.variants[m.selected].dist_score]
+                if other:
+                    out = list(out)
+                    out[i] = m.shallow_copy()
+                    out[i].selected = other[0]
+                    mine = False
+                    break
+            yield out
+
+    monkeypatch.setattr(VariantModel, "find_all_matches_stream", stream)
+
+
 @pytest.mark.parametrize("cell,tamper,where,check", [
     ("query_synth120k", _tamper_query, {}, "gate query"),
     ("query_synth120k", _tamper_query, {"call": 1}, "gate w12"),
@@ -368,7 +423,9 @@ def _tamper_search(monkeypatch, call=0):
      "timed windows"),
     ("search_synth120k", _tamper_search, {}, "gate search"),
     ("search_synth120k", _tamper_search, {"call": 7}, "timed passes"),
-], ids=["query", "query_w12", "query_timed", "search", "search_timed"])
+    ("search_lm", _tamper_selection, {"call": 7}, "timed passes"),
+], ids=["query", "query_w12", "query_timed", "search", "search_timed",
+        "search_lm_timed"])
 def test_a_differing_result_aborts(cell, tamper, where, check, counted,
                                    cells, monkeypatch, capsys):
     """Timed results are tampered in the last of two rounds: the check
@@ -435,6 +492,96 @@ def test_reference_agrees_with_the_port_oracle(rules):
     assert sum(len(w) for w in want) > 400
     assert [bench.as_tuples(model, model.find_variants(q, params))
             for q in queries] == want
+
+
+@pytest.mark.parametrize("max_seq", [1, 5, 250])
+def test_lm_reference_agrees_with_jax_and_the_port(max_seq, cells):
+    """The script's language-model decode against the JAX package's
+    ``find_all_matches`` with the same language model (host lookups) and
+    the port's search on the CPU (its device path's plain versions), match
+    lists exact, on a seeded 2,000-word lexicon, 400 bigrams and 64 lines
+    that carry them. At ``max_seq`` 1 the decode keeps one path, so the
+    language model changes no choice; deeper, it changes some."""
+    from analiticcl_tpu.models.variant_model import VariantModel as JaxModel
+    from analiticcl_tpu_torch.testing import (
+        ALPHABET, populate, synthetic_bigrams, synthetic_lexicon,
+        synthetic_text,
+    )
+    from test_torch_slice import ref_populate, to_ref
+
+    bench = _bench()
+    words = synthetic_lexicon(11, 2000)
+    bigrams = synthetic_bigrams(words, 12, 400)
+    texts = synthetic_text(words, 13, 64, bigrams)
+    cell = bench.read_cell("search_lm", cells[1])
+    cell.max_seq = max_seq
+    params = bench.search_parameters(cell)
+    assert (params.max_seq, params.lm_weight, params.variantmodel_weight,
+            params.contextrules_weight) == (max_seq, 1.0, 3.0, 1.0)
+    ref = bench.Reference(ALPHABET, words, bench.scoring(cell), None, bigrams)
+    want = [ref.search_decoded(t) for t in texts]
+    flat = [matches for matches, _ in want]
+    assert flat == [ref.search(t) for t in texts]
+    port = populate(VariantModel(alphabet=ALPHABET, device="cpu"), words,
+                    bigrams=bigrams)
+    jax = ref_populate(JaxModel(alphabet=ALPHABET), words, bigrams=bigrams)
+    jax.set_backend("oracle")
+    assert port.have_lm and jax.have_lm
+    got = [bench.match_signature(port, o)
+           for o in port.find_all_matches_stream(texts, params)]
+    assert got == flat
+    assert [bench.match_signature(jax, o) for o in
+            jax.find_all_matches_batch(texts, to_ref(params))] == flat
+    assert any(changed for _, changed in want) == (max_seq > 1)
+    assert sum(m[3] is not None for line in flat for m in line) > 8 * 64
+
+
+def test_nbest_paths_by_hand():
+    """Equal costs keep the order of their source state, then of the arc,
+    then of the source's hypothesis; the final states' paths go by cost,
+    state and hypothesis; arcs of no symbol leave no step."""
+    nbest = _bench().nbest_paths
+    arcs = [[(1, 1.0, "a"), (1, 1.0, "b"), (2, 2.0, "c"), (1, 9.0, None)],
+            [(2, 1.0, "d"), (2, 1.0, "e"), (2, 0.5, None)], []]
+    ad, bd, ae, be = ([(x, 1), (y, 2)] for x, y in ("ad", "bd", "ae", "be"))
+    assert nbest(arcs, [2], 9) == [
+        (1.5, [("a", 1)]), (1.5, [("b", 1)]), (2.0, [("c", 2)]),
+        (2.0, ad), (2.0, bd), (2.0, ae), (2.0, be), (9.5, []),
+        (10.0, [("d", 2)])]
+    assert nbest(arcs, [2], 4) == [
+        (1.5, [("a", 1)]), (1.5, [("b", 1)]), (2.0, [("c", 2)]), (2.0, ad)]
+    # each state keeps its own cheapest: state 1 holds a and b at nbest 2
+    assert nbest(arcs, [1, 2], 3) == [
+        (1.0, [("a", 1)]), (1.0, [("b", 1)]), (1.5, [("a", 1)])]
+    assert nbest(arcs, [2], 1) == [(1.5, [("a", 1)])]
+
+
+def test_perplexity_by_hand():
+    """Each transition's log-probability: ln 1e-6 where the bigram is
+    unknown or a token is out of the vocabulary, else the joint count's
+    log, over the first token's own count where that is at least the joint
+    count; the perplexity is their negative mean."""
+    from analiticcl_tpu_torch.testing import ALPHABET
+
+    bench = _bench()
+    ref = bench.Reference(ALPHABET, ["ab", "cd"], {}, None, [
+        ("ab cd", 7), ("cd ef", 2), ("ef", 4), ("ef ab", 1), ("ab cd", 3),
+        ("ab gh", 5)])
+    unseen = math.log(1e-6)
+    assert unseen == bench.SMOOTHING == -13.815510557964274
+    # "ab cd" keeps its largest frequency; "ef" is a word of the language
+    # model alone, "gh" no word at all: UNK
+    assert ref.ngrams == {("ab", "cd"): 7, ("cd", "ef"): 2, ("ef",): 4,
+                          ("ef", "ab"): 1, ("ab", "<unk>"): 5}
+    assert ref.perplexity(["<bos>", "ab", "cd", "ef", "<eos>"]) == (
+        -1.0 / 4 * (unseen + math.log(7) + math.log(2) + unseen))
+    assert ref.perplexity(["<bos>", "ef", "ab", None, "<eos>"]) == (
+        -1.0 / 4 * (unseen + math.log(1 / 4) + unseen + unseen))
+    assert ref.perplexity(["<bos>"]) == 0.0
+    assert ref.tokens("ab cd gh") == ("ab", "cd", "<unk>")
+    assert ref.tokens("ab ab ab ab ab ab") is None  # over five words
+    with pytest.raises(ValueError, match="apart from the lexicon"):
+        bench.Reference(ALPHABET, ["ab", "cd"], {}, None, [("cd", 1)])
 
 
 @pytest.mark.parametrize("cell,changed,message", [
@@ -617,16 +764,21 @@ def test_cells_are_the_benchmarks():
     assert (search.max_ngram, search.lines, search.passes) == (2, 4096, 10)
 
 
-@pytest.mark.parametrize("change,message", [
-    ({"mode": "learn"}, "mode 'learn'"),
-    ({"lines": 64}, r"unknown \['lines'\]"),
-    ({"batch": None}, r"missing \['batch'\]"),
-], ids=["mode", "unknown_key", "missing_key"])
-def test_a_cell_file_is_read_strictly(change, message, tmp_path):
-    """A cell's file with another mode, a key its mode does not take or a
-    key missing is refused, not run with a default."""
+@pytest.mark.parametrize("cell,change,message", [
+    ("query_synth120k", {"mode": "learn"}, "mode 'learn'"),
+    ("query_synth120k", {"lines": 64}, r"unknown \['lines'\]"),
+    ("query_synth120k", {"batch": None}, r"missing \['batch'\]"),
+    ("search_lm", {"bigrams": None}, r"missing \['bigrams'\]"),
+    ("search_synth120k", {"lm_weight": 1.0}, r"unknown \['lm_weight'\]"),
+], ids=["mode", "unknown_key", "missing_key", "lm_missing_key",
+        "lm_key_without_lm"])
+def test_a_cell_file_is_read_strictly(cell, change, message, tmp_path):
+    """A cell's file with another mode, a key its mode does not take (the
+    language model's in a search cell without one) or a key missing is
+    refused, not run with a default."""
     bench = _bench()
-    spec = json.loads((ROOT / "bench_cells/query_synth120k.json").read_text())
+    cut_cells(tmp_path / "cells")
+    spec = json.loads((tmp_path / f"cells/{cell}.json").read_text())
     spec.update(change)
     spec = {k: v for k, v in spec.items() if v is not None}
     (tmp_path / "odd.json").write_text(json.dumps(spec))
